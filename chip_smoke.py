@@ -5,7 +5,8 @@
 Phases (one line each; any failure raises and the script exits non-zero):
   1 device   CUDA present; the card's name and power limit (nvidia-smi);
              TF32 off for matmuls and cuDNN convolutions
-  2 build    nvcc builds talkshow_torch/csrc/ar_decode.cu (sm_90a), loaded
+  2 build    nvcc builds the three kernels of talkshow_torch/csrc/ (sm_90a),
+             one process per source, all started together; loaded
   3 K1       the AR-decode kernel against its plain PyTorch version at full
              width (dim 256, 15 layers, K 2048, H 75), B in {1, 8, 32}:
              a) f32 tables, injected gumbel noise: free-run tokens equal,
@@ -29,6 +30,29 @@ Phases (one line each; any failure raises and the script exits non-zero):
              events, fresh seed per run), the S=1 stages, and the K1 decode
              against the plain decode at B = 1 and 8, H = 75, each beside the
              card's name and limit
+  6 K2       the wav2vec encoder-layer kernel against its plain version at
+             full width (12 layers, 768 wide, 12 heads, FFN 3072, T = 300) on
+             random weights: B = 1 unmasked, B = 8 masked (valid 300, 270, ..,
+             90); f32 tables within 1e-3 on valid rows (the same f32 math in
+             another order through 12 post-norm layers), bf16 tables within
+             1e-2 of max|out| (both sides round every product's operands to
+             bf16; an intermediate may round the other way), padded rows finite
+  7 K3       the conv-extractor kernel against its plain version, full 7-conv
+             512-channel stack, 10 s clip, B = 1 and 8, f32 within 1e-3 and
+             bf16 within 1e-2 of max|out|; two runs equal bit for bit
+  8 face     models/wav2vec_fused.face_apply_fused at full width, f32
+             tables, on Pipeline.create(seed=0)'s weights, against the plain
+             face stage (FaceGenerator.forward): unmasked B = 1 on the 10 s
+             clip and masked B = 8 (clips of 10, 9, .., 3 s padded to 10 s),
+             real frames within 1e-3; launch counts read around each call
+             (K2 and K3 > 0 unmasked; K2 and the plain masked extractor > 0
+             masked); bf16 tables reported beside them
+  9 times    K2, K3 and face_apply_fused (bf16 tables) against their plain
+             versions at B = 1 and 8, K2's library yardstick (one
+             nn.TransformerEncoder call on the same weights, bf16) and the
+             device time of one K2 and one K3 call by kernel (torch.profiler),
+             each beside the card (phase 5's "face" stage is the plain
+             Pipeline.generate_face)
 Then one JSON line of kernels, the nvidia-smi line, and the result line.
 """
 from __future__ import annotations
@@ -46,6 +70,9 @@ import numpy as np
 import torch
 
 FULL = dict(dim=256, layers=15, K=2048, H=75)
+#: published H100 SXM peaks: bytes/s, bf16 FLOP/s
+HBM_BYTES_S, BF16_FLOP_S = 3.35e12, 989e12
+KERNELS = ("ar_decode", "wav2vec_layers", "wav2vec_extractor")
 
 
 def log(msg: str) -> None:
@@ -170,6 +197,250 @@ def write_wav(path: str, seconds: float, seed: int) -> None:
         w.writeframes(pcm.tobytes())
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least ms the card could take: bytes over HBM rate vs products over
+    the bf16 tensor-core rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def w2v_encoder(seed: int, dev):
+    """A full-width Wav2Vec2Encoder with random weights, biases and norm
+    parameters (init_weights_ leaves biases 0 and norms 1)."""
+    from talkshow_torch.models.layers import init_weights_
+    from talkshow_torch.models.wav2vec import Wav2Vec2Encoder
+    gen = torch.Generator().manual_seed(seed)
+    enc = init_weights_(Wav2Vec2Encoder(), gen)
+    with torch.no_grad():
+        for p in enc.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return enc.to(dev).eval()
+
+
+def speech(B: int, seconds: float, seed: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    x = 0.3 * np.sin(2 * np.pi * (180.0 + 20 * np.arange(B)[:, None]) * t) \
+        + 0.05 * rng.standard_normal((B, t.size))
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def check_close(tag: str, out, want, valid, dtype) -> float:
+    """max|out - want| over real rows; raises past the stated tolerance."""
+    err, scale = 0.0, 0.0
+    for b, n in enumerate(valid):
+        err = max(err, (out[b, :n] - want[b, :n]).abs().max().item())
+        scale = max(scale, want[b, :n].abs().max().item())
+    tol = 1e-3 if dtype == torch.float32 else 1e-2 * scale
+    finite = bool(torch.isfinite(out).all())
+    if not (err <= tol and finite):
+        raise AssertionError(f"{tag}: max|d| {err} > {tol} or non-finite output ({finite})")
+    return err if dtype == torch.float32 else err / scale
+
+
+def k2_ops(valid, T: int, tables) -> float:
+    """Products of the layer stack over real rows and real keys."""
+    L, H, F = tables["wqkv"].shape[0], tables["wqkv"].shape[2], tables["w1"].shape[1]
+    rows = float(sum(valid))
+    per_layer = 2 * rows * H * (4 * H + 2 * F) + 4 * sum(float(v) * v for v in valid) * H
+    return L * per_layer
+
+
+def k3_ops(B: int, N: int, tables) -> float:
+    ops, n, cin = 0.0, N, 1
+    for k, s, cout in tables["layers"]:
+        n = (n - k) // s + 1
+        ops += 2.0 * B * n * cout * k * cin
+        cin = cout
+    return ops
+
+
+def phase6(dev) -> float:
+    from talkshow_torch.kernels import wav2vec_layers as k2
+    enc = w2v_encoder(6, dev)
+    gen = torch.Generator().manual_seed(6)
+    worst = 0.0
+    for B, valid in ((1, [300]), (8, [300 - 30 * i for i in range(8)])):
+        x = torch.randn((B, 300, 768), generator=gen).to(dev)
+        vf = None if B == 1 else torch.tensor(valid, dtype=torch.int32, device=dev)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tables = k2.pack_encoder_tables(enc, dtype)
+            out = k2.encoder_layers_kernel(tables, x, vf)
+            errs[dtype] = check_close(f"phase 6 K2 B={B} {dtype}", out,
+                                      k2.encoder_layers_plain(tables, x, vf), valid, dtype)
+        worst = max(worst, errs[torch.float32])
+        log(f"phase 6 K2 B={B} {'masked ' + str(valid) if vf is not None else 'unmasked'}: "
+            f"f32 tables max|d| {errs[torch.float32]:.3e} <= 1e-3, bf16 tables max|d|/max|out| "
+            f"{errs[torch.bfloat16]:.3e} <= 1e-2, all rows finite")
+    return worst
+
+
+def phase7(dev) -> float:
+    from talkshow_torch.kernels import wav2vec_extractor as k3
+    enc = w2v_encoder(7, dev)
+    worst = 0.0
+    for B in (1, 8):
+        wave = speech(B, 10.0, 70 + B, dev)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tables = k3.pack_extractor_tables(enc.feature_extractor, dtype)
+            out = k3.extractor_kernel(tables, wave)
+            if out.shape != (B, 499, 512) or not torch.equal(out, k3.extractor_kernel(tables, wave)):
+                raise AssertionError(f"phase 7 K3 B={B}: shape {tuple(out.shape)} or runs differ")
+            errs[dtype] = check_close(f"phase 7 K3 B={B} {dtype}", out,
+                                      k3.extractor_plain(tables, wave), [499] * B, dtype)
+        worst = max(worst, errs[torch.float32])
+        log(f"phase 7 K3 B={B} 10 s: out (B, 499, 512), two runs equal; f32 tables max|d| "
+            f"{errs[torch.float32]:.3e} <= 1e-3, bf16 tables max|d|/max|out| "
+            f"{errs[torch.bfloat16]:.3e} <= 1e-2")
+    return worst
+
+
+def phase8(face, wav10: torch.Tensor) -> dict:
+    """face_apply_fused against the plain face stage; returns the launches
+    of the kernels over both runs."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.wav2vec_fused import face_apply_fused, pack_face_tables
+    dev = wav10.device
+    t32, t16 = (pack_face_tables(face, dt) for dt in (torch.float32, torch.bfloat16))
+    launches = dict.fromkeys(KERNELS, 0)
+    seconds = [10 - i for i in range(8)]
+    masked_wave = torch.zeros((8, 160000), device=dev)
+    for i, sec in enumerate(seconds):
+        masked_wave[i, :sec * 16000] = wav10[0, :sec * 16000]
+    vs = torch.tensor([sec * 16000 for sec in seconds], dtype=torch.int32, device=dev)
+    vf = vs * 30 // 16000
+    cases = (("unmasked B=1", wav10, {}, [300]),
+             ("masked B=8", masked_wave, dict(valid_samples=vs, valid_frames=vf), vf.tolist()))
+    for tag, wave, kw, valid in cases:
+        onehot = torch.zeros((wave.shape[0], 4), device=dev)
+        counts.clear()
+        out = face_apply_fused(face, wave, onehot, 300, tables=t32, **kw)
+        torch.cuda.synchronize()
+        seen = dict(counts)
+        for k in launches:
+            launches[k] += seen.get(k, 0)
+        with torch.no_grad():
+            want = face(wave, onehot, 300, **kw)
+        err = check_close(f"phase 8 {tag}", out, want, valid, torch.float32)
+        out16 = face_apply_fused(face, wave, onehot, 300, tables=t16, **kw)
+        err16 = max((out16[b, :n] - want[b, :n]).abs().max().item() for b, n in enumerate(valid))
+        k3_name = "wav2vec_extractor" if not kw else "extractor_plain"
+        if not (seen.get("wav2vec_layers", 0) > 0 and seen.get(k3_name, 0) > 0
+                and bool(torch.isfinite(out16).all())):
+            raise AssertionError(f"phase 8 {tag}: launch counts {seen}")
+        log(f"phase 8 face {tag}: face_apply_fused f32 tables vs plain face stage max|d| "
+            f"{err:.3e} <= 1e-3 on real frames; counts {dict(sorted(seen.items()))}; "
+            f"bf16 tables vs plain (f32) max|d| {err16:.3e} (reported)")
+    return launches
+
+
+def kernel_breakdown(fn, reps: int = 3) -> str:
+    """Device time per kernel name over reps calls (torch.profiler), as
+    'name: total ms / launches'; 'not measured' when the trace holds no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        if dev_us > 0 and ev.count > 0 and getattr(ev, "device_type", None) is not None \
+                and "CUDA" in str(ev.device_type):
+            rows.append((dev_us / reps / 1e3, ev.count // reps, ev.key))
+    if not rows:
+        return "not measured"
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    return f"total {total:.3f} ms; " + "; ".join(
+        f"{key[:60]}: {ms:.3f} ms / {n}" for ms, n, key in rows[:8])
+
+
+def library_encoder(tables, dtype):
+    """nn.TransformerEncoder with K2's weights: the library yardstick."""
+    L, _, H = tables["wqkv"].shape
+    layer = torch.nn.TransformerEncoderLayer(H, tables["heads"], tables["w1"].shape[1],
+                                             dropout=0.0, activation="gelu",
+                                             layer_norm_eps=tables["eps"], batch_first=True,
+                                             norm_first=False)
+    lib = torch.nn.TransformerEncoder(layer, L, enable_nested_tensor=False)
+    with torch.no_grad():
+        for l, m in enumerate(lib.layers):
+            m.self_attn.in_proj_weight.copy_(tables["wqkv"][l])
+            m.self_attn.in_proj_bias.copy_(tables["bqkv"][l])
+            m.self_attn.out_proj.weight.copy_(tables["wo"][l])
+            m.self_attn.out_proj.bias.copy_(tables["bo"][l])
+            m.linear1.weight.copy_(tables["w1"][l])
+            m.linear1.bias.copy_(tables["b1"][l])
+            m.linear2.weight.copy_(tables["w2"][l])
+            m.linear2.bias.copy_(tables["b2"][l])
+            for norm, p in ((m.norm1, tables["ln1"][l]), (m.norm2, tables["ln2"][l])):
+                norm.weight.copy_(p[0])
+                norm.bias.copy_(p[1])
+    return lib.to(tables["wqkv"].device, dtype).eval()
+
+
+def phase9(face, card: str) -> dict:
+    """Times at B = 1 and 8 (bf16 tables), in the order plain, kernel,
+    kernel, plain; returns the B = 1 numbers of K2 and K3 for the JSON."""
+    from talkshow_torch.kernels import wav2vec_extractor as k3
+    from talkshow_torch.kernels import wav2vec_layers as k2
+    from talkshow_torch.models.wav2vec_fused import face_apply_fused, pack_face_tables
+    dev = next(face.parameters()).device
+    enc = face.audio_encoder
+    t16 = pack_face_tables(face, torch.bfloat16)
+    t32 = k2.pack_encoder_tables(enc, torch.float32)
+    lib16, lib32 = library_encoder(t16["enc"], torch.bfloat16), library_encoder(t32, torch.float32)
+    gen = torch.Generator().manual_seed(9)
+    res = {}
+    for B in (1, 8):
+        x = torch.randn((B, 300, 768), generator=gen).to(dev)
+        wave = speech(B, 10.0, 90 + B, dev)
+        onehot = torch.zeros((B, 4), device=dev)
+        pad = torch.zeros((B, 300), dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            lib_err = (lib32(x, src_key_padding_mask=pad)
+                       - k2.encoder_layers_plain(t32, x)).abs().max().item()
+            x16 = x.to(torch.bfloat16)
+            rows = {
+                "K2 wav2vec_layers": (lambda: k2.encoder_layers_kernel(t16["enc"], x),
+                                      lambda: k2.encoder_layers_plain(t16["enc"], x)),
+                "K3 wav2vec_extractor": (lambda: k3.extractor_kernel(t16["ext"], wave),
+                                         lambda: k3.extractor_plain(t16["ext"], wave)),
+                "face_apply_fused": (lambda: face_apply_fused(face, wave, onehot, 300,
+                                                              tables=t16),
+                                     lambda: face(wave, onehot, 300)),
+            }
+            for name, (kern, plain) in rows.items():
+                p1, k1, k2_, p2 = cuda_ms(plain), cuda_ms(kern, 5), cuda_ms(kern, 5), cuda_ms(plain)
+                res[(name, B)] = ((k1 + k2_) / 2, (p1 + p2) / 2)
+                extra = ""
+                if name.startswith("K2"):
+                    lib_ms = cuda_ms(lambda: lib16(x16, src_key_padding_mask=pad), 5)
+                    res[("library", B)] = lib_ms
+                    extra = (f"; library nn.TransformerEncoder bf16 {lib_ms:.3f} ms "
+                             f"(its f32 output vs the plain f32 stack max|d| {lib_err:.2e})")
+                log(f"phase 9 {name} B={B}: kernel (bf16 tables) {k1:.3f} / {k2_:.3f} ms, "
+                    f"plain {p1:.3f} / {p2:.3f} ms{extra} [{card}]")
+    x1, w1 = torch.randn((1, 300, 768), generator=gen).to(dev), speech(1, 10.0, 98, dev)
+    for name, fn in (("K2 B=1", lambda: k2.encoder_layers_kernel(t16["enc"], x1)),
+                     ("K3 B=1", lambda: k3.extractor_kernel(t16["ext"], w1))):
+        log(f"phase 9 {name} device time by kernel: {kernel_breakdown(fn)} [{card}]")
+    res["x1"] = x1
+    res["t16"] = t16
+    return res
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -183,11 +454,17 @@ def main() -> int:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # ---- phase 2: build ------------------------------------------------------
-    from talkshow_torch.kernels import _build, ar_decode, counts
+    from concurrent.futures import ThreadPoolExecutor
+
+    from talkshow_torch.kernels import (_build, ar_decode, counts, wav2vec_extractor,
+                                        wav2vec_layers)
     t0 = time.time()
-    so = _build.build("ar_decode")
-    ar_decode._lib()
-    log(f"phase 2 build: {os.path.relpath(so)} built and loaded in {time.time() - t0:.1f} s")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        sos = list(pool.map(_build.build, KERNELS))
+    for mod in (ar_decode, wav2vec_layers, wav2vec_extractor):
+        mod._lib()
+    log(f"phase 2 build: {', '.join(os.path.relpath(so) for so in sos)} built and loaded "
+        f"in {time.time() - t0:.1f} s")
 
     # ---- phase 3: K1 against its plain version -------------------------------
     max_err = phase3(dev)
@@ -216,7 +493,7 @@ def main() -> int:
     pipe.table_dtype = torch.float32
     pipe.__dict__.pop("_decode_tables", None)
     from talkshow_torch.ops.audio import get_mfcc
-    feat = get_mfcc(wav1).numpy()
+    feat = get_mfcc(wav1, device="cpu").numpy()
     noise = gumbel_noise((feat.shape[0] // 4, 2, 2, FULL["K"]),
                          torch.Generator().manual_seed(5), "cpu")
     _, tok_gpu = pipe.generate_conv(feat, 0, 2, noise=noise)
@@ -298,10 +575,39 @@ def main() -> int:
         log(f"phase 5 ar_decode B={B} H=75: kernel (bf16 tables) {k1:.2f} / {k2:.2f} ms, "
             f"plain {p1:.2f} / {p2:.2f} ms [{card}]")
 
+    # ---- phases 6-9: the fused face stage (K2, K3) -------------------------------
+    err_k2 = phase6(dev)
+    err_k3 = phase7(dev)
+    face_launches = phase8(pipe.face_model, speech(1, 10.0, 0, dev))
+    times = phase9(pipe.face_model, card)
+
+    # bounds at B = 1 from the timed inputs
+    t1 = ar_decode.pack_decode_tables(prior_case(1, 41, dev)[0], torch.bfloat16)
+    mats = [t1[k] for k in ("wv0", "wvB", "wv2h", "wh", "wres", "wfv", "wfh", "w1", "w2")]
+    per_col = sum(m.numel() for m in mats[2:])
+    k1_ops = 2.0 * FULL["H"] * (mats[0].numel() + mats[1].numel() + 2 * per_col)
+    k1_bytes = nbytes(*t1.values()) + FULL["H"] * 2 * 4 \
+        + 4 * (FULL["layers"] * 2 * FULL["dim"] + 2 * FULL["H"] * FULL["dim"])
+    enc_t, ext_t = times["t16"]["enc"], times["t16"]["ext"]
+    x1 = times["x1"]
+    k2_bytes = nbytes(*(v for v in enc_t.values() if torch.is_tensor(v))) + 2 * nbytes(x1) + 4
+    k3_bytes = nbytes(ext_t["w0"], ext_t["ws"], ext_t["gn"]) + 160000 * 4 + 499 * 512 * 4
+    rows = [
+        ("ar_decode", ar_decode, launches, max_err, decode[1], bound(k1_bytes, k1_ops), None),
+        ("wav2vec_layers", wav2vec_layers, face_launches["wav2vec_layers"], err_k2,
+         times[("K2 wav2vec_layers", 1)], bound(k2_bytes, k2_ops([300], 300, enc_t)),
+         times[("library", 1)]),
+        ("wav2vec_extractor", wav2vec_extractor, face_launches["wav2vec_extractor"], err_k3,
+         times[("K3 wav2vec_extractor", 1)], bound(k3_bytes, k3_ops(1, 160000, ext_t)), None),
+    ]
+    for name, _, n, _, (ms, plain_ms), (bms, by), _ in rows:
+        log(f"bound {name} B=1: {bms:.4f} ms ({by}); kernel {ms:.3f} ms = {bms / ms:.1%} of "
+            f"the bound's rate; launches on the main path {n}")
     print(json.dumps({"kernels": [{
-        "name": "ar_decode", "route": "cuda", "source": ar_decode.SOURCE,
-        "replaces": ar_decode.REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": decode[1][0], "plain_ms": decode[1][1]}]}))
+        "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
+        "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+        for name, mod, n, err, (ms, plain_ms), (bms, by), lib_ms in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ interface:
          -Xcompiler -fPIC -o talkshow_torch/_build/<name>-<hash>.so csrc/<name>.cu
 
 The output lives in `talkshow_torch/_build/` (git-ignored), keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing is compiled or loaded at import.
+hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source rebuilds and an unchanged one loads at once.  Nothing is
+compiled or loaded at import.
 """
 from __future__ import annotations
 
@@ -45,7 +46,9 @@ def nvcc_path() -> str:
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless a library for this source exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(FLAGS).encode()).hexdigest()[:16]
     out = BUILD / f"{name}-{digest}.so"
     if out.exists():
         return out

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from talkshow_torch.kernels import counts
+from talkshow_torch.kernels import TABLE_DTYPES, check, counts
 from talkshow_torch.models.pixelcnn import GatedPixelCNN, sample_tokens
 
 #: largest sample batch one launch takes (models/body.py chunks above it)
@@ -36,7 +36,6 @@ MAX_BATCH = 32
 SOURCE = "talkshow_torch/csrc/ar_decode.cu"
 REPLACES = "talkshow_tpu/models/pixelcnn_pallas.py:363"
 
-_TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TABLE_KEYS = ("wv0", "wvB", "wv2h", "wh", "wres", "wfv", "wfh", "w1", "w2", "emb")
 _BIAS_KEYS = ("bv", "bhsum", "br", "b1", "b2")
 
@@ -73,7 +72,7 @@ def pack_decode_tables(model: GatedPixelCNN,
       w1 (512, d), w2 (K, 512), emb (K, d)
     Biases stay f32: bv (L, 2d), bhsum = v2h + horizontal bias (L, 2d),
     br (L, d), b1 (512), b2 (K)."""
-    if dtype not in _TABLE_DTYPES:
+    if dtype not in TABLE_DTYPES:
         raise ValueError(f"table dtype must be float32 or bfloat16, got {dtype}")
     d = model.dim
 
@@ -149,17 +148,6 @@ def conditioning(model: GatedPixelCNN, label: torch.Tensor,
             audh.float().contiguous())
 
 
-def _check(name, t, shape, dtype, device):
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
 @torch.no_grad()
 def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
                         audio: torch.Tensor, *, tables: dict | None = None,
@@ -196,14 +184,14 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
     if tables is None:
         tables = pack_decode_tables(model)
     tdtype = tables["emb"].dtype
-    if tdtype not in _TABLE_DTYPES:
+    if tdtype not in TABLE_DTYPES:
         raise TypeError(f"tables must be float32 or bfloat16, got {tdtype}")
     shapes = dict(wv0=(2, 2 * d, 6 * d), wvB=(L - 1, 2, 2 * d, 4 * d),
                   wv2h=(L, 2 * d, 2 * d), wh=(L, 2 * d, 2 * d), wres=(L, d, d),
                   wfv=(d, d), wfh=(d, d), w1=(hid, d), w2=(K, hid), emb=(K, d),
                   bv=(L, 2 * d), bhsum=(L, 2 * d), br=(L, d), b1=(hid,), b2=(K,))
     for k, shape in shapes.items():
-        _check(k, tables[k], shape, tdtype if k in _TABLE_KEYS else torch.float32, dev)
+        check(k, tables[k], shape, tdtype if k in _TABLE_KEYS else torch.float32, dev)
     label = label.to(dev)
     cls, audv, audh = conditioning(model, label, audio)
     seed = 0
@@ -212,11 +200,11 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
         seed = int(torch.randint(0, 2 ** 63 - 1, (1,), generator=generator,
                                  device=gdev).item())
     else:
-        _check("noise", noise, (H, 2, B, K), torch.float32, dev)
+        check("noise", noise, (H, 2, B, K), torch.float32, dev)
     prefix = None
     if prefix_tokens is not None and prefix_len > 0:
         prefix = prefix_tokens.to(device=dev, dtype=torch.int32).contiguous()
-        _check("prefix_tokens", prefix, (B, H, 2), torch.int32, dev)
+        check("prefix_tokens", prefix, (B, H, 2), torch.int32, dev)
     lib = _lib()
     tokens = torch.empty((B, H, 2), dtype=torch.int32, device=dev)
     logits = (torch.empty((B, H, 2, K), dtype=torch.float32, device=dev)
@@ -230,7 +218,7 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.talkshow_ar_decode(
-            _TABLE_DTYPES[tdtype], B, H, L, d, K, hid,
+            TABLE_DTYPES[tdtype], B, H, L, d, K, hid,
             *(ptr(tables[k]) for k in _TABLE_KEYS),
             *(ptr(tables[k]) for k in _BIAS_KEYS),
             ptr(cls), ptr(audv), ptr(audh), ptr(noise), seed,

@@ -33,7 +33,7 @@ class BodyModels(NamedTuple):
 def create_body_models(generator: torch.Generator, code_num: int = 2048,
                        embedding_dim: int = 64, num_hiddens: int = 1024,
                        pixel_dim: int = 256, pixel_layers: int = 15,
-                       num_classes: int = 4, device="cpu") -> BodyModels:
+                       num_classes: int = 4, device="cuda") -> BodyModels:
     """Random-init every body-stage module from `generator` (shapes per the
     reference config/body_pixel.json)."""
     st_b = vq_ops.init_vq_state(generator, code_num, embedding_dim, device)

@@ -92,7 +92,11 @@ class CNR1d(nn.Module):
         if residual and in_channels != out_channels:
             self.residual_layer = nn.Conv1d(in_channels, out_channels, 3, 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
+        # frame_mask (B, T, 1): zero padded frames at conv entry, so the SAME
+        # padding a real boundary frame reads is the unpadded program's zeros
+        if frame_mask is not None:
+            x = x * frame_mask
         xt = x.transpose(1, 2)
         out = self.norm(self.conv(xt).transpose(1, 2))
         if self.residual:
@@ -112,9 +116,9 @@ class SeqTranslator1D(nn.Module):
             CNR1d(in_channels if i == 0 else out_channels, out_channels,
                   residual=residual) for i in range(n))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
         for layer in self.conv_layers:
-            x = layer(x)
+            x = layer(x, frame_mask)
         return x
 
 
@@ -151,3 +155,32 @@ def linear_interpolate(x: torch.Tensor, out_len: int) -> torch.Tensor:
     hi = (lo + 1).clamp(max=in_len - 1)
     w = (pos - lo)[None, :, None].to(x.dtype)
     return x[:, lo, :] * (1 - w) + x[:, hi, :] * w
+
+
+def masked_linear_interpolate(x: torch.Tensor, out_len: int, in_valid: torch.Tensor,
+                              out_valid: torch.Tensor) -> torch.Tensor:
+    """`linear_interpolate` with per-example valid lengths (B,): the first
+    out_valid[b] output frames equal linear_interpolate(x[b, :in_valid[b]],
+    out_valid[b]), so padding a batch to a length bucket leaves real frames
+    unchanged.  The grid uses each example's true ratio and clamps at
+    in_valid - 1; a gather does the sampling."""
+    in_len = x.shape[1]
+    in_v = in_valid.to(device=x.device, dtype=torch.float32)[:, None]    # (B, 1)
+    out_v = out_valid.to(device=x.device, dtype=torch.float32)[:, None]
+    pos = (torch.arange(out_len, device=x.device, dtype=torch.float32)[None] + 0.5) \
+        * (in_v / out_v) - 0.5
+    pos = torch.minimum(pos.clamp_min(0.0), in_v - 1)
+    lo = pos.floor().long()
+    hi = torch.minimum(lo + 1, in_v.long() - 1).clamp_max(in_len - 1)
+    w = (pos - lo)[..., None].to(x.dtype)
+
+    def take(idx):
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+    return take(lo) * (1 - w) + take(hi) * w
+
+
+def length_mask(valid: torch.Tensor, length: int, dtype=torch.float32) -> torch.Tensor:
+    """(B,) valid lengths -> (B, length, 1) mask, 1 on frames < valid[b]."""
+    pos = torch.arange(length, device=valid.device)
+    return (pos[None, :, None] < valid[:, None, None]).to(dtype)

@@ -1,4 +1,4 @@
-"""wav2vec 2.0 encoder, unmasked inference path
+"""wav2vec 2.0 encoder, inference path
 (port of talkshow_tpu/models/wav2vec.py:31-283).
 
 CNN feature extractor (VALID convs, no bias, per-channel GroupNorm after
@@ -8,8 +8,13 @@ LayerNorm -> post-norm transformer layers.  Parameter names follow
 Hugging Face's Wav2Vec2Model, which talkshow_tpu/convert/wav2vec.py reads.
 The attention is plain matmul + f32 softmax, as flax computes it.
 
-The length-masked (bucketed) path and SpecAugment wait for the serving and
-training slices (ROADMAP.md).
+`valid_samples` / `valid_frames` (B,) select the length-masked path for
+batches padded to a length bucket: masked GroupNorm statistics, per-example
+interpolation, zeroed padded frames before the positional conv and masked
+attention keys keep every real frame equal to the unpadded program's.
+`mid_stack` and `pre_layers` are the split points the fused face stage
+(models/wav2vec_fused.py) hands over at.  SpecAugment and the frozen
+extractor wait for the training slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from talkshow_torch.models.layers import linear_interpolate
+from talkshow_torch.models.layers import (length_mask, linear_interpolate,
+                                          masked_linear_interpolate)
 
 
 @dataclass(frozen=True)
@@ -37,23 +43,52 @@ class Wav2Vec2Config:
     layer_norm_eps: float = 1e-5
 
 
+class ChannelGroupNorm(nn.Module):
+    """GroupNorm with one group per channel (statistics over time) on
+    (B, C, T), with optional per-example time masking (mask (B, 1, T)):
+    masked sums divide by max(n_valid, 1), so padded frames change no real
+    frame's normalisation.  Parameter names are nn.GroupNorm's."""
+
+    def __init__(self, channels: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, mask=None):
+        if mask is None:
+            mean = x.mean(-1, keepdim=True)
+            var = ((x - mean) ** 2).mean(-1, keepdim=True)
+        else:
+            n = mask.sum(-1, keepdim=True).clamp_min(1.0)
+            mean = (x * mask).sum(-1, keepdim=True) / n
+            var = (((x - mean) ** 2) * mask).sum(-1, keepdim=True) / n
+        h = (x - mean) * torch.rsqrt(var + self.eps)
+        return h * self.weight[:, None] + self.bias[:, None]
+
+
 class _ConvLayer(nn.Module):
     def __init__(self, cin: int, cout: int, k: int, s: int, norm_eps: float | None):
         super().__init__()
         self.conv = nn.Conv1d(cin, cout, k, s, bias=False)
-        # GroupNorm with one group per channel: statistics over time
-        self.layer_norm = (nn.GroupNorm(cout, cout, eps=norm_eps)
+        self.layer_norm = (ChannelGroupNorm(cout, norm_eps)
                            if norm_eps is not None else None)
 
-    def forward(self, x):
-        x = self.conv(x)
-        if self.layer_norm is not None:
-            x = self.layer_norm(x)
-        return F.gelu(x)
+
+def conv_valid_length(num_samples, cfg: Wav2Vec2Config):
+    """Valid feature length after the VALID conv stack; python ints and
+    integer tensors alike."""
+    n = num_samples
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        n = (n - k) // s + 1
+    return n
 
 
 class FeatureExtractor(nn.Module):
-    """Raw waveform (B, T) -> (B, T', conv_dim[-1])."""
+    """Raw waveform (B, T) -> (B, T', conv_dim[-1]).
+
+    valid_samples (B,) masks the GroupNorm statistics: the convs are VALID,
+    so feature frame j < valid length depends on real samples only."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -63,10 +98,19 @@ class FeatureExtractor(nn.Module):
                        cfg.layer_norm_eps if i == 0 else None)
             for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)))
 
-    def forward(self, x):
+    def forward(self, x, valid_samples=None):
         h = x[:, None, :]
+        n_valid = valid_samples
         for layer in self.conv_layers:
-            h = layer(h)
+            h = layer.conv(h)
+            k, s = layer.conv.kernel_size[0], layer.conv.stride[0]
+            if n_valid is not None:
+                n_valid = (n_valid - k) // s + 1
+            if layer.layer_norm is not None:
+                mask = (None if n_valid is None
+                        else length_mask(n_valid, h.shape[-1], h.dtype).transpose(1, 2))
+                h = layer.layer_norm(h, mask)
+            h = F.gelu(h)
         return h.transpose(1, 2)
 
 
@@ -104,7 +148,8 @@ class Attention(nn.Module):
         self.v_proj = nn.Linear(hidden, hidden)
         self.out_proj = nn.Linear(hidden, hidden)
 
-    def forward(self, x):
+    def forward(self, x, key_valid=None):
+        """key_valid (B, T) bool: keys that may be attended to."""
         B, T, C = x.shape
         hd = C // self.heads
 
@@ -113,7 +158,10 @@ class Attention(nn.Module):
 
         q = split(self.q_proj(x)) / math.sqrt(hd)
         k, v = split(self.k_proj(x)), split(self.v_proj(x))
-        w = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1).to(v.dtype)
+        s = (q @ k.transpose(-1, -2)).float()
+        if key_valid is not None:
+            s = s.masked_fill(~key_valid[:, None, None, :], torch.finfo(s.dtype).min)
+        w = torch.softmax(s, dim=-1).to(v.dtype)
         return self.out_proj((w @ v).transpose(1, 2).reshape(B, T, C))
 
 
@@ -138,23 +186,20 @@ class EncoderLayer(nn.Module):
         self.feed_forward = FeedForward(cfg.hidden_size, cfg.intermediate_size)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=eps)
 
-    def forward(self, x):
-        x = self.layer_norm(x + self.attention(x))
+    def forward(self, x, key_valid=None):
+        x = self.layer_norm(x + self.attention(x, key_valid))
         return self.final_layer_norm(x + self.feed_forward(x))
 
 
 class Encoder(nn.Module):
+    """Positional conv, encoder LayerNorm and the layer stack (HF names);
+    Wav2Vec2Encoder drives them."""
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
-
-    def forward(self, x):
-        x = self.layer_norm(x + self.pos_conv_embed(x))
-        for layer in self.layers:
-            x = layer(x)
-        return x
 
 
 class Wav2Vec2Encoder(nn.Module):
@@ -168,6 +213,39 @@ class Wav2Vec2Encoder(nn.Module):
         self.feature_projection = FeatureProjection(self.cfg)
         self.encoder = Encoder(self.cfg)
 
-    def forward(self, waveform: torch.Tensor, frame_num: int) -> torch.Tensor:
-        feats = linear_interpolate(self.feature_extractor(waveform), frame_num)
-        return self.encoder(self.feature_projection(feats))
+    def _pos_and_norm(self, x):
+        return self.encoder.layer_norm(x + self.encoder.pos_conv_embed(x))
+
+    def mid_stack(self, feats: torch.Tensor, frame_num: int) -> torch.Tensor:
+        """Extractor features (B, T50, C) -> pre-layer hidden states
+        (interpolation, projection, positional conv, LayerNorm); unmasked."""
+        return self._pos_and_norm(self.feature_projection(linear_interpolate(feats, frame_num)))
+
+    def pre_layers(self, waveform: torch.Tensor, frame_num: int,
+                   valid_samples=None, valid_frames=None) -> torch.Tensor:
+        """Everything before the transformer layers (inference only)."""
+        if valid_samples is None:
+            return self.mid_stack(self.feature_extractor(waveform), frame_num)
+        valid_samples = valid_samples.to(waveform.device)
+        valid_frames = valid_frames.to(waveform.device)
+        feats = self.feature_extractor(waveform, valid_samples)      # (B, T50, C)
+        in_valid = conv_valid_length(valid_samples, self.cfg)
+        feats = feats * length_mask(in_valid, feats.shape[1], feats.dtype)
+        feats = masked_linear_interpolate(feats, frame_num, in_valid, valid_frames)
+        # zero padded frames so the positional conv's reach into the pad
+        # sees the zeros the unpadded program's SAME padding has
+        x = self.feature_projection(feats) * length_mask(valid_frames, frame_num, feats.dtype)
+        return self._pos_and_norm(x)
+
+    def forward(self, waveform: torch.Tensor, frame_num: int,
+                valid_samples=None, valid_frames=None) -> torch.Tensor:
+        """valid_samples / valid_frames (B,) int tensors select the
+        length-masked path (see the module docstring)."""
+        x = self.pre_layers(waveform, frame_num, valid_samples, valid_frames)
+        key_valid = None
+        if valid_frames is not None:
+            key_valid = (torch.arange(x.shape[1], device=x.device)[None]
+                         < valid_frames.to(x.device)[:, None])
+        for layer in self.encoder.layers:
+            x = layer(x, key_valid)
+        return x

@@ -181,7 +181,7 @@ def mfcc(x: torch.Tensor, sr: int, fps: int = 30, n_mfcc: int = N_MFCC,
 
 
 def get_mfcc(audio_fn: str, sr: int = 22000, fps: int = 30,
-             device: torch.device | str = "cpu") -> torch.Tensor:
+             device: torch.device | str = "cuda") -> torch.Tensor:
     """wav path -> (T_frames, 64) float32 on `device`; == the reference's
     get_mfcc_ta(type='mfcc')."""
     x, sr0 = load_wav(audio_fn)

@@ -23,7 +23,7 @@ class VQState(NamedTuple):
 
 
 def init_vq_state(generator: torch.Generator, num_embeddings: int,
-                  embedding_dim: int, device="cpu") -> VQState:
+                  embedding_dim: int, device="cuda") -> VQState:
     """xavier-uniform codebook, zero EMA statistics."""
     limit = (6.0 / (num_embeddings + embedding_dim)) ** 0.5
     emb = torch.rand((num_embeddings, embedding_dim), generator=generator)

@@ -40,10 +40,12 @@ class Pipeline:
     norm_stats: tuple | None = None
 
     @classmethod
-    def create(cls, seed: int = 0, device="cpu",
+    def create(cls, seed: int = 0, device="cuda",
                wav2vec_cfg: Wav2Vec2Config | None = None,
                **body_kwargs) -> "Pipeline":
-        """Random-init pipeline, weights drawn from torch.Generator(seed)."""
+        """Random-init pipeline, weights drawn from torch.Generator(seed), on
+        `device` (the card unless the caller asks for the CPU; raises where
+        the device is missing)."""
         device = torch.device(device)
         gen = torch.Generator().manual_seed(seed)
         face = init_weights_(FaceGenerator(wav2vec_cfg), gen).to(device).eval()

@@ -59,3 +59,29 @@ def test_face_generator(wav):
         out = tm(torch.as_tensor(wav), torch.as_tensor(onehot), 15).numpy()
     assert out.shape == ref.shape == (2, 15, 103)
     np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_masked_face_generator_and_encoder(wav):
+    """Length-masked path (second clip padded): the port's encoder and face
+    generator equal flax's masked apply on real frames."""
+    jm = JFace(wav2vec_cfg=JCfg(**TINY))
+    onehot = np.eye(4, dtype=np.float32)[[0, 2]]
+    padded = wav.copy()
+    padded[1, 5000:] = 0.0
+    vs, vf = np.array([8000, 5000], np.int32), np.array([15, 9], np.int32)
+    variables = _perturb(jax.jit(jm.init, static_argnums=3)(
+        jax.random.PRNGKey(2), jnp.zeros((1, 3200)), jnp.zeros((1, 4)), 6), 5)
+    ref, inter = jax.jit(
+        lambda v, w, o, s, f: jm.apply(v, w, o, 15, valid_samples=s, valid_frames=f,
+                                       capture_intermediates=lambda m, n: isinstance(m, JEnc)))(
+        variables, jnp.asarray(padded), jnp.asarray(onehot), jnp.asarray(vs), jnp.asarray(vf))
+    ref_enc = np.asarray(inter["intermediates"]["audio_encoder"]["__call__"][0])
+    tm = FaceGenerator(Wav2Vec2Config(**TINY)).eval()
+    tm.load_state_dict(convert_face(variables))
+    args = (torch.as_tensor(vs), torch.as_tensor(vf))
+    with torch.no_grad():
+        enc = tm.audio_encoder(torch.as_tensor(padded), 15, *args).numpy()
+        out = tm(torch.as_tensor(padded), torch.as_tensor(onehot), 15, *args).numpy()
+    for b, n in enumerate(vf):
+        np.testing.assert_allclose(enc[b, :n], ref_enc[b, :n], atol=1e-4)
+        np.testing.assert_allclose(out[b, :n], np.asarray(ref)[b, :n], atol=1e-4)

@@ -1,24 +1,34 @@
-"""Kernel K1 (talkshow_torch/csrc/ar_decode.cu) against its plain PyTorch
-version, on an NVIDIA GPU.  Every test skips where CUDA is absent: the
-kernel has no CPU mode.  Imports no JAX, so it runs on a machine with the
+"""The CUDA kernels against their plain PyTorch versions, on an NVIDIA GPU:
+K1 (csrc/ar_decode.cu), K2 (csrc/wav2vec_layers.cu) and K3
+(csrc/wav2vec_extractor.cu).  Every test skips where CUDA is absent: the
+kernels have no CPU mode.  Imports no JAX, so it runs on a machine with the
 card and PyTorch only:
 
-    python -m pytest tests/test_torch_kernels_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Tolerances: f32 tables agree with the plain version to 1e-3 in the logits
-(the same f32 math, summed in another order through 15 layers); bf16
-tables are compared with the plain version fed the same bf16-rounded
-weights, so only the summation order differs there too.
+Tolerances: K1's f32 tables agree with the plain version to 1e-3 in the
+logits (the same f32 math, summed in another order through 15 layers);
+bf16 tables are compared with the plain version fed the same bf16-rounded
+weights, so only the summation order differs there too.  K2 and K3 round
+the operands of every product to the table type on both sides, so they
+too differ only in summation order: f32 tables within 1e-3 (12 post-norm
+layers; a 32 000-frame GroupNorm), bf16 tables within 1e-2 of the output's
+largest magnitude (an intermediate rounded to bf16 on one side may round
+the other way on the other, one bf16 ulp = 2**-8 of its value).  Rows at
+or past valid_frames must stay finite.
 """
 import numpy as np
 import pytest
 import torch
 
 from talkshow_torch.kernels import counts
+from talkshow_torch.kernels import wav2vec_extractor as k3
+from talkshow_torch.kernels import wav2vec_layers as k2
 from talkshow_torch.kernels.ar_decode import (pack_decode_tables, round_like_tables,
                                               sample_tokens_fused)
 from talkshow_torch.models.layers import init_weights_
 from talkshow_torch.models.pixelcnn import GatedPixelCNN, sample_tokens
+from talkshow_torch.models.wav2vec import Wav2Vec2Config, Wav2Vec2Encoder
 
 SHAPES = [  # dim, layers, K, B, H
     (16, 4, 32, 3, 7),
@@ -98,3 +108,80 @@ def test_philox_noise_is_seeded_and_in_range(cuda):
     a, b, c = run(0), run(0), run(1)
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert int(a.min()) >= 0 and int(a.max()) < SHAPES[0][2]
+
+
+W2V_SHAPES = {  # name: (config, B, T frames, N samples)
+    "tiny": (dict(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,
+                  conv_dim=(32, 32, 32), conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2)),
+             3, 37, 3001),
+    "full": ({}, 2, 300, 160000),
+}
+
+
+def _w2v_case(name, device, seed=0):
+    """A Wav2Vec2Encoder with random weights, biases and LayerNorm/GroupNorm
+    parameters, plus hidden states (B, T, H) and a waveform (B, N)."""
+    cfg, B, T, N = W2V_SHAPES[name]
+    gen = torch.Generator().manual_seed(seed)
+    enc = init_weights_(Wav2Vec2Encoder(Wav2Vec2Config(**cfg)), gen)
+    with torch.no_grad():
+        for pname, p in enc.named_parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    x = torch.randn((B, T, enc.cfg.hidden_size), generator=gen)
+    t = torch.arange(N) / 16000.0
+    wave = 0.3 * torch.sin(2 * np.pi * 220.0 * t) + 0.05 * torch.randn((B, N), generator=gen)
+    return enc.to(device).eval(), x.to(device), wave.to(device)
+
+
+def _w2v_check(out, want, valid, dtype):
+    for b, n in enumerate(valid):
+        err = (out[b, :n] - want[b, :n]).abs().max().item()
+        if dtype == torch.float32:
+            assert err <= 1e-3, err
+        else:
+            assert err <= 1e-2 * want[b, :n].abs().max().item(), err
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(W2V_SHAPES))
+def test_encoder_layers_kernel_matches_plain(cuda, name, dtype, masked):
+    enc, x, _ = _w2v_case(name, cuda)
+    B, T = x.shape[:2]
+    valid = [T - 7 * b * (T // 20) for b in range(B)] if masked else [T] * B
+    vf = torch.tensor(valid, dtype=torch.int32) if masked else None
+    tables = k2.pack_encoder_tables(enc, dtype)
+    counts.clear()
+    out = k2.encoder_layers_kernel(tables, x, vf)
+    torch.cuda.synchronize()
+    assert counts["wav2vec_layers"] == 1
+    _w2v_check(out, k2.encoder_layers_plain(tables, x, vf), valid, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(W2V_SHAPES))
+def test_extractor_kernel_matches_plain(cuda, name, dtype):
+    enc, _, wave = _w2v_case(name, cuda, seed=1)
+    tables = k3.pack_extractor_tables(enc.feature_extractor, dtype)
+    counts.clear()
+    out = k3.extractor_kernel(tables, wave)
+    torch.cuda.synchronize()
+    assert counts["wav2vec_extractor"] == 1
+    want = k3.extractor_plain(tables, wave)
+    assert out.shape == want.shape == (wave.shape[0], k3.out_length(wave.shape[1], tables),
+                                       enc.cfg.conv_dim[-1])
+    _w2v_check(out, want, [out.shape[1]] * out.shape[0], dtype)
+    again = k3.extractor_kernel(tables, wave)
+    assert torch.equal(out, again)     # fixed-order GroupNorm reduction: bit-for-bit
+
+
+def test_kernels_raise_on_cpu_tensors():
+    enc, x, wave = _w2v_case("tiny", "cpu")
+    with pytest.raises(ValueError):
+        k2.encoder_layers_kernel(k2.pack_encoder_tables(enc), x)
+    with pytest.raises(ValueError):
+        k3.extractor_kernel(k3.pack_extractor_tables(enc.feature_extractor), wave)

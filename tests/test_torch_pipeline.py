@@ -98,7 +98,7 @@ def _jax_noise(seed, H, S, K):
 def test_generate_matches_jax(pipes, wav_file):
     jp, tp = pipes
     S, seed, K = 2, 3, BODY["code_num"]
-    feat = taudio.get_mfcc(wav_file).numpy()
+    feat = taudio.get_mfcc(wav_file, device="cpu").numpy()
     H = feat.shape[0] // 4
     noise = torch.as_tensor(_jax_noise(seed, H, S, K))
 
@@ -149,7 +149,9 @@ def test_batches_over_32_decode_in_chunks(pipes):
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, talkshow_torch.pipeline, talkshow_torch.kernels.ar_decode; "
+    code = ("import sys, talkshow_torch.pipeline, talkshow_torch.kernels.ar_decode, "
+            "talkshow_torch.models.wav2vec_fused, talkshow_torch.kernels.wav2vec_layers, "
+            "talkshow_torch.kernels.wav2vec_extractor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'talkshow_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
