@@ -5,7 +5,7 @@
 Phases (one line each; any failure raises and the script exits non-zero):
   1 device   CUDA present; the card's name and power limit (nvidia-smi);
              TF32 off for matmuls and cuDNN convolutions
-  2 build    nvcc builds the three kernels of talkshow_torch/csrc/ (sm_90a),
+  2 build    nvcc builds the four kernels of talkshow_torch/csrc/ (sm_90a),
              one process per source, all started together; loaded
   3 K1       the AR-decode kernel against its plain PyTorch version at full
              width (dim 256, 15 layers, K 2048, H 75), B in {1, 8, 32}:
@@ -53,6 +53,33 @@ Phases (one line each; any failure raises and the script exits non-zero):
              device time of one K2 and one K3 call by kernel (torch.profiler),
              each beside the card (phase 5's "face" stage is the plain
              Pipeline.generate_face)
+ 10 K4       the nearest-code kernel against its plain version at full width
+             (codebook 2048 x 64, N in {75, 2816}): two runs equal bit for bit,
+             exact ties take the lower index, indices equal to plain except on
+             near-tie rows (best and second-best distances within
+             1e-5 (1 + |best|)), and on every row the pick's distance within
+             that tolerance of the minimum
+ 11 train    python -m talkshow_torch.train (its main()) for s2g_body_vq at full
+             width (batch 128, window 88, num_hiddens 1024) on a synthetic
+             dataset, one epoch of >= 10 steps: every logged loss finite,
+             nearest_code launched twice per step, the plain search never; a
+             checkpoint, and resume + one step equal to the uninterrupted run's
+             next step bit for bit; one step from one fresh state on CUDA
+             against the CPU (B = 8, TF32 off): losses within 1e-4 relative,
+             indices equal apart from near-ties, decoder gradients within 1e-3
+             of max|g|; encoder gradients, whose f32 rounding reaches ~1e-2 of
+             max|g| on either device (three levels of batch-statistics
+             BatchNorm behind the straight-through estimator), within 2e-2 of
+             an f64 CPU reference, the CPU's own f32 error beside them;
+             BatchNorm statistics and VQ states within 1e-4, parameters within
+             2 lr (Adam's first step moves each by about lr sign(g)), with the
+             share within 1e-6 reported; make_token_encoder on a batch of 128
+             launches K4
+ 12 times    the body-VQ step p50 and windows/s at B = 128, T = 88, its device
+             time by kernel (torch.profiler) and, for the record, its time with
+             TF32 on; K4, its plain version and the two-call yardstick
+             argmin(addmm) at N = 75 and 2816, with K4's device time by kernel;
+             the token encode at B = 128; each beside the card
 Then one JSON line of kernels, the nvidia-smi line, and the result line.
 """
 from __future__ import annotations
@@ -70,9 +97,12 @@ import numpy as np
 import torch
 
 FULL = dict(dim=256, layers=15, K=2048, H=75)
-#: published H100 SXM peaks: bytes/s, bf16 FLOP/s
-HBM_BYTES_S, BF16_FLOP_S = 3.35e12, 989e12
-KERNELS = ("ar_decode", "wav2vec_layers", "wav2vec_extractor")
+#: published H100 SXM peaks: bytes/s, bf16 tensor-core FLOP/s, f32 FLOP/s
+#: outside the tensor cores
+HBM_BYTES_S, BF16_FLOP_S, F32_FLOP_S = 3.35e12, 989e12, 67e12
+KERNELS = ("ar_decode", "wav2vec_layers", "wav2vec_extractor", "nearest_code")
+#: stage-1 training at full width (talkshow_tpu/config.py:21,60-62,79)
+TRAIN = dict(batch=128, window=88, num_hiddens=1024, codes=2048, dim=64)
 
 
 def log(msg: str) -> None:
@@ -197,10 +227,11 @@ def write_wav(path: str, seconds: float, seed: int) -> None:
         w.writeframes(pcm.tobytes())
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least ms the card could take: bytes over HBM rate vs products over
-    the bf16 tensor-core rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOP_S) -> tuple[float, str]:
+    """Least ms the card could take: bytes over HBM rate vs operations over
+    the peak rate for their type (bf16 tensor cores unless given),
+    whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -441,6 +472,292 @@ def phase9(face, card: str) -> dict:
     return res
 
 
+def code_distances(x, emb, e2):
+    """-2 x.E^T + ||e||^2, the f32 expression both K4 versions minimise."""
+    return -2.0 * (x @ emb.T) + e2[None, :]
+
+
+def check_codes(tag: str, idx, x, emb, e2, want=None) -> tuple[int, int, float]:
+    """Hold indices to the plain distance matrix of (x, emb): on every row
+    the picked code's distance within 1e-5 (1 + |best|) of the row's
+    minimum; against `want`, equal except on near-tie rows (best and
+    second-best within that tolerance).  Returns (near-tie rows, rows that
+    differ from want, largest distance excess of a pick)."""
+    dist = code_distances(x, emb, e2)
+    top2 = dist.topk(2, dim=1, largest=False).values
+    tol = 1e-5 * (1 + top2[:, 0].abs())
+    near = (top2[:, 1] - top2[:, 0]) <= tol
+    excess = dist.gather(1, idx[:, None])[:, 0] - top2[:, 0]
+    if not bool((excess <= tol).all()):
+        raise AssertionError(f"{tag}: a picked code is {excess.max().item()} past the minimum")
+    differ = 0
+    if want is not None:
+        diff = idx != want
+        if bool((diff & ~near).any()):
+            raise AssertionError(f"{tag}: indices differ on {int((diff & ~near).sum())} rows "
+                                 f"that are not near-ties")
+        differ = int(diff.sum())
+    return int(near.sum()), differ, excess.max().item()
+
+
+def phase10(dev) -> float:
+    """K4 against its plain version at full width; returns the largest
+    distance excess of the kernel's picks."""
+    from talkshow_torch.kernels import nearest_code as k4
+    K, D = TRAIN["codes"], TRAIN["dim"]
+    gen = torch.Generator().manual_seed(10)
+    limit = (6.0 / (K + D)) ** 0.5               # init_vq_state's codebook
+    emb = (torch.rand((K, D), generator=gen) * 2 - 1) * limit
+    dup = torch.arange(8) * 7
+    emb[K - 8:] = emb[dup]                       # exact duplicates: the lower index must win
+    emb = emb.to(dev)
+    e2 = k4.code_norms(emb)
+    worst = 0.0
+    for N in (75, 2816):
+        x = 0.05 * torch.randn((N, D), generator=gen)
+        x[:8] = emb[dup].cpu()                   # rows sitting on a duplicated code
+        x = x.to(dev)
+        idx = k4.nearest_code_kernel(x, emb, e2)
+        again = k4.nearest_code_kernel(x, emb, e2)
+        plain = k4.nearest_code_plain(x, emb, e2)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, again) and torch.equal(idx[:8].cpu(), dup)):
+            raise AssertionError(f"phase 10 K4 N={N}: runs differ or a tie took the higher index")
+        near, differ, excess = check_codes(f"phase 10 K4 N={N}", idx, x, emb, e2, plain)
+        worst = max(worst, excess)
+        log(f"phase 10 K4 N={N} codebook ({K}, {D}): two runs equal bit for bit, exact ties "
+            f"take the lower index, indices equal to plain on {N - differ}/{N} rows "
+            f"({differ} differ, all near-ties; {near} near-tie rows), largest distance excess "
+            f"of a pick {excess:.3e} <= 1e-5 (1 + |best|)")
+    return worst
+
+
+def write_train_config(path: str) -> None:
+    """A reference-format stage-1 config at full width: batch 128, window 88."""
+    cfg = {"Data": {"pose": {"generate_length": TRAIN["window"]}},
+           "Model": {"model_name": "s2g_body_vq", "code_num": TRAIN["codes"]},
+           "DataLoader": {"batch_size": TRAIN["batch"]},
+           "Train": {"epochs": 1, "learning_rate": {"generator_learning_rate": 1e-4}},
+           "Log": {"save_every": 1, "print_every": 5, "name": "body-vq"}}
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+
+
+def flat_state(state) -> dict:
+    out = {}
+    for part, model in state.models.items():
+        out.update({f"{part}.{k}": v for k, v in model.state_dict().items()})
+        out.update({f"{part}.vq.{k}": v for k, v in state.vq[part]._asdict().items()})
+    return out
+
+
+def phase11(dev, tmp: str) -> dict:
+    """Stage-1 training through `python -m talkshow_torch.train`'s entry
+    point at full width; resume; one step CUDA against CPU; the token
+    encode.  Returns what phase 12 times and the K4 launch count."""
+    import copy
+    import re
+
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.kernels.nearest_code import code_norms, nearest_code_plain
+    from talkshow_torch.models.vqvae import VQVAE
+    from talkshow_torch.ops import vq as vq_ops
+    from talkshow_torch.ops.pose import BODY_DIM, HAND_DIM
+    from talkshow_torch.train.__main__ import main as train_main
+    from talkshow_torch.train.steps import (PARTS, conv_channels, make_body_vq_step,
+                                            make_token_encoder, part_losses)
+    cfg = os.path.join(tmp, "body_vq.json")
+    write_train_config(cfg)
+    run_a, run_b = os.path.join(tmp, "run_a"), os.path.join(tmp, "run_b")
+    argv = ["--config_file", cfg, "--synthetic", "--synthetic_clips", "12",
+            "--synthetic_frames", "1000", "--epochs", "1",
+            "--num_hiddens", str(TRAIN["num_hiddens"]), "--device", str(dev)]
+    counts.clear()
+    t0 = time.time()
+    trainer = train_main(argv + ["--run_dir", run_a])
+    torch.cuda.synchronize()
+    seen, steps = dict(counts), trainer.global_step
+    if steps < 10 or seen.get("nearest_code", 0) != 2 * steps or seen.get("nearest_code_plain", 0):
+        raise AssertionError(f"phase 11: {steps} steps, counts {seen}")
+    with open(os.path.join(run_a, "train.log")) as f:
+        logged = [float(v) for line in f for _, v in re.findall(r"(\w+)=(\S+)", line)]
+    with open(os.path.join(run_a, "history.json")) as f:
+        hist = json.load(f)
+    logged += [v for h in hist for k, v in h.items() if k != "epoch"]
+    ckpt = os.path.join(run_a, "ckpt-0.pt")
+    if not (logged and all(math.isfinite(v) for v in logged) and os.path.isfile(ckpt)):
+        raise AssertionError(f"phase 11: logged values {logged[:12]}, checkpoint "
+                             f"{os.path.isfile(ckpt)}")
+    log(f"phase 11 train: python -m talkshow_torch.train s2g_body_vq, batch {TRAIN['batch']}, "
+        f"window {TRAIN['window']}, num_hiddens {TRAIN['num_hiddens']}: {steps} steps in "
+        f"{time.time() - t0:.1f} s (first cuDNN calls included); "
+        f"{len(logged)} logged values all finite; nearest_code launches "
+        f"{seen['nearest_code']} = 2 x {steps}, plain calls 0; {os.path.basename(ckpt)} written")
+
+    # resume + one step == the uninterrupted run's next step
+    resumed = train_main(argv + ["--run_dir", run_b, "--resume", ckpt])
+    batch = next(trainer.dataset.batches(TRAIN["batch"], np.random.default_rng(99)))
+    batch = {"poses": batch["poses"]}
+    _, m_a = trainer.step_fn(trainer.state, trainer.put_batch(batch))
+    _, m_b = resumed.step_fn(resumed.state, resumed.put_batch(batch))
+    fa, fb = flat_state(trainer.state), flat_state(resumed.state)
+    same = all(float(m_a[k]) == float(m_b[k]) for k in m_a) and all(
+        torch.equal(v, fb[k]) for k, v in fa.items())
+    if not same:
+        raise AssertionError("phase 11: resume + one step differs from the uninterrupted run")
+    log(f"phase 11 resume: ckpt-0 + one step equals the uninterrupted run's next step bit for "
+        f"bit ({len(fa)} tensors, {len(m_a)} metrics)")
+    del resumed
+
+    # one step from one state, CUDA against CPU (B = 8, full width, TF32 off)
+    lr = 1e-4
+
+    def fresh(device):
+        vb = VQVAE(BODY_DIM, TRAIN["dim"], TRAIN["num_hiddens"])
+        vh = VQVAE(HAND_DIM, TRAIN["dim"], TRAIN["num_hiddens"])
+        init, step = make_body_vq_step(vb, vh, lr, code_num=TRAIN["codes"])
+        return init(torch.Generator().manual_seed(11), device), step
+
+    (s_cpu, step_cpu), (s_gpu, step_gpu) = fresh("cpu"), fresh(dev)
+    poses8 = torch.as_tensor(batch["poses"][:8])
+    conv8 = conv_channels(poses8)
+    skip_codes, idx_note = {}, []
+    for name, sl in PARTS:
+        with torch.no_grad():
+            zc = copy.deepcopy(s_cpu.models[name]).train().encoder(conv8[..., sl])
+            zg = copy.deepcopy(s_gpu.models[name]).train().encoder(conv8[..., sl].to(dev))
+        zc = zc.reshape(-1, TRAIN["dim"])
+        emb = s_cpu.vq[name].embeddings
+        want = nearest_code_plain(zc, emb)
+        got = vq_ops.nearest_code(zg.reshape(-1, TRAIN["dim"]), s_gpu.vq[name].embeddings).cpu()
+        near, differ, _ = check_codes(f"phase 11 {name} indices", got, zc, emb, code_norms(emb),
+                                      want)
+        skip_codes[name] = torch.cat([want[got != want], got[got != want]]).unique()
+        idx_note.append(f"{name} {zc.shape[0] - differ}/{zc.shape[0]} equal ({near} near-ties)")
+    # f64 reference gradients on the CPU: the encoder's (behind the
+    # straight-through estimator and three levels of batch-statistics
+    # BatchNorm, 1024 channels at 176 positions) carry ~1e-2 of max|g| of
+    # f32 rounding on either device; the decoder's ~1e-4
+    g64 = {}
+    for name, sl in PARTS:
+        m64 = copy.deepcopy(s_cpu.models[name]).double().train()
+        vq64 = vq_ops.VQState(*(t.double() if t.is_floating_point() else t
+                                for t in s_cpu.vq[name]))
+        sum(part_losses(m64, vq64, conv8[..., sl].double())[:3]).backward()
+        g64[name] = {k: p.grad for k, p in m64.named_parameters()}
+        del m64
+    _, mc = step_cpu(s_cpu, {"poses": poses8})
+    _, mg = step_gpu(s_gpu, {"poses": poses8.to(dev)})
+    rel = max(abs(float(mg[k]) - float(mc[k])) / max(abs(float(mc[k])), 1e-12)
+              for k in mc if k != "nonfinite_skips")
+    g_err = dec_err = enc_gpu = enc_cpu = p_err = stat_err = vq_err = 0.0
+    within, total = 0, 0
+    for name, _ in PARTS:
+        pc = dict(s_cpu.models[name].named_parameters())
+        pg = dict(s_gpu.models[name].named_parameters())
+        gmax = max(g.abs().max().item() for g in g64[name].values())
+        for k, p in pc.items():
+            gc, gg, gr = p.grad.double(), pg[k].grad.cpu().double(), g64[name][k]
+            g_err = max(g_err, (gg - gc).abs().max().item() / gmax)
+            if k.startswith("decoder."):
+                dec_err = max(dec_err, (gg - gc).abs().max().item() / gmax)
+            else:
+                enc_gpu = max(enc_gpu, (gg - gr).abs().max().item() / gmax)
+                enc_cpu = max(enc_cpu, (gc - gr).abs().max().item() / gmax)
+            d = (pg[k].detach().cpu() - p.detach()).abs()
+            p_err = max(p_err, d.max().item())
+            within += int((d <= 1e-6).sum())
+            total += d.numel()
+        bc, bg = s_cpu.models[name].state_dict(), s_gpu.models[name].state_dict()
+        stat_err = max(stat_err, max((bg[k].cpu() - v).abs().max().item() for k, v in bc.items()
+                                     if k.endswith(("running_mean", "running_var"))))
+        keep = torch.ones(TRAIN["codes"], dtype=torch.bool)
+        keep[skip_codes[name]] = False
+        for a, b in zip(s_gpu.vq[name], s_cpu.vq[name]):
+            a = a.cpu()
+            vq_err = max(vq_err, (a[keep].double() - b[keep].double()).abs().max().item()
+                         if a.dim() else abs(int(a) - int(b)))
+    # Adam's first step moves a parameter by at most lr; 1e-3 of it covers
+    # the rounding of the stored values
+    if not (rel <= 1e-4 and dec_err <= 1e-3 and enc_gpu <= 2e-2 and stat_err <= 1e-4
+            and vq_err <= 1e-4 and p_err <= 2 * lr * (1 + 1e-3)):
+        raise AssertionError(f"phase 11 CUDA vs CPU: losses rel {rel}, decoder grads {dec_err} "
+                             f"of max, encoder grads vs f64 {enc_gpu} (CPU f32 {enc_cpu}), "
+                             f"statistics {stat_err}, VQ states {vq_err}, params {p_err}")
+    log(f"phase 11 CUDA vs CPU, one step from one state (B=8, T={TRAIN['window']}, full width, "
+        f"TF32 off): indices {', '.join(idx_note)}; losses within {rel:.2e} relative <= 1e-4; "
+        f"decoder gradients within {dec_err:.2e} of max|g| <= 1e-3; encoder gradients vs an "
+        f"f64 CPU reference within {enc_gpu:.2e} of max|g| <= 2e-2 (the CPU's f32: "
+        f"{enc_cpu:.2e}); all gradients CUDA vs CPU within {g_err:.2e} (reported); BatchNorm "
+        f"statistics within {stat_err:.2e}, VQ states within {vq_err:.2e} <= 1e-4 (codes of "
+        f"differing rows left out: {sum(len(v) for v in skip_codes.values())}); parameters "
+        f"within {p_err:.2e} <= 2 lr = {2 * lr:g}, {within / total:.2%} of them within 1e-6")
+    del s_cpu, s_gpu
+
+    # the frozen-token encode
+    enc = make_token_encoder(trainer.state.models["body"], trainer.state.models["hand"],
+                             trainer.state.vq)
+    poses128 = torch.as_tensor(batch["poses"], device=dev)
+    counts.clear()
+    tok = enc(poses128)
+    torch.cuda.synchronize()
+    if counts["nearest_code"] != 2 or tuple(tok.shape) != (TRAIN["batch"], TRAIN["window"] // 4, 2):
+        raise AssertionError(f"phase 11 token encode: shape {tuple(tok.shape)}, counts {dict(counts)}")
+    log(f"phase 11 token encode: make_token_encoder on B={TRAIN['batch']} -> "
+        f"{tuple(tok.shape)} int64, nearest_code launches {counts['nearest_code']}")
+    return dict(trainer=trainer, batch=batch, encode=enc, poses=poses128,
+                launches=seen["nearest_code"], steps=steps)
+
+
+def phase12(train: dict, card: str) -> dict:
+    """Times: the body-VQ step, K4 against its plain version and the
+    two-call yardstick, the token encode; returns K4's numbers at N = 2816."""
+    from talkshow_torch.kernels import nearest_code as k4
+    trainer = train["trainer"]
+    batch = trainer.put_batch(train["batch"])
+    times = []
+    for _ in range(11):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.step_fn(trainer.state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    p50 = float(np.median(times[1:]))
+    log(f"phase 12 body-VQ step B={TRAIN['batch']} T={TRAIN['window']}: p50 {p50:.2f} ms over "
+        f"{len(times) - 1} steps (min {min(times[1:]):.2f}, max {max(times[1:]):.2f}), "
+        f"{TRAIN['batch'] / p50 * 1e3:.1f} windows/s [{card}]")
+    log(f"phase 12 body-VQ step device time by kernel: "
+        f"{kernel_breakdown(lambda: trainer.step_fn(trainer.state, batch), reps=1)} [{card}]")
+    # for the record only: TF32 changes the numbers the port is held to
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    tf32_ms = cuda_ms(lambda: trainer.step_fn(trainer.state, batch), 5)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    log(f"phase 12 body-VQ step with TF32 on (not the port's setting): {tf32_ms:.2f} ms "
+        f"[{card}]")
+    emb = trainer.state.vq["body"].embeddings
+    e2 = k4.code_norms(emb)
+    gen = torch.Generator().manual_seed(12)
+    res = {}
+    for N in (75, 2816):
+        x = (0.05 * torch.randn((N, TRAIN["dim"]), generator=gen)).to(emb.device)
+        kern = lambda: k4.nearest_code_kernel(x, emb, e2)         # noqa: E731
+        plain = lambda: k4.nearest_code_plain(x, emb, e2)         # noqa: E731
+        lib = lambda: torch.argmin(torch.addmm(e2, x, emb.T, alpha=-2), 1)  # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain, 50), cuda_ms(kern, 50), cuda_ms(kern, 50), cuda_ms(plain, 50)
+        lib_ms = cuda_ms(lib, 50)
+        res[N] = ((k1 + k2) / 2, (p1 + p2) / 2, lib_ms, x)
+        log(f"phase 12 K4 nearest_code N={N} K={TRAIN['codes']} D={TRAIN['dim']}: kernel "
+            f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, two-call yardstick "
+            f"argmin(addmm) {lib_ms:.4f} ms [{card}]")
+        log(f"phase 12 K4 N={N} device time by kernel: {kernel_breakdown(kern, reps=20)} "
+            f"[{card}]")
+    enc_ms = cuda_ms(lambda: train["encode"](train["poses"]), 10)
+    log(f"phase 12 token encode B={TRAIN['batch']} T={TRAIN['window']}: {enc_ms:.3f} ms [{card}]")
+    res["emb"], res["e2"] = emb, e2
+    return res
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -456,12 +773,12 @@ def main() -> int:
     # ---- phase 2: build ------------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
 
-    from talkshow_torch.kernels import (_build, ar_decode, counts, wav2vec_extractor,
-                                        wav2vec_layers)
+    from talkshow_torch.kernels import (_build, ar_decode, counts, nearest_code,
+                                        wav2vec_extractor, wav2vec_layers)
     t0 = time.time()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         sos = list(pool.map(_build.build, KERNELS))
-    for mod in (ar_decode, wav2vec_layers, wav2vec_extractor):
+    for mod in (ar_decode, wav2vec_layers, wav2vec_extractor, nearest_code):
         mod._lib()
     log(f"phase 2 build: {', '.join(os.path.relpath(so) for so in sos)} built and loaded "
         f"in {time.time() - t0:.1f} s")
@@ -580,8 +897,15 @@ def main() -> int:
     err_k3 = phase7(dev)
     face_launches = phase8(pipe.face_model, speech(1, 10.0, 0, dev))
     times = phase9(pipe.face_model, card)
+    del pipe
 
-    # bounds at B = 1 from the timed inputs
+    # ---- phases 10-12: training stage 1 and K4 -----------------------------------
+    err_k4 = phase10(dev)
+    train = phase11(dev, tmp)
+    k4_times = phase12(train, card)
+
+    # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
+    # from the timed inputs
     t1 = ar_decode.pack_decode_tables(prior_case(1, 41, dev)[0], torch.bfloat16)
     mats = [t1[k] for k in ("wv0", "wvB", "wv2h", "wh", "wres", "wfv", "wfh", "w1", "w2")]
     per_col = sum(m.numel() for m in mats[2:])
@@ -592,22 +916,31 @@ def main() -> int:
     x1 = times["x1"]
     k2_bytes = nbytes(*(v for v in enc_t.values() if torch.is_tensor(v))) + 2 * nbytes(x1) + 4
     k3_bytes = nbytes(ext_t["w0"], ext_t["ws"], ext_t["gn"]) + 160000 * 4 + 499 * 512 * 4
+    k4_ms, k4_plain, _, k4_x = k4_times[2816]
+    N4, K4, D4 = k4_x.shape[0], TRAIN["codes"], TRAIN["dim"]
+    k4_bytes = nbytes(k4_x, k4_times["emb"], k4_times["e2"]) + N4 * 8
     rows = [
-        ("ar_decode", ar_decode, launches, max_err, decode[1], bound(k1_bytes, k1_ops), None),
-        ("wav2vec_layers", wav2vec_layers, face_launches["wav2vec_layers"], err_k2,
+        ("ar_decode", "B=1", ar_decode, launches, max_err, decode[1],
+         bound(k1_bytes, k1_ops), None),
+        ("wav2vec_layers", "B=1", wav2vec_layers, face_launches["wav2vec_layers"], err_k2,
          times[("K2 wav2vec_layers", 1)], bound(k2_bytes, k2_ops([300], 300, enc_t)),
          times[("library", 1)]),
-        ("wav2vec_extractor", wav2vec_extractor, face_launches["wav2vec_extractor"], err_k3,
-         times[("K3 wav2vec_extractor", 1)], bound(k3_bytes, k3_ops(1, 160000, ext_t)), None),
+        ("wav2vec_extractor", "B=1", wav2vec_extractor, face_launches["wav2vec_extractor"],
+         err_k3, times[("K3 wav2vec_extractor", 1)], bound(k3_bytes, k3_ops(1, 160000, ext_t)),
+         None),
+        # f32 sums, so the f32 peak; no single PyTorch call computes K4 (phase 12 times
+        # the two-call argmin(addmm) yardstick)
+        ("nearest_code", f"N={N4}", nearest_code, train["launches"], err_k4, (k4_ms, k4_plain),
+         bound(k4_bytes, 2.0 * N4 * K4 * D4, F32_FLOP_S), None),
     ]
-    for name, _, n, _, (ms, plain_ms), (bms, by), _ in rows:
-        log(f"bound {name} B=1: {bms:.4f} ms ({by}); kernel {ms:.3f} ms = {bms / ms:.1%} of "
-            f"the bound's rate; launches on the main path {n}")
+    for name, shape, _, n, _, (ms, plain_ms), (bms, by), _ in rows:
+        log(f"bound {name} {shape}: {bms:.4f} ms ({by}); kernel {ms:.4f} ms = {bms / ms:.1%} "
+            f"of the bound's rate; launches on the main path {n}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
-        for name, mod, n, err, (ms, plain_ms), (bms, by), lib_ms in rows]}))
+        for name, _, mod, n, err, (ms, plain_ms), (bms, by), lib_ms in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
 """talkshow_torch — the PyTorch / CUDA port of talkshow_tpu.
 
-Speech -> whole-body SMPL-X motion, run eagerly in PyTorch with the one
-serial loop of the inference path (the autoregressive PixelCNN token
-decode) as a hand-written CUDA kernel for Hopper (`csrc/ar_decode.cu`).
+Speech -> whole-body SMPL-X motion, run eagerly in PyTorch, with the
+kernels of the JAX package hand-written in CUDA for Hopper (`csrc/`): the
+autoregressive PixelCNN token decode, the wav2vec encoder layers and conv
+extractor, and the VQ nearest-code search that training stage 1 runs.
 
     from talkshow_torch.pipeline import Pipeline
     pipe = Pipeline.create(seed=0, device="cuda")
     motion = pipe.generate("speech.wav", speaker="oliver", num_samples=4)
     # motion: (num_samples, T, 265) SMPL-X params @30fps
+
+    python -m talkshow_torch.train --config_file body_vq.json --synthetic
 
 Module names mirror talkshow_tpu's, so each counterpart is easy to find.
 The package imports torch and numpy only: no JAX and nothing of

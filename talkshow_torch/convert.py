@@ -80,8 +80,10 @@ _CONV_STACK = [(r"\b(enc|dec|up|down)_(\d)\b", r"_\1_\2"),
 
 
 def convert_vqvae(variables: dict) -> dict:
-    """flax VQVAE variables -> port VQVAE state dict (decoder half)."""
-    return _convert(variables, _CONV_STACK, skip=("encoder",))
+    """flax VQVAE variables -> port VQVAE state dict (encoder and decoder).
+    Also maps an Adam moment tree shaped like the params: pass it as
+    {"params": tree}."""
+    return _convert(variables, _CONV_STACK)
 
 
 def convert_audio_encoder(variables: dict) -> dict:
@@ -136,6 +138,28 @@ def convert_face(variables: dict) -> dict:
 def _vq_state(state) -> VQState:
     return VQState(*(torch.tensor(np.asarray(getattr(state, f)))
                      for f in VQState._fields))
+
+
+def from_jax_body_vq_state(state) -> dict:
+    """A JAX `train.steps.BodyVQState` (numpy leaves) -> the port's stage-1
+    state, for `train.steps.BodyVQState.load_converted`.
+
+    Returns {"vq_body", "vq_hand": VQVAE state dicts (params + BatchNorm
+    statistics), "vq_body_state", "vq_hand_state": VQState, "exp_avg",
+    "exp_avg_sq": {"body", "hand": state dicts of the Adam moments},
+    "adam_step": optax's count, "nonfinite_count", "step": ints}."""
+    adam = next(s for s in state.opt_state["inner"] if hasattr(s, "mu"))
+    out = {"adam_step": int(np.asarray(adam.count)),
+           "nonfinite_count": int(np.asarray(state.opt_state["nonfinite_count"])),
+           "step": int(np.asarray(state.step)),
+           "exp_avg": {}, "exp_avg_sq": {}}
+    for part in ("body", "hand"):
+        out[f"vq_{part}"] = convert_vqvae({"params": state.params[part],
+                                           "batch_stats": state.batch_stats[part]})
+        out[f"vq_{part}_state"] = _vq_state(state.vq[part])
+        out["exp_avg"][part] = convert_vqvae({"params": adam.mu[part]})
+        out["exp_avg_sq"][part] = convert_vqvae({"params": adam.nu[part]})
+    return out
 
 
 def from_jax(face_vars: dict, body_vars: dict) -> dict:

@@ -35,18 +35,21 @@ def create_body_models(generator: torch.Generator, code_num: int = 2048,
                        pixel_dim: int = 256, pixel_layers: int = 15,
                        num_classes: int = 4, device="cuda") -> BodyModels:
     """Random-init every body-stage module from `generator` (shapes per the
-    reference config/body_pixel.json)."""
+    reference config/body_pixel.json).  The VQ encoders, which inference
+    does not run, draw their weights last, so every other module gets the
+    draws it got before they were ported."""
     st_b = vq_ops.init_vq_state(generator, code_num, embedding_dim, device)
     st_h = vq_ops.init_vq_state(generator, code_num, embedding_dim, device)
-    mods = [
-        VQVAE(BODY_DIM, embedding_dim, num_hiddens),
-        VQVAE(HAND_DIM, embedding_dim, num_hiddens),
-        AudioEncoder(64, num_hiddens=256),
-        GatedPixelCNN(input_dim=code_num, dim=pixel_dim, n_layers=pixel_layers,
-                      n_classes=num_classes, audio_channels=256),
-    ]
+    vq_body = VQVAE(BODY_DIM, embedding_dim, num_hiddens)
+    vq_hand = VQVAE(HAND_DIM, embedding_dim, num_hiddens)
+    audio_enc = AudioEncoder(64, num_hiddens=256)
+    prior = GatedPixelCNN(input_dim=code_num, dim=pixel_dim, n_layers=pixel_layers,
+                          n_classes=num_classes, audio_channels=256)
+    for m in (vq_body.decoder, vq_hand.decoder, audio_enc, prior,
+              vq_body.encoder, vq_hand.encoder):
+        init_weights_(m, generator)
     vq_body, vq_hand, audio_enc, prior = (
-        init_weights_(m, generator).to(device).eval() for m in mods)
+        m.to(device).eval() for m in (vq_body, vq_hand, audio_enc, prior))
     return BodyModels(vq_body, vq_hand, st_b, st_h, audio_enc, prior)
 
 
@@ -78,3 +81,13 @@ def generate_conv_poses(models: BodyModels, mfcc_feat: torch.Tensor,
     body = models.vq_body.decode_latents(tokens[..., 0], models.vq_body_state)
     hand = models.vq_hand.decode_latents(tokens[..., 1], models.vq_hand_state)
     return torch.cat([body, hand], dim=-1), tokens
+
+
+@torch.no_grad()
+def encode_gt_tokens(models: BodyModels, conv_poses: torch.Tensor) -> torch.Tensor:
+    """GT conv poses (B, T, 129) -> token grid (B, T/4, 2) int64 through the
+    frozen VQs (eval mode); the encode of prior training
+    (smplx_body_pixel.py:193-203).  K4 runs twice on a CUDA tensor."""
+    _, tb = models.vq_body.encode(conv_poses[..., :BODY_DIM], models.vq_body_state)
+    _, th = models.vq_hand.encode(conv_poses[..., BODY_DIM:], models.vq_hand_state)
+    return torch.stack([tb, th], dim=-1)

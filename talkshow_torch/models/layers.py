@@ -3,8 +3,9 @@
 Public layout is the JAX package's (B, T, C); each block transposes to
 Conv1d's (B, C, T) inside.  Submodule names follow the reference torch
 modules (`conv`, `norm`, `residual_layer`, `_layers`), the names that
-talkshow_tpu/convert/talkshow.py reads.  BatchNorm runs in eval mode from
-its running statistics (eps 1e-5), as the JAX inference path does.
+talkshow_tpu/convert/talkshow.py reads.  BatchNorm (eps 1e-5) runs from its
+running statistics in eval mode and from batch statistics in train mode,
+updating the running ones the flax way (`FlaxBatchNorm1d`).
 """
 from __future__ import annotations
 
@@ -15,6 +16,35 @@ import torch.nn.functional as F
 
 def _act(x: torch.Tensor, leaky: bool) -> torch.Tensor:
     return F.leaky_relu(x, 0.2) if leaky else F.relu(x)
+
+
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """`TorchBatchNorm` of talkshow_tpu/models/layers.py:24-32, i.e. flax
+    `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`, under nn.BatchNorm1d's
+    state-dict names.
+
+    Train mode normalises with the batch statistics as flax computes them,
+    var = max(0, E[x^2] - E[x]^2) over (B, T), and updates
+    running = 0.9 * running + 0.1 * batch with that **biased** variance;
+    torch's own update uses the unbiased one (n / (n - 1) larger).  Eval
+    mode is nn.BatchNorm1d's.  `num_batches_tracked` is not advanced."""
+
+    MOMENTUM = 0.9
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2))
+        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
 
 
 _SAMPLE = {  # sample mode -> (kernel, stride, padding)
@@ -40,7 +70,7 @@ class ConvNormRelu(nn.Module):
         conv = nn.ConvTranspose1d if sample == "up" else nn.Conv1d
         self.leaky = leaky
         self.conv = conv(in_channels, out_channels, k, s, p)
-        self.norm = nn.BatchNorm1d(out_channels, eps=1e-5)
+        self.norm = FlaxBatchNorm1d(out_channels)
         self.residual_layer = None
         self.residual = residual
         if residual and (sample in ("up", "down") or in_channels != out_channels):
@@ -66,7 +96,7 @@ class ResCNRStack(nn.Module):
         self._layers = nn.ModuleList(
             ConvNormRelu(channels, channels, leaky=leaky) for _ in range(layers))
         self.conv = nn.Conv1d(channels, channels, 3, 1, 1)
-        self.norm = nn.BatchNorm1d(channels, eps=1e-5)
+        self.norm = FlaxBatchNorm1d(channels)
 
     def forward_nct(self, x: torch.Tensor) -> torch.Tensor:
         h = x

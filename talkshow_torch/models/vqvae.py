@@ -1,9 +1,10 @@
-"""1-D conv VQ-VAE decoder and the MFCC audio encoder
-(port of talkshow_tpu/models/vqvae.py:49-107,131-150).
+"""1-D conv VQ-VAE for body/hand motion tokens and the MFCC audio encoder
+(port of talkshow_tpu/models/vqvae.py:28-107,131-150).
 
-Inference needs only the decode half of the VQ-VAE: tokens -> codebook
-lookup -> Decoder (T/4 -> T).  The encoder and the quantizer's training
-update wait for the training slice (ROADMAP.md).
+Inference needs only the decode half: tokens -> codebook lookup -> Decoder
+(T/4 -> T).  Training (stage 1) runs the whole VQ-VAE: Encoder (T -> T/4)
+-> EMA quantizer (`ops/vq.quantize_train`, K4 on the card) -> Decoder; the
+prior's token encode runs Encoder -> `ops/vq.quantize`.
 """
 from __future__ import annotations
 
@@ -12,6 +13,31 @@ import torch.nn as nn
 
 from talkshow_torch.models.layers import ConvNormRelu, ResCNRStack
 from talkshow_torch.ops import vq as vq_ops
+
+
+class Encoder(nn.Module):
+    """(B, T, in_dim) -> (B, T/4, embedding_dim) (vqvae_1d.py:66-92)."""
+
+    def __init__(self, in_dim: int, embedding_dim: int = 64,
+                 num_hiddens: int = 1024, num_residual_layers: int = 2):
+        super().__init__()
+        nh, r = num_hiddens, num_residual_layers
+        self.project = ConvNormRelu(in_dim, nh // 4, leaky=True)
+        self._enc_1 = ResCNRStack(nh // 4, r, leaky=True)
+        self._down_1 = ConvNormRelu(nh // 4, nh // 2, leaky=True, residual=True,
+                                    sample="down")
+        self._enc_2 = ResCNRStack(nh // 2, r, leaky=True)
+        self._down_2 = ConvNormRelu(nh // 2, nh, leaky=True, residual=True,
+                                    sample="down")
+        self._enc_3 = ResCNRStack(nh, r, leaky=True)
+        self.pre_vq_conv = nn.Conv1d(nh, embedding_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.transpose(1, 2)
+        for block in (self.project, self._enc_1, self._down_1, self._enc_2,
+                      self._down_2, self._enc_3):
+            h = block.forward_nct(h)
+        return self.pre_vq_conv(h).transpose(1, 2)
 
 
 class Decoder(nn.Module):
@@ -38,13 +64,41 @@ class Decoder(nn.Module):
 
 
 class VQVAE(nn.Module):
-    """Decode half of vqvae_1d.VQVAE (:168-208): codebook indices -> poses."""
+    """vqvae_1d.VQVAE (:168-208): poses (B, T, in_dim) <-> codebook indices
+    (B, T/4).  The quantizer state is the functional `vq_state` argument.
+    `encoder` is registered after `decoder`, so `init_weights_` draws the
+    decoder's weights first, as it did before the encoder was ported
+    (`body.create_body_models` draws both encoders last)."""
 
     def __init__(self, in_dim: int, embedding_dim: int = 64,
                  num_hiddens: int = 1024, num_residual_layers: int = 2):
         super().__init__()
+        self.embedding_dim = embedding_dim
         self.decoder = Decoder(in_dim, embedding_dim, num_hiddens,
                                num_residual_layers)
+        self.encoder = Encoder(in_dim, embedding_dim, num_hiddens,
+                               num_residual_layers)
+
+    def forward(self, poses: torch.Tensor, vq_state: vq_ops.VQState,
+                train: bool | None = None):
+        """-> (recon, commit_loss, new_vq_state, indices).  train (default:
+        the module's mode, which it must equal) selects the EMA update and
+        batch-statistics BatchNorm, as the JAX `train` flag does."""
+        train = self.training if train is None else train
+        if train != self.training:
+            raise ValueError(f"train={train} but the module is in "
+                             f"{'train' if self.training else 'eval'} mode")
+        z = self.encoder(poses)
+        if train:
+            quant, commit, new_state, idx = vq_ops.quantize_train(vq_state, z)
+        else:
+            quant, idx = vq_ops.quantize(vq_state, z)
+            commit, new_state = z.new_zeros(()), vq_state
+        return self.decoder(quant), commit, new_state, idx
+
+    def encode(self, poses: torch.Tensor, vq_state: vq_ops.VQState):
+        """(B, T, C) -> (quantized (B, T/4, D), indices (B, T/4))."""
+        return vq_ops.quantize(vq_state, self.encoder(poses))
 
     def decode_latents(self, indices: torch.Tensor,
                        vq_state: vq_ops.VQState) -> torch.Tensor:

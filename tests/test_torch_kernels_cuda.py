@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on an NVIDIA GPU:
-K1 (csrc/ar_decode.cu), K2 (csrc/wav2vec_layers.cu) and K3
-(csrc/wav2vec_extractor.cu).  Every test skips where CUDA is absent: the
+K1 (csrc/ar_decode.cu), K2 (csrc/wav2vec_layers.cu), K3
+(csrc/wav2vec_extractor.cu) and K4 (csrc/nearest_code.cu).  Every test skips where CUDA is absent: the
 kernels have no CPU mode.  Imports no JAX, so it runs on a machine with the
 card and PyTorch only:
 
@@ -15,7 +15,11 @@ too differ only in summation order: f32 tables within 1e-3 (12 post-norm
 layers; a 32 000-frame GroupNorm), bf16 tables within 1e-2 of the output's
 largest magnitude (an intermediate rounded to bf16 on one side may round
 the other way on the other, one bf16 ulp = 2**-8 of its value).  Rows at
-or past valid_frames must stay finite.
+or past valid_frames must stay finite.  K4 sums the same f32 products in
+another order than the plain matmul: its indices equal the plain version's
+except on near-tie rows (best and second-best distances within
+1e-5 (1 + |best|)), and every pick lies within that tolerance of the row's
+minimum distance.
 """
 import numpy as np
 import pytest
@@ -26,6 +30,8 @@ from talkshow_torch.kernels import wav2vec_extractor as k3
 from talkshow_torch.kernels import wav2vec_layers as k2
 from talkshow_torch.kernels.ar_decode import (pack_decode_tables, round_like_tables,
                                               sample_tokens_fused)
+from talkshow_torch.kernels.nearest_code import nearest_code_plain
+from talkshow_torch.ops import vq as vq_ops
 from talkshow_torch.models.layers import init_weights_
 from talkshow_torch.models.pixelcnn import GatedPixelCNN, sample_tokens
 from talkshow_torch.models.wav2vec import Wav2Vec2Config, Wav2Vec2Encoder
@@ -177,6 +183,31 @@ def test_extractor_kernel_matches_plain(cuda, name, dtype):
     _w2v_check(out, want, [out.shape[1]] * out.shape[0], dtype)
     again = k3.extractor_kernel(tables, wave)
     assert torch.equal(out, again)     # fixed-order GroupNorm reduction: bit-for-bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,D", [(37, 100, 16), (75, 2048, 64), (2816, 2048, 64)])
+def test_nearest_code_kernel_matches_plain(cuda, N, K, D):
+    gen = torch.Generator().manual_seed(N)
+    emb = (torch.rand((K, D), generator=gen) * 2 - 1) * 0.05
+    emb[K - 3:] = emb[:3]                      # duplicated codes: exact ties
+    x = 0.05 * torch.randn((N, D), generator=gen)
+    x[:3] = emb[:3]
+    x, emb = x.to(cuda), emb.to(cuda)
+    counts.clear()
+    idx = vq_ops.nearest_code(x, emb)
+    torch.cuda.synchronize()
+    assert counts["nearest_code"] == 1 and counts["nearest_code_plain"] == 0
+    assert idx.dtype == torch.int64 and idx.shape == (N,)
+    assert torch.equal(idx, vq_ops.nearest_code(x, emb))
+    assert idx[:3].tolist() == [0, 1, 2]       # the lower index wins a tie
+    e2 = (emb * emb).sum(1)
+    dist = -2.0 * (x @ emb.T) + e2[None]
+    top2 = dist.topk(2, dim=1, largest=False).values
+    tol = 1e-5 * (1 + top2[:, 0].abs())
+    assert bool((dist.gather(1, idx[:, None])[:, 0] - top2[:, 0] <= tol).all())
+    near = top2[:, 1] - top2[:, 0] <= tol
+    assert not bool(((idx != nearest_code_plain(x, emb, e2)) & ~near).any())
 
 
 def test_kernels_raise_on_cpu_tensors():
