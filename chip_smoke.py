@@ -72,12 +72,13 @@ Phases (one line each; any failure raises and the script exits non-zero):
              BatchNorm behind the straight-through estimator), within 2e-2 of
              an f64 CPU reference, the CPU's own f32 error beside them;
              BatchNorm statistics and VQ states within 1e-4, parameters within
-             2 lr (Adam's first step moves each by about lr sign(g)), with the
-             share within 1e-6 reported; make_token_encoder on a batch of 128
-             launches K4
+             2 lr (Adam's first step moves each by about lr sign(g)) and at
+             least 99 % of them within 1e-2 lr; make_token_encoder on a batch
+             of 128 launches K4
  12 times    the body-VQ step p50 and windows/s at B = 128, T = 88, its device
              time by kernel (torch.profiler) and, for the record, its time with
-             TF32 on; K4, its plain version and the two-call yardstick
+             cuDNN's non-deterministic algorithms (TF32 off) and with TF32 on;
+             K4, its plain version and the two-call yardstick
              argmin(addmm) at N = 75 and 2816, with K4's device time by kernel;
              the token encode at B = 128; each beside the card
 Then one JSON line of kernels, the nvidia-smi line, and the result line.
@@ -569,16 +570,16 @@ def phase11(dev, tmp: str) -> dict:
     cfg = os.path.join(tmp, "body_vq.json")
     write_train_config(cfg)
     run_a, run_b = os.path.join(tmp, "run_a"), os.path.join(tmp, "run_b")
-    argv = ["--config_file", cfg, "--synthetic", "--synthetic_clips", "12",
-            "--synthetic_frames", "1000", "--epochs", "1",
-            "--num_hiddens", str(TRAIN["num_hiddens"]), "--device", str(dev)]
+    argv = ["--config_file", cfg, "--synthetic", "--epochs", "1", "--device", str(dev)]
     counts.clear()
     t0 = time.time()
     trainer = train_main(argv + ["--run_dir", run_a])
     torch.cuda.synchronize()
     seen, steps = dict(counts), trainer.global_step
-    if steps < 10 or seen.get("nearest_code", 0) != 2 * steps or seen.get("nearest_code_plain", 0):
-        raise AssertionError(f"phase 11: {steps} steps, counts {seen}")
+    width = trainer.state.models["body"].encoder.pre_vq_conv.in_channels
+    if (steps < 10 or width != TRAIN["num_hiddens"] or seen.get("nearest_code", 0) != 2 * steps
+            or seen.get("nearest_code_plain", 0)):
+        raise AssertionError(f"phase 11: {steps} steps, width {width}, counts {seen}")
     with open(os.path.join(run_a, "train.log")) as f:
         logged = [float(v) for line in f for _, v in re.findall(r"(\w+)=(\S+)", line)]
     with open(os.path.join(run_a, "history.json")) as f:
@@ -666,7 +667,7 @@ def phase11(dev, tmp: str) -> dict:
                 enc_cpu = max(enc_cpu, (gc - gr).abs().max().item() / gmax)
             d = (pg[k].detach().cpu() - p.detach()).abs()
             p_err = max(p_err, d.max().item())
-            within += int((d <= 1e-6).sum())
+            within += int((d <= 1e-2 * lr).sum())
             total += d.numel()
         bc, bg = s_cpu.models[name].state_dict(), s_gpu.models[name].state_dict()
         stat_err = max(stat_err, max((bg[k].cpu() - v).abs().max().item() for k, v in bc.items()
@@ -678,12 +679,19 @@ def phase11(dev, tmp: str) -> dict:
             vq_err = max(vq_err, (a[keep].double() - b[keep].double()).abs().max().item()
                          if a.dim() else abs(int(a) - int(b)))
     # Adam's first step moves a parameter by at most lr; 1e-3 of it covers
-    # the rounding of the stored values
+    # the rounding of the stored values.  It moves each by about lr sign(g),
+    # so only parameters whose gradient is near zero beside its f32 rounding
+    # (conv biases under batch-statistics BatchNorm, small encoder
+    # gradients) may take another sign on the card: at least 99 % must land
+    # within 1e-2 lr of the CPU's, which a missing, scaled or reversed
+    # update fails
+    share = within / total
     if not (rel <= 1e-4 and dec_err <= 1e-3 and enc_gpu <= 2e-2 and stat_err <= 1e-4
-            and vq_err <= 1e-4 and p_err <= 2 * lr * (1 + 1e-3)):
+            and vq_err <= 1e-4 and p_err <= 2 * lr * (1 + 1e-3) and share >= 0.99):
         raise AssertionError(f"phase 11 CUDA vs CPU: losses rel {rel}, decoder grads {dec_err} "
                              f"of max, encoder grads vs f64 {enc_gpu} (CPU f32 {enc_cpu}), "
-                             f"statistics {stat_err}, VQ states {vq_err}, params {p_err}")
+                             f"statistics {stat_err}, VQ states {vq_err}, params {p_err}, "
+                             f"share within 1e-2 lr {share}")
     log(f"phase 11 CUDA vs CPU, one step from one state (B=8, T={TRAIN['window']}, full width, "
         f"TF32 off): indices {', '.join(idx_note)}; losses within {rel:.2e} relative <= 1e-4; "
         f"decoder gradients within {dec_err:.2e} of max|g| <= 1e-3; encoder gradients vs an "
@@ -691,7 +699,8 @@ def phase11(dev, tmp: str) -> dict:
         f"{enc_cpu:.2e}); all gradients CUDA vs CPU within {g_err:.2e} (reported); BatchNorm "
         f"statistics within {stat_err:.2e}, VQ states within {vq_err:.2e} <= 1e-4 (codes of "
         f"differing rows left out: {sum(len(v) for v in skip_codes.values())}); parameters "
-        f"within {p_err:.2e} <= 2 lr = {2 * lr:g}, {within / total:.2%} of them within 1e-6")
+        f"within {p_err:.2e} <= 2 lr = {2 * lr:g}, {share:.4%} of them within 1e-2 lr = "
+        f"{1e-2 * lr:g} >= 99 %")
     del s_cpu, s_gpu
 
     # the frozen-token encode
@@ -729,11 +738,23 @@ def phase12(train: dict, card: str) -> dict:
         f"{TRAIN['batch'] / p50 * 1e3:.1f} windows/s [{card}]")
     log(f"phase 12 body-VQ step device time by kernel: "
         f"{kernel_breakdown(lambda: trainer.step_fn(trainer.state, batch), reps=1)} [{card}]")
-    # for the record only: TF32 changes the numbers the port is held to
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-    tf32_ms = cuda_ms(lambda: trainer.step_fn(trainer.state, batch), 5)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    log(f"phase 12 body-VQ step with TF32 on (not the port's setting): {tf32_ms:.2f} ms "
+    # for the record only, how the step time splits between determinism and
+    # precision: cuDNN free to pick non-deterministic algorithms (by its
+    # heuristics, then by timing them), still f32; then TF32 on, deterministic
+    # again.  Both change what the port is held to (bit-equal resume, f32 sums)
+    step_once = lambda: trainer.step_fn(trainer.state, batch)   # noqa: E731
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic = False
+    nondet_ms = cuda_ms(step_once, 5)
+    cudnn.benchmark = True          # cuda_ms's warm-up call times the algorithms
+    bench_ms = cuda_ms(step_once, 5)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = cudnn.allow_tf32 = True
+    tf32_ms = cuda_ms(step_once, 5)
+    torch.backends.cuda.matmul.allow_tf32 = cudnn.allow_tf32 = False
+    log(f"phase 12 body-VQ step, not the port's settings: TF32 off with cuDNN's "
+        f"non-deterministic algorithms {nondet_ms:.2f} ms (heuristic choice), "
+        f"{bench_ms:.2f} ms (cudnn.benchmark); TF32 on, deterministic {tf32_ms:.2f} ms "
         f"[{card}]")
     emb = trainer.state.vq["body"].embeddings
     e2 = k4.code_norms(emb)

@@ -79,17 +79,12 @@ class VQVAE(nn.Module):
         self.encoder = Encoder(in_dim, embedding_dim, num_hiddens,
                                num_residual_layers)
 
-    def forward(self, poses: torch.Tensor, vq_state: vq_ops.VQState,
-                train: bool | None = None):
-        """-> (recon, commit_loss, new_vq_state, indices).  train (default:
-        the module's mode, which it must equal) selects the EMA update and
-        batch-statistics BatchNorm, as the JAX `train` flag does."""
-        train = self.training if train is None else train
-        if train != self.training:
-            raise ValueError(f"train={train} but the module is in "
-                             f"{'train' if self.training else 'eval'} mode")
+    def forward(self, poses: torch.Tensor, vq_state: vq_ops.VQState):
+        """-> (recon, commit_loss, new_vq_state, indices).  The module's mode
+        selects the EMA update and batch-statistics BatchNorm, as the JAX
+        `train` flag does."""
         z = self.encoder(poses)
-        if train:
+        if self.training:
             quant, commit, new_state, idx = vq_ops.quantize_train(vq_state, z)
         else:
             quant, idx = vq_ops.quantize(vq_state, z)

@@ -4,8 +4,11 @@
         --synthetic --epochs 1 --run_dir experiments/body-vq [--device cpu]
 
 Runs on the card unless `--device cpu` is given, with TF32 off (f32 sums,
-as the JAX package computes on the CPU).  The stage comes from the
-config's Model.model_name; only stage 1, s2g_body_vq, is ported: any other
+as the JAX package computes on the CPU) and deterministic cuDNN.  The
+synthetic dataset holds at least SYNTHETIC_STEPS batches per epoch at the
+config's batch size and window, and the VQ-VAEs have the config's
+`vq_num_hiddens` (1024), as scripts/train.py builds them.  The stage comes
+from the config's Model.model_name; only stage 1, s2g_body_vq, is ported: any other
 stage raises and names the ROADMAP.md item that ports it.  Only synthetic
 data is supported until the SHOW dataset loader is ported.
 """
@@ -29,6 +32,18 @@ NOT_PORTED = {
     "s2g_body_ae": "ROADMAP.md Queue 1 item 10 (the body-AE step)",
     "s2g_LS3DCG": "ROADMAP.md Queue 1 item 10 (the LS3DCG step)",
 }
+#: least batches per epoch of the synthetic dataset, whatever the batch size
+SYNTHETIC_STEPS = 10
+
+
+def synthetic_for(cfg: Config):
+    """Four synthetic clips (as scripts/train.py), each long enough for at
+    least a quarter of SYNTHETIC_STEPS batches of stride-6 windows."""
+    L = cfg.data.pose.generate_length
+    per_clip = -(-SYNTHETIC_STEPS * cfg.train.batch_size // 4)
+    ds = synthetic_dataset(num_clips=4, frames=L + 6 * per_clip)
+    ds.generate_length = L
+    return ds
 
 
 def parse_args(argv=None):
@@ -40,10 +55,6 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=None, help="checkpoint file to resume")
     p.add_argument("--synthetic", action="store_true",
                    help="use a synthetic dataset (the only data source ported yet)")
-    p.add_argument("--synthetic_clips", type=int, default=4)
-    p.add_argument("--synthetic_frames", type=int, default=240)
-    p.add_argument("--num_hiddens", type=int, default=None,
-                   help="VQ-VAE width (default: the config's, 1024)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -64,15 +75,17 @@ def main(argv=None) -> Trainer:
                          "item 10); pass --synthetic")
     device = torch.device(args.device)
     if device.type == "cuda":
+        # f32 sums, and deterministic cuDNN algorithms, so that a resumed
+        # run equals an uninterrupted one bit for bit
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
 
-    ds = synthetic_dataset(num_clips=args.synthetic_clips, frames=args.synthetic_frames)
-    ds.generate_length = cfg.data.pose.generate_length
+    ds = synthetic_for(cfg)
     print(f"dataset: {len(ds.clips)} clips")
-    nh = args.num_hiddens or cfg.model.vq_num_hiddens
-    vq_body = VQVAE(BODY_DIM, cfg.model.vq_embedding_dim, nh)
-    vq_hand = VQVAE(HAND_DIM, cfg.model.vq_embedding_dim, nh)
+    vq_body = VQVAE(BODY_DIM, cfg.model.vq_embedding_dim, cfg.model.vq_num_hiddens)
+    vq_hand = VQVAE(HAND_DIM, cfg.model.vq_embedding_dim, cfg.model.vq_num_hiddens)
     init_state, step = make_body_vq_step(vq_body, vq_hand, cfg.train.generator_learning_rate,
                                          code_num=cfg.model.code_num)
     run_dir = args.run_dir or f"experiments/{cfg.log.name}"

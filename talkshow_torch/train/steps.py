@@ -87,9 +87,10 @@ def _norm_buffers(models) -> list:
 
 
 def part_losses(model: VQVAE, vq_state: vq_ops.VQState, gt: torch.Tensor):
-    """One part's train-mode forward (steps.py:70-90): -> (rec, vel, commit,
-    new VQState); the step's loss is rec + vel + commit summed over parts."""
-    recon, commit, new_state, _ = model(gt, vq_state, train=True)
+    """One part's forward (steps.py:70-90) through a model in train mode:
+    -> (rec, vel, commit, new VQState); the step's loss is rec + vel + commit
+    summed over parts."""
+    recon, commit, new_state, _ = model(gt, vq_state)
     rec = torch.mean(torch.abs(recon - gt))
     vel = torch.mean(torch.abs((recon[:, 1:] - recon[:, :-1]) - (gt[:, 1:] - gt[:, :-1])))
     return rec, vel, commit, new_state

@@ -11,8 +11,9 @@ Each epoch draws its window jitter and order from
 np.random.default_rng(seed + epoch) (the JAX trainer draws from one
 generator per `train()` call; the first epoch is the same), so a run
 resumed at an epoch boundary sees the batches an uninterrupted run sees.
-On the card, cuDNN runs deterministic algorithms, so such a run is
-uninterrupted bit for bit.  The frozen-token cache and the face stage's
+On the card such a run equals an uninterrupted one bit for bit when cuDNN
+runs deterministic algorithms, as `python -m talkshow_torch.train` sets
+it to.  The frozen-token cache and the face stage's
 whole-clip batches wait for their slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -90,9 +91,6 @@ class Trainer:
             fh._talkshow_run = self.run_dir
             log.addHandler(fh)
             log.setLevel(logging.INFO)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
         if self.state is None:
             gen = torch.Generator().manual_seed(self.config.train.seed)
             self.state = self.init_state_fn(gen, self.device)

@@ -1,14 +1,16 @@
 """Training stage 1 of the port (talkshow_torch/train, models/vqvae.py,
 config.py, data/dataset.py) against the JAX package on the CPU, at
-num_hiddens 64 (16 for the trainer and the CLI).
+num_hiddens 64 (16 for the trainer; the CLI builds the config's 1024).
 
 Tolerances: a train-mode VQVAE forward (batch-statistics BatchNorm, EMA
 quantizer) agrees with flax within 1e-5 (f32, summed in another order),
 indices equal; running statistics within 1e-5, which the unbiased variance
 of torch's own BatchNorm update (n / (n - 1) = 1.6 % larger at the 64
-positions here) would miss.  The body-VQ step from one converted state
-matches the JAX step within 1e-5 in every metric, parameter, BatchNorm
-statistic, VQ state field and Adam moment after one and after three steps.
+positions here) would miss.  The body-VQ step from one converted state, at
+lr 1e-3, matches the JAX step after one and after three steps: each step's
+change of each parameter within 1e-2 lr of JAX's change (see
+_assert_update_close for the elements left out), and every metric,
+parameter, BatchNorm statistic, VQ state field and Adam moment within 1e-5.
 Config, dataset windows and token grids are equal exactly; a resumed
 trainer equals an uninterrupted one bit for bit."""
 import dataclasses
@@ -36,18 +38,13 @@ from talkshow_torch.models import vqvae as tv
 from talkshow_torch.models.body import BodyModels, encode_gt_tokens
 from talkshow_torch.ops import vq as tvq
 from talkshow_torch.train import steps as tsteps
-from talkshow_torch.train.__main__ import NOT_PORTED, main as cli_main
+from talkshow_torch.train.__main__ import NOT_PORTED, SYNTHETIC_STEPS, main as cli_main
 from talkshow_torch.train.trainer import Trainer
 
 torch.set_num_threads(2)
 TOL = 1e-5
 NH, W, B = 64, 16, 4
-#: Adam's first steps move every parameter by about lr * sign(g), and a
-#: gradient that is zero in exact arithmetic (a conv bias under
-#: batch-statistics BatchNorm) gets its sign from rounding: at lr 1e-6 three
-#: such steps stay inside the 1e-5 tolerance.  The gradients themselves are
-#: held through Adam's moments.
-LR = 1e-6
+LR = 1e-3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -106,7 +103,7 @@ def test_vqvae_forward_matches_flax(train):
     tm.load_state_dict(convert.convert_vqvae(variables))
     tm.train(train)
     counts.clear()
-    t_recon, t_commit, t_nst, t_idx = tm(torch.as_tensor(x), _tstate(st), train=train)
+    t_recon, t_commit, t_nst, t_idx = tm(torch.as_tensor(x), _tstate(st))
     assert counts["nearest_code_plain"] == 1
     np.testing.assert_array_equal(t_idx.numpy(), np.asarray(idx))
     np.testing.assert_allclose(t_recon.detach().numpy(), np.asarray(recon), rtol=TOL, atol=TOL)
@@ -119,13 +116,6 @@ def test_vqvae_forward_matches_flax(train):
     if train:   # the biased variance moved every running_var off its start
         moved = convert.convert_vqvae(variables)
         assert all(not torch.equal(v, moved[k]) for k, v in stats.items())
-
-
-def test_vqvae_train_flag_must_match_the_mode():
-    tm = tv.VQVAE(39, 64, 16).eval()
-    st = tvq.init_vq_state(torch.Generator().manual_seed(0), 32, 64, "cpu")
-    with pytest.raises(ValueError):
-        tm(torch.zeros((1, 8, 39)), st, train=True)
 
 
 # ---------------------------------------------------------------------------
@@ -178,23 +168,52 @@ def _assert_state_close(state, jax_state, tag):
                 assert err <= TOL * max(1.0, w.abs().max().item()), (tag, key, name, err)
 
 
+def _assert_update_close(state, before: dict, jax_before, jax_after, tag):
+    """Each parameter's change in the step against JAX's change, within
+    1e-2 lr.  Adam divides each element's first moment by the root of its
+    second, so an element whose gradients are small beside the rounding of
+    their f32 sums moves by up to lr with either sign.  Such elements are
+    chosen by JAX's gradient scale sqrt(v_hat) (its debiased second
+    moment): a whole leaf at most 1e-5 of the part's largest (zero to
+    rounding: a conv bias under batch-statistics BatchNorm), or an element
+    below 1e-3 of its leaf's largest.  They are left out and take JAX's
+    values, so that the next steps start from comparable states; the rest,
+    at least 95 % of each part, are held."""
+    w0, w1 = convert.from_jax_body_vq_state(jax_before), convert.from_jax_body_vq_state(jax_after)
+    debias = 1 - 0.999 ** w1["adam_step"]
+    for part, model in state.models.items():
+        scale = {k: (v / debias).sqrt() for k, v in w1["exp_avg_sq"][part].items()}
+        top = max(s.max().item() for s in scale.values())
+        held = total = 0
+        for name, p in model.named_parameters():
+            s = scale[name]
+            keep = s >= max(1e-3 * s.max().item(), 1e-5 * top)
+            want = w1[f"vq_{part}"][name] - w0[f"vq_{part}"][name]
+            err = ((p.detach() - before[part][name]) - want).abs()[keep]
+            assert not keep.any() or err.max().item() <= 1e-2 * LR, (tag, part, name, err.max())
+            with torch.no_grad():
+                p[~keep] = w1[f"vq_{part}"][name][~keep]
+            held += int(keep.sum())
+            total += keep.numel()
+        assert held >= 0.95 * total, (tag, part, held, total)
+
+
 @pytest.mark.parametrize("n_steps", [1, 3])
 def test_body_vq_step_matches_jax(jax_run, n_steps):
     states, metrics, batches = jax_run
     state, step = _port_state(states[0])
     _assert_state_close(state, states[0], "start")
-    start = {k: p.detach().clone() for k, p in state.models["body"].named_parameters()}
     counts.clear()
     for i in range(n_steps):
+        before = {part: {k: p.detach().clone() for k, p in model.named_parameters()}
+                  for part, model in state.models.items()}
         state, m = step(state, {"poses": torch.as_tensor(batches[i])})
         for k, v in metrics[i].items():
             np.testing.assert_allclose(float(m[k]), v, rtol=TOL, atol=1e-7,
                                        err_msg=f"step {i} {k}")
+        _assert_update_close(state, before, states[i], states[i + 1], f"step {i}")
     assert counts["nearest_code_plain"] == 2 * n_steps
     _assert_state_close(state, states[n_steps], f"after {n_steps}")
-    moved = max((p - start[k]).abs().max().item()
-                for k, p in state.models["body"].named_parameters())
-    assert moved >= 0.5 * LR     # the update was applied
 
 
 def test_nan_batch_is_skipped_and_counted(jax_run):
@@ -341,16 +360,20 @@ def test_trainer_resume_equals_uninterrupted(tmp_path):
 
 
 def test_train_cli_cpu(tmp_path):
-    cfg = _write_config(tmp_path / "c.json")
+    """At full width (1024 hidden), as tests/test_cli_train.py runs
+    scripts/train.py; the synthetic dataset holds SYNTHETIC_STEPS batches."""
+    cfg = _write_config(tmp_path / "c.json", batch=8)
     run = tmp_path / "run"
     proc = subprocess.run(
         [sys.executable, "-m", "talkshow_torch.train", "--config_file", cfg, "--synthetic",
-         "--epochs", "1", "--run_dir", str(run), "--device", "cpu", "--num_hiddens", "16"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+         "--epochs", "1", "--run_dir", str(run), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))   # two threads, as this process
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "done; checkpoints" in proc.stdout
     assert os.path.isfile(run / "ckpt-0.pt") and os.path.isfile(run / "history.json")
-    assert "body_rec=" in open(run / "train.log").read()
+    log = open(run / "train.log").read()
+    assert "body_rec=" in log and f"step {SYNTHETIC_STEPS} " in log
 
 
 @pytest.mark.parametrize("stage", sorted(NOT_PORTED))
