@@ -21,15 +21,24 @@ Phases (one line each; any failure raises and the script exits non-zero):
              c) in-kernel Philox noise: seeded, in [0, K), and the sampled
                 tokens' mean log-probability within 4 standard errors of the
                 logits' mean negative entropy
+             d) B = 1 and 8: a prefix of 30 of the 75 rows (f32 tables): tokens
+                equal, forced rows kept, logits within 1e-3; 20 reruns with one
+                Philox seed (bf16 tables) bit-equal in tokens and logits
   4 main     Pipeline.create(seed, device="cuda") at full width: generate()
              on a synthetic 10 s 16 kHz wav for S in {1, 8}; (S, 300, 265)
              finite output, the kernel launched, the plain sampler not
              called; then a 1 s clip against the same weights on the CPU
              (f32 tables, shared noise): equal tokens, motion within 1e-3
   5 times    generate() p50 over 10 runs at S=1 and 5 runs at S=8 (CUDA
-             events, fresh seed per run), the S=1 stages, and the K1 decode
-             against the plain decode at B = 1 and 8, H = 75, each beside the
-             card's name and limit
+             events, fresh seed per run), the S=1 stages; K1 (bf16 tables,
+             Philox) at B = 1, 8, 32 and H = 75, 25 for a chain cluster of 16
+             CTAs (B = 1, 8 for 8 CTAs): ms, us per row, us per dependent step (the slope
+             between H = 75 and 25 over the steps of a row) and the launch's
+             shape, and where a row's time goes (the kernel's %globaltimer
+             probe, `decode_timeline`); the K1 decode against the plain
+             decode at B = 1 and 8,
+             H = 75; K1's device time by kernel (torch.profiler); each beside
+             the card's name and limit
   6 K2       the wav2vec encoder-layer kernel against its plain version at
              full width (12 layers, 768 wide, 12 heads, FFN 3072, T = 300) on
              random weights: B = 1 unmasked, B = 8 masked (valid 300, 270, ..,
@@ -213,6 +222,87 @@ def phase3(dev) -> float:
             f"{picked.mean().item():.4f} vs mean -entropy {negent.mean().item():.4f} "
             f"({z:+.2f} s.e.)")
     return worst
+
+
+def phase3d(dev) -> None:
+    """K1 with a prefix shorter than H, and reruns with one Philox seed:
+    the kernel's roles meet only through flags, so a missing wait shows as a
+    rerun that differs."""
+    from talkshow_torch.kernels.ar_decode import pack_decode_tables, sample_tokens_fused
+    from talkshow_torch.models.pixelcnn import sample_tokens
+    P = 30
+    for B in (1, 8):
+        model, label, audio, given, noise = prior_case(B, 60 + B, dev)
+        t32 = pack_decode_tables(model, torch.float32)
+        tok, lg = sample_tokens_fused(model, label, audio, tables=t32, noise=noise,
+                                      prefix_tokens=given, prefix_len=P, return_logits=True)
+        want, want_lg = sample_tokens(model, label, audio, noise=noise, prefix_tokens=given,
+                                      prefix_len=P, return_logits=True)
+        err = (lg - want_lg).abs().max().item()
+        if not (torch.equal(tok, want) and torch.equal(tok[:, :P], given[:, :P].long())
+                and err <= 1e-3):
+            raise AssertionError(f"3d B={B}: prefix {P}/{FULL['H']}: tokens equal "
+                                 f"{int((tok == want).sum())}/{tok.numel()}, max|dlogit| {err}")
+        t16 = pack_decode_tables(model, torch.bfloat16)
+        runs = [sample_tokens_fused(model, label, audio, tables=t16, return_logits=True,
+                                    generator=torch.Generator().manual_seed(21))
+                for _ in range(20)]
+        same = sum(torch.equal(t, runs[0][0]) and torch.equal(g, runs[0][1]) for t, g in runs)
+        if same != len(runs):
+            raise AssertionError(f"3d B={B}: {same}/{len(runs)} Philox reruns bit-equal")
+        log(f"phase 3d B={B}: prefix {P} of {FULL['H']} rows (f32 tables): tokens equal "
+            f"{tok.numel()}/{tok.numel()}, forced rows kept, max|dlogit| {err:.3e} <= 1e-3; "
+            f"bf16 tables, {same}/{len(runs)} Philox reruns bit-equal (tokens and logits)")
+
+
+def phase5_k1(dev, card: str) -> dict:
+    """K1 (bf16 tables, Philox) at B = 1, 8, 32 and H = 75, 25 for both
+    cluster sizes: ms, us per row, us per dependent step (the slope between
+    H = 75 and 25 over the steps of a row) and the launch's shape; the plain
+    decode at B = 1 and 8 in the order plain, kernel, kernel, plain; one
+    profiler line.  Returns (kernel ms, plain ms) per B for cluster 16."""
+    from talkshow_torch.kernels import ar_decode
+    from talkshow_torch.kernels.ar_decode import chain_steps
+    from talkshow_torch.models.pixelcnn import sample_tokens
+    steps = len(chain_steps(FULL["layers"], FULL["dim"], FULL["K"], 512)) + 2
+    res = {}
+    for cluster in (16, 8):
+        # at B = 32 a cluster of 8 leaves too little shared memory for the ring
+        for B in (1, 8, 32) if cluster == 16 else (1, 8):
+            model, label, audio_b, _, _ = prior_case(B, 40 + B, dev)
+            t16 = ar_decode.pack_decode_tables(model, torch.bfloat16, cluster)
+            gen = torch.Generator().manual_seed(0)
+            ms = {}
+            for H in (75, 25):
+                aud = audio_b[:, :H].contiguous()
+                ms[H] = cuda_ms(lambda: ar_decode.sample_tokens_fused(
+                    model, label, aud, tables=t16, generator=gen), 5)
+            step_us = (ms[75] - ms[25]) * 1e3 / 50 / steps
+            shape = dict(ar_decode.last_launch)
+            tl = ar_decode.decode_timeline(model, label, audio_b, t16,
+                                           torch.Generator().manual_seed(1))
+            log(f"phase 5 K1 cluster={cluster} B={B}: H=75 {ms[75]:.3f} ms, H=25 {ms[25]:.3f} ms, "
+                f"{ms[75] * 1e3 / 75:.1f} us/row, {step_us:.3f} us per dependent step "
+                f"({steps} per row); chain CTAs {shape['chain_ctas']}, vertical CTAs "
+                f"{shape['vertical_ctas']}, shared memory {shape['smem_bytes']} B/CTA, "
+                f"ring {shape['ring_stages']} x {ar_decode.CHUNK_BYTES} B [{card}]")
+            log(f"phase 5 K1 cluster={cluster} B={B} timeline (%globaltimer, mean over rows "
+                f"1-74, us): " + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in tl.items()))
+            if cluster == 16 and B in (1, 8):
+                def kern():
+                    return ar_decode.sample_tokens_fused(model, label, audio_b, tables=t16,
+                                                         generator=gen)
+
+                def plain():
+                    return sample_tokens(model, label, audio_b, generator=gen)
+
+                p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern, 5), cuda_ms(kern, 5), cuda_ms(plain)
+                res[B] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                log(f"phase 5 ar_decode B={B} H=75: kernel (bf16 tables) {k1:.2f} / {k2:.2f} ms, "
+                    f"plain {p1:.2f} / {p2:.2f} ms [{card}]")
+                if B == 1:
+                    log(f"phase 5 K1 B=1 device time by kernel: {kernel_breakdown(kern)} [{card}]")
+    return res
 
 
 def write_wav(path: str, seconds: float, seed: int) -> None:
@@ -806,6 +896,7 @@ def main() -> int:
 
     # ---- phase 3: K1 against its plain version -------------------------------
     max_err = phase3(dev)
+    phase3d(dev)
 
     # ---- phase 4: the main path ----------------------------------------------
     from talkshow_torch.models.pixelcnn import gumbel_noise
@@ -894,24 +985,7 @@ def main() -> int:
     log("phase 5 stages S=1 (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
         + f" [{card}]")
 
-    from talkshow_torch.models.pixelcnn import sample_tokens
-    decode = {}
-    for B in (1, 8):
-        model, label, audio_b, _, _ = prior_case(B, 40 + B, dev)
-        t16 = ar_decode.pack_decode_tables(model, torch.bfloat16)
-        gen = torch.Generator().manual_seed(0)
-
-        def kern():
-            return ar_decode.sample_tokens_fused(model, label, audio_b, tables=t16,
-                                                 generator=gen)
-
-        def plain():
-            return sample_tokens(model, label, audio_b, generator=gen)
-
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern, 5), cuda_ms(kern, 5), cuda_ms(plain)
-        decode[B] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"phase 5 ar_decode B={B} H=75: kernel (bf16 tables) {k1:.2f} / {k2:.2f} ms, "
-            f"plain {p1:.2f} / {p2:.2f} ms [{card}]")
+    decode = phase5_k1(dev, card)
 
     # ---- phases 6-9: the fused face stage (K2, K3) -------------------------------
     err_k2 = phase6(dev)
@@ -928,11 +1002,17 @@ def main() -> int:
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs
     t1 = ar_decode.pack_decode_tables(prior_case(1, 41, dev)[0], torch.bfloat16)
-    mats = [t1[k] for k in ("wv0", "wvB", "wv2h", "wh", "wres", "wfv", "wfh", "w1", "w2")]
-    per_col = sum(m.numel() for m in mats[2:])
-    k1_ops = 2.0 * FULL["H"] * (mats[0].numel() + mats[1].numel() + 2 * per_col)
-    k1_bytes = nbytes(*t1.values()) + FULL["H"] * 2 * 4 \
-        + 4 * (FULL["layers"] * 2 * FULL["dim"] + 2 * FULL["H"] * FULL["dim"])
+    # MACs per row: both columns of the vertical stack, v2h and fusion_v, and
+    # the chain's streams (both columns' horizontal passes and heads)
+    d, L, H = FULL["dim"], FULL["layers"], FULL["H"]
+    steps = ar_decode.chain_steps(L, d, FULL["K"], 512)
+    chain_macs = sum(klen * n * urows for _, _, _, klen, n, urows in steps)
+    # column 1 reads every chain table (column 0 reads a part of wh): bf16 bytes
+    chain_bytes = sum(2 * klen * n * urows for _, c, _, klen, n, urows in steps if c == 1)
+    k1_ops = 2.0 * H * (t1["wv0"].numel() + t1["wvB"].numel() + 2 * t1["wv2h"].numel()
+                        + 2 * t1["wfv"].numel() + chain_macs)
+    k1_bytes = nbytes(*(v for k, v in t1.items() if k != "chain")) + chain_bytes \
+        + H * 2 * 4 + 4 * (L * 2 * d + 2 * H * d)
     enc_t, ext_t = times["t16"]["enc"], times["t16"]["ext"]
     x1 = times["x1"]
     k2_bytes = nbytes(*(v for v in enc_t.values() if torch.is_tensor(v))) + 2 * nbytes(x1) + 4

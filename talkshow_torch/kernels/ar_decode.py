@@ -4,17 +4,18 @@ Wrapper of `talkshow_torch/csrc/ar_decode.cu`, which replaces the TPU
 kernel `talkshow_tpu/models/pixelcnn_pallas.py:_sample_fused` (:363, body
 `_make_kernel` :202-356).  What bounds it on the card and what its design
 does about it are set out at the top of the CUDA source: each of the H rows
-reads the whole prior (~47 MB in bf16 at full width) through ~70 dependent
-GEMV steps with M = B <= 32, so the decode is latency-bound; it runs as one
-cooperative persistent kernel with a grid barrier per step, weights packed
-output-major for Hopper, and epilogues that fuse bias, gating, residual and
-state updates.
+is a chain of ~70 dependent GEMV steps with M = B <= 32, so the decode is
+latency-bound.  One launch holds two roles: the vertical stack and v2h on
+most of the card, and the horizontal chain, the head and the sampling on
+one thread-block cluster of `cluster` CTAs, fed by asynchronous bulk copies
+of the weight streams laid out here (`chain_parts`, `pack_decode_tables`).
 
 `sample_tokens_fused` takes the arguments of the plain sampler
 `talkshow_torch.models.pixelcnn.sample_tokens` (its plain PyTorch version).
 A CPU tensor runs that plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback.  Each launch adds one to
-``talkshow_torch.kernels.counts["ar_decode"]``.
+``talkshow_torch.kernels.counts["ar_decode"]`` and records its shape in
+`last_launch`.
 
 The per-call conditioning stays plain PyTorch, as the JAX package computes
 it outside its kernel (pixelcnn_pallas.py:380-396): the class-embedding
@@ -36,45 +37,111 @@ MAX_BATCH = 32
 SOURCE = "talkshow_torch/csrc/ar_decode.cu"
 REPLACES = "talkshow_tpu/models/pixelcnn_pallas.py:363"
 
-_TABLE_KEYS = ("wv0", "wvB", "wv2h", "wh", "wres", "wfv", "wfh", "w1", "w2", "emb")
+#: the chain's ring stage (one bulk copy) and the longest part of a step
+CHUNK_BYTES = 16384
+PART_BYTES = 32768
+#: step kinds of the chain (csrc/ar_decode.cu kStep*) and part flags
+GATED, RESID, FUSION, HIDDEN, LOGITS = range(5)
+FIRST, LAST = 1, 2
+
+_TABLE_KEYS = ("wv0", "wvB", "wv2h", "wfv", "emb", "chain")
 _BIAS_KEYS = ("bv", "bhsum", "br", "b1", "b2")
 
-_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+#: the shape of the last launch: cluster size, CTAs per role, shared memory
+#: per CTA and ring stages
+last_launch: dict = {}
+
+_P, _I, _LL, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
 
 
 def _lib() -> ctypes.CDLL:
     from talkshow_torch.kernels import _build
     lib = _build.load("ar_decode")
     if not getattr(lib, "_talkshow_typed", False):
-        lib.talkshow_ar_decode_scratch.argtypes = [_I] * 5
-        lib.talkshow_ar_decode_scratch.restype = ctypes.c_longlong
+        lib.talkshow_ar_decode_scratch.argtypes = [_I] * 3
+        lib.talkshow_ar_decode_scratch.restype = _LL
         lib.talkshow_ar_decode.argtypes = (
-            [_I] * 7 + [_P] * 10 + [_P] * 5 + [_P] * 4 + [_U64, _P, _I]
-            + [_P] * 4)
+            [_I] * 10 + [_P, _I, _LL] + [_P] * 6 + [_P] * 5 + [_P] * 4 + [_U64, _P, _I]
+            + [_P] * 4 + [_LL, _P, _P])
         lib.talkshow_ar_decode.restype = _I
+        lib.talkshow_ar_decode_error.argtypes = [_I]
+        lib.talkshow_ar_decode_error.restype = ctypes.c_char_p
         lib._talkshow_typed = True
     return lib
 
 
-@torch.no_grad()
-def pack_decode_tables(model: GatedPixelCNN,
-                       dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Rearrange the prior's weights into the kernel's tables (on the
-    model's device).  Label and audio conditioning is computed per call.
+def chain_steps(L: int, d: int, K: int, hid: int):
+    """The chain's steps of one token row, in order: (kind, column, layer,
+    row length, outputs, rows per unit).  A gated unit is the pair of rows
+    j, j + d of wh[l] over the taps the column reads (column 0: its own
+    x_h, none at layer 0; column 1: [left | self], the left one only at
+    layer 0)."""
+    steps = []
+    for c in (0, 1):
+        for l in range(L):
+            klen = (0 if l == 0 else d) if c == 0 else (d if l == 0 else 2 * d)
+            steps.append((GATED, c, l, klen, d, 2))
+            steps.append((RESID, c, l, d, d, 1))
+            if l == 0:
+                steps.append((FUSION, c, 0, d, d, 1))
+        steps.append((HIDDEN, c, L, d, hid, 1))
+        steps.append((LOGITS, c, L, hid, K, 1))
+    return steps
 
-    Every matrix is output-major (row o holds the weights of output o):
+
+def chain_parts(L: int, d: int, K: int, hid: int, cluster: int, esize: int):
+    """Parts of the chain's steps and the length of each CTA's weight stream
+    per token row, in elements.
+
+    CTA q of the cluster owns outputs [q n/C, (q + 1) n/C) of a step with n
+    outputs; its stream holds its rows of every step in order.  A step is
+    cut into parts of whole units of at most PART_BYTES, which the kernel
+    waits for, computes and releases one by one.  A part is (kind, column,
+    layer, row length, first unit, units, stream offset, flags FIRST/LAST);
+    the stream is padded to whole CHUNK_BYTES."""
+    parts, off = [], 0
+    for kind, c, l, klen, n, urows in chain_steps(L, d, K, hid):
+        per_cta = n // cluster
+        ubytes = urows * klen * esize
+        per_part = max(1, PART_BYTES // ubytes) if ubytes else per_cta
+        for u0 in range(0, per_cta, per_part):
+            nu = min(per_part, per_cta - u0)
+            flags = (FIRST if u0 == 0 else 0) | (LAST if u0 + nu == per_cta else 0)
+            parts.append((kind, c, l, klen, u0, nu, off, flags))
+            off += nu * urows * klen
+    chunk = CHUNK_BYTES // esize
+    return parts, -(-off // chunk) * chunk
+
+
+@torch.no_grad()
+def pack_decode_tables(model: GatedPixelCNN, dtype: torch.dtype = torch.bfloat16,
+                       cluster: int = 16) -> dict:
+    """Rearrange the prior's weights into the kernel's tables (on the
+    model's device), for a chain cluster of `cluster` CTAs (16, or 8 where
+    16 cannot be co-scheduled).  Label and audio conditioning is computed
+    per call.
+
+    The vertical group's matrices are output-major (row o holds the weights
+    of output o):
       wv0  (2, 2d, 6d)      layer-0 vertical conv, per output column c;
                             input index (j*3 + r)*d + i = column j, row r
       wvB  (L-1, 2, 2d, 4d) layers 1.. vertical conv, (j*2 + r)*d + i
       wv2h (L, 2d, 2d)      vert_to_horiz
-      wh   (L, 2d, 2d)      horizontal taps [left | self] (self = 0 at layer 0)
-      wres (L, d, d), wfv/wfh (d, d) x-part of fusion_v/h,
-      w1 (512, d), w2 (K, 512), emb (K, d)
-    Biases stay f32: bv (L, 2d), bhsum = v2h + horizontal bias (L, 2d),
-    br (L, d), b1 (512), b2 (K)."""
+      wfv  (d, d)           x-part of fusion_v
+      emb  (K, d)
+    The chain's, `chain` (cluster, row_elems): CTA q's rows of wh (the
+    horizontal taps), wres, the x-part of fusion_h, w1 (512, d) and
+    w2 (K, 512), in the order of `chain_parts`, whose descriptors are
+    `parts` (int32, (n, 8)).  Biases stay f32: bv (L, 2d), bhsum = v2h +
+    horizontal bias (L, 2d), br (L, d), b1 (512), b2 (K)."""
     if dtype not in TABLE_DTYPES:
         raise ValueError(f"table dtype must be float32 or bfloat16, got {dtype}")
-    d = model.dim
+    d, L, K = model.dim, model.n_layers, model.input_dim
+    hid = model.out_hidden.out_features
+    C = cluster
+    if C not in (1, 2, 4, 8, 16) or d % C or hid % C or K % C:
+        raise ValueError(f"cluster {C}: a power of two up to 16 that divides dim {d}, "
+                         f"head {hid} and codebook {K}")
 
     def vert(layer):
         w = layer.vert_stack.weight                      # (2d, d, R, 3)
@@ -94,15 +161,29 @@ def pack_decode_tables(model: GatedPixelCNN,
         wv0=vert(layers[0]),
         wvB=torch.stack([vert(layer) for layer in layers[1:]]),
         wv2h=torch.stack([layer.vert_to_horiz.weight for layer in layers]),
-        wh=torch.stack([horiz(layer) for layer in layers]),
-        wres=torch.stack([layer.horiz_resid.weight for layer in layers]),
         wfv=model.fusion_v.weight[:, :d],
-        wfh=model.fusion_h.weight[:, :d],
-        w1=model.out_hidden.weight,
-        w2=model.out_logits.weight,
         emb=model.embedding.weight,
     )
     tables = {k: v.to(dtype).contiguous() for k, v in mats.items()}
+
+    # the chain's streams: per step a (C, rows of CTA q) block, then padding
+    blocks = []
+    for kind, c, l, klen, _, _ in chain_steps(L, d, K, hid):
+        if kind == GATED:
+            k0 = d if c == 0 else 0                  # column 0 reads its own tap only
+            w = horiz(layers[l])[:, k0:k0 + klen]
+            w = w.reshape(2, C, d // C, klen).permute(1, 2, 0, 3)   # pair j: rows j, j + d
+        elif kind == RESID:
+            w = layers[l].horiz_resid.weight
+        elif kind == FUSION:
+            w = model.fusion_h.weight[:, :d]
+        else:
+            w = model.out_hidden.weight if kind == HIDDEN else model.out_logits.weight
+        blocks.append(w.to(dtype).reshape(C, -1))
+    parts, row_elems = chain_parts(L, d, K, hid, C, torch.empty((), dtype=dtype).element_size())
+    chain = torch.cat(blocks, dim=1)
+    tables["chain"] = torch.nn.functional.pad(chain, (0, row_elems - chain.shape[1])).contiguous()
+    tables["parts"] = torch.tensor(parts, dtype=torch.int32, device=chain.device)
     biases = dict(
         bv=torch.stack([layer.vert_stack.bias for layer in layers]),
         bhsum=torch.stack([layer.vert_to_horiz.bias + layer.horiz_stack.bias
@@ -164,11 +245,20 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
     `pack_decode_tables` (pack once per weight set; bf16 is the production
     type, f32 the exact one).  On a CPU tensor this is the plain sampler
     (model weights, f32; Philox is not used there: noise comes from
-    `generator`)."""
+    `generator`).  A launch the card cannot hold (the cluster cannot be
+    co-scheduled beside the rest of the grid) raises RuntimeError."""
     if audio.device.type == "cpu":
         return sample_tokens(model, label, audio, noise=noise,
                              generator=generator, prefix_tokens=prefix_tokens,
                              prefix_len=prefix_len, return_logits=return_logits)
+    return _decode(model, label, audio, tables, noise, generator, prefix_tokens,
+                   prefix_len, return_logits)
+
+
+def _decode(model, label, audio, tables, noise, generator, prefix_tokens, prefix_len,
+            return_logits, trace=None):
+    """The launch behind `sample_tokens_fused` for CUDA tensors; `trace`
+    (int64, `timeline_size` long) receives the timeline probe."""
     if audio.device.type != "cuda":
         raise ValueError(f"ar_decode runs on CUDA or CPU tensors, not {audio.device}")
     dev = audio.device
@@ -186,12 +276,14 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
     tdtype = tables["emb"].dtype
     if tdtype not in TABLE_DTYPES:
         raise TypeError(f"tables must be float32 or bfloat16, got {tdtype}")
+    C = tables["chain"].shape[0]
+    parts, row_elems = chain_parts(L, d, K, hid, C, tables["emb"].element_size())
     shapes = dict(wv0=(2, 2 * d, 6 * d), wvB=(L - 1, 2, 2 * d, 4 * d),
-                  wv2h=(L, 2 * d, 2 * d), wh=(L, 2 * d, 2 * d), wres=(L, d, d),
-                  wfv=(d, d), wfh=(d, d), w1=(hid, d), w2=(K, hid), emb=(K, d),
+                  wv2h=(L, 2 * d, 2 * d), wfv=(d, d), emb=(K, d), chain=(C, row_elems),
                   bv=(L, 2 * d), bhsum=(L, 2 * d), br=(L, d), b1=(hid,), b2=(K,))
     for k, shape in shapes.items():
         check(k, tables[k], shape, tdtype if k in _TABLE_KEYS else torch.float32, dev)
+    check("parts", tables["parts"], (len(parts), 8), torch.int32, dev)
     label = label.to(dev)
     cls, audv, audh = conditioning(model, label, audio)
     seed = 0
@@ -209,8 +301,9 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
     tokens = torch.empty((B, H, 2), dtype=torch.int32, device=dev)
     logits = (torch.empty((B, H, 2, K), dtype=torch.float32, device=dev)
               if return_logits else None)
-    scratch = torch.empty(lib.talkshow_ar_decode_scratch(B, L, d, K, hid),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.talkshow_ar_decode_scratch(B, L, d), dtype=torch.float32,
+                          device=dev)
+    info = (ctypes.c_int * 4)()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -218,14 +311,61 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.talkshow_ar_decode(
-            TABLE_DTYPES[tdtype], B, H, L, d, K, hid,
+            TABLE_DTYPES[tdtype], B, H, L, d, K, hid, C, CHUNK_BYTES, PART_BYTES,
+            ptr(tables["parts"]), len(parts), row_elems * tables["emb"].element_size(),
             *(ptr(tables[k]) for k in _TABLE_KEYS),
             *(ptr(tables[k]) for k in _BIAS_KEYS),
             ptr(cls), ptr(audv), ptr(audh), ptr(noise), seed,
             ptr(prefix), int(prefix_len) if prefix is not None else 0,
-            ptr(tokens), ptr(logits), ptr(scratch), stream)
+            ptr(tokens), ptr(logits), ptr(scratch), ptr(trace), H * _chain_stride(L),
+            ctypes.addressof(info), stream)
     if err != 0:
-        raise RuntimeError(f"ar_decode launch failed: cudaError_t {err}")
+        name = lib.talkshow_ar_decode_error(err).decode()
+        raise RuntimeError(f"ar_decode launch failed: cudaError_t {err} ({name}), "
+                           f"cluster {C}, B={B}")
     counts["ar_decode"] += 1
+    last_launch.update(cluster=info[0], chain_ctas=info[0], vertical_ctas=info[1],
+                       smem_bytes=info[2], ring_stages=info[3])
     tokens = tokens.long()
     return (tokens, logits) if return_logits else tokens
+
+
+def _chain_stride(L: int) -> int:
+    """Timeline entries per row of the chain: its start, the end of each of
+    its steps, its end, its wait for v2h (the vertical group's: its start,
+    the end of each of its L + 2 phases, its wait for "row sampled")."""
+    return len(chain_steps(L, 1, 1, 1)) + 3
+
+
+@torch.no_grad()
+def decode_timeline(model: GatedPixelCNN, label: torch.Tensor, audio: torch.Tensor,
+                    tables: dict, generator: torch.Generator | None = None) -> dict:
+    """One decode (Philox noise) with the kernel's %globaltimer probe on:
+    the mean over token rows 1.. of the row's time, the chain's steps by
+    kind and column, the chain's wait for v2h, the vertical group's phases
+    and its wait for the previous row's tokens, in microseconds."""
+    H = audio.shape[1]
+    L, K, d = model.n_layers, model.input_dim, model.dim
+    S, V = _chain_stride(L), L + 4
+    trace = torch.zeros(H * (S + V), dtype=torch.int64, device=audio.device)
+    _decode(model, label, audio, tables, None, generator, None, 0, False, trace)
+    t = trace.cpu().double()
+    chain, vert = t[:H * S].view(H, S)[1:], t[H * S:].view(H, V)[1:]
+    steps = chain_steps(L, d, K, model.out_hidden.out_features)
+    n = len(steps)
+    dur = (chain[:, 1:n + 1] - chain[:, :n]).mean(0) / 1e3
+    out = {"row_us": float((chain[:, n + 1] - chain[:, 0]).mean() / 1e3),
+           "v2h_wait_us": float(chain[:, n + 2].mean() / 1e3),
+           "row_end_us": float((chain[:, n + 1] - chain[:, n]).mean() / 1e3),
+           "vertical_phases_us": float((vert[:, V - 2] - vert[:, 0]).mean() / 1e3),
+           "vertical_phase_us": float(((vert[:, 1:V - 1] - vert[:, :V - 2]).mean()) / 1e3),
+           "vertical_row_wait_us": float(vert[:, V - 1].mean() / 1e3)}
+    names = {GATED: "gated", RESID: "resid", FUSION: "fusion", HIDDEN: "hidden",
+             LOGITS: "logits"}
+    for c in (0, 1):
+        idx = [i for i, st in enumerate(steps) if st[1] == c]
+        out[f"col{c}_us"] = float(dur[idx].sum())
+        for kind, name in names.items():
+            sel = [i for i in idx if steps[i][0] == kind]
+            out[f"col{c}_{name}_us"] = float(dur[sel].mean())
+    return out

@@ -103,6 +103,37 @@ def test_bf16_tables_match_rounded_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [16, 8])
+def test_ragged_batch_and_partial_prefix_match_plain(cuda, cluster):
+    """B = 3 leaves a ragged batch chunk; a prefix of 30 of 75 rows
+    switches from teacher forcing to sampling inside the decode."""
+    dim, layers, K, _, H = SHAPES[1]
+    model, label, audio, given, noise = _case(dim, layers, K, 3, H, cuda, seed=3)
+    tables = pack_decode_tables(model, torch.float32, cluster)
+    tok, lg = sample_tokens_fused(model, label, audio, tables=tables, noise=noise,
+                                  prefix_tokens=given, prefix_len=30, return_logits=True)
+    want, want_lg = sample_tokens(model, label, audio, noise=noise, prefix_tokens=given,
+                                  prefix_len=30, return_logits=True)
+    assert torch.equal(tok[:, :30].cpu(), given[:, :30].cpu())
+    assert torch.equal(tok.cpu(), want.cpu())
+    np.testing.assert_allclose(lg.cpu().numpy(), want_lg.cpu().numpy(), atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+def test_philox_reruns_are_bit_equal(cuda, B):
+    """Ten reruns with one Philox seed: the roles meet only through flags, so
+    a missing wait would show as a rerun that differs."""
+    dim, layers, K, _, H = SHAPES[1]
+    model, label, audio, _, _ = _case(dim, layers, K, B, H, cuda, seed=4)
+    tables = pack_decode_tables(model)
+    runs = [sample_tokens_fused(model, label, audio, tables=tables, return_logits=True,
+                                generator=torch.Generator().manual_seed(7)) for _ in range(10)]
+    for tok, lg in runs[1:]:
+        assert torch.equal(tok, runs[0][0]) and torch.equal(lg, runs[0][1])
+
+
+@pytest.mark.cuda
 def test_philox_noise_is_seeded_and_in_range(cuda):
     model, label, audio, _, _ = _case(*SHAPES[0], cuda, seed=2)
     tables = pack_decode_tables(model)

@@ -4,10 +4,13 @@
 * the plain sampler reproduces JAX `sample_tokens` tokens bit for bit when
   both get JAX's own gumbel block (free run and with a prefix);
 * the K1 wrapper runs the plain version for CPU tensors;
-* the kernel's packed tables and buffer layout, run through a transcription
-  of the op list the CUDA code builds for each row (same offsets and
-  strides, in dependency order), reproduce the plain sampler — the CUDA
-  code itself runs only on the card (tests/test_torch_kernels_cuda.py).
+* the kernel's packed tables and its work, transcribed as tasks of its two
+  roles (the vertical group's phases; the chain cluster's steps per CTA,
+  reading the weight streams through the part descriptors and the
+  previous step's outputs from every CTA's slice), reproduce the plain
+  sampler in order and in any random order that keeps only the waits the
+  kernel declares, and lose it when one of those waits is dropped — the
+  CUDA code itself runs only on the card (tests/test_torch_kernels_cuda.py).
 """
 import numpy as np
 import jax
@@ -113,132 +116,290 @@ def test_wrapper_runs_plain_version_on_cpu(models):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+
+
 # ---------------------------------------------------------------------------
-# Transcription of the ops csrc/ar_decode.cu lists for each row (row_ops),
-# over flat f32 buffers with the kernel's pointer offsets and strides, run in
-# dependency order, so the table packing and buffer layout are checked on
-# the CPU.
+# Transcription of csrc/ar_decode.cu as tasks of its two roles.  Vertical
+# group: one task per (row, phase), in the phases the kernel's host code
+# forms.  Chain cluster: one task per (row, step, CTA q) that gathers the
+# step's input from every CTA's slice, reads CTA q's rows of the weight
+# stream through the part descriptors and writes CTA q's slice; then one
+# row-end task per CTA (column 1's sample, tokens, its slice of the
+# embedding history, "row sampled").  Each task lists the waits the kernel
+# declares: program order and the group barrier inside the vertical group,
+# the cluster barrier after every chain step, v2h[l] of the row before
+# column 0's gated step l, and "row r-1 sampled" before vertical layer 0.
 # ---------------------------------------------------------------------------
 
-def _view(buf, off, shape, strides):
-    return buf.as_strided(shape, strides, off)
+GATED, RESID, FUSION, HIDDEN, LOGITS = range(5)
 
 
-def _lin(w, w_off, w_ld, k0, klen, x, x_off, x_ld, nb, nout, y, y_off, y_ld,
-         bias=None, add=None, add_off=0, add_ld=0, relu=False, roll_off=None):
-    acc = _view(x, x_off, (nb, klen), (x_ld, 1)) @ _view(w, w_off + k0, (nout, klen), (w_ld, 1)).T
-    if bias is not None:
-        acc = acc + bias
-    if add is not None:
-        acc = acc + _view(add, add_off, (nb, nout), (add_ld, 1))
-    if relu:
-        acc = acc.clamp_min(0)
-    if roll_off is not None:
-        _view(y, roll_off, (nb, nout), (y_ld, 1)).copy_(_view(y, y_off, (nb, nout), (y_ld, 1)))
-    _view(y, y_off, (nb, nout), (y_ld, 1)).copy_(acc)
+def _gate(pre, cls):
+    d = pre.shape[-1] // 2
+    return torch.tanh(pre[..., :d] + cls[..., :d]) * torch.sigmoid(pre[..., d:] + cls[..., d:])
 
 
-def _gated(w, w_off, w_ld, k0, klen, x, x_off, x_ld, nb, half, bias=None, add=None,
-           add_off=0, add_ld=0, pre=None, pre_off=0, pre_ld=0, cls=None, cls_off=0,
-           out=None, out_off=0, out_ld=0, roll_off=None):
-    xv = _view(x, x_off, (nb, klen), (x_ld, 1))
-    a = xv @ _view(w, w_off + k0, (half, klen), (w_ld, 1)).T
-    c = xv @ _view(w, w_off + half * w_ld + k0, (half, klen), (w_ld, 1)).T
-    if bias is not None:
-        a, c = a + bias[:half], c + bias[half:]
-    if add is not None:
-        a = a + _view(add, add_off, (nb, half), (add_ld, 1))
-        c = c + _view(add, add_off + half, (nb, half), (add_ld, 1))
-    if pre is not None:
-        _view(pre, pre_off, (nb, half), (pre_ld, 1)).copy_(a)
-        _view(pre, pre_off + half, (nb, half), (pre_ld, 1)).copy_(c)
-    if out is None:
-        return
-    a = a + _view(cls, cls_off, (nb, half), (2 * half, 1))
-    c = c + _view(cls, cls_off + half, (nb, half), (2 * half, 1))
-    if roll_off is not None:
-        _view(out, roll_off, (nb, half), (out_ld, 1)).copy_(_view(out, out_off, (nb, half), (out_ld, 1)))
-    _view(out, out_off, (nb, half), (out_ld, 1)).copy_(torch.tanh(a) * torch.sigmoid(c))
+class _Decode:
+    def __init__(self, tables, cls, audv, audh, noise, prefix=None, prefix_len=0):
+        f = {k: v.float() for k, v in tables.items() if k != "parts"}
+        self.f, self.cls, self.audv, self.audh, self.noise = f, cls, audv, audh, noise
+        self.steps = []
+        for part in tables["parts"].tolist():
+            if part[7] & 1:
+                self.steps.append([])
+            self.steps[-1].append(part)
+        self.C = f["chain"].shape[0]
+        L, B, d2 = cls.shape
+        d, H, K, hid = d2 // 2, audv.shape[1], f["b2"].shape[0], f["b1"].shape[0]
+        self.L, self.B, self.d, self.H, self.K = L, B, d, H, K
+        self.n, self.hn, self.kn = d // self.C, hid // self.C, K // self.C
+        self.prefix, self.prefix_len = prefix, prefix_len if prefix is not None else 0
+        self.ehist = torch.zeros(B, 2, 3, d)
+        self.xs = torch.zeros(L - 1, B, 2, 2, d)
+        self.xv0 = torch.zeros(B, 2, d)
+        self.hv = torch.zeros(L, B, 2, 2 * d)
+        self.v2h = torch.zeros(L, B, 2, 2 * d)
+        self.cta = [dict(hist0=torch.zeros(L + 1, B, self.n), xh1=torch.zeros(B, self.n),
+                         gs=torch.zeros(B, self.n), tmp=torch.zeros(B, self.n),
+                         hid=torch.zeros(B, self.hn), cval=torch.zeros(B),
+                         cidx=torch.zeros(B, dtype=torch.long),
+                         tokh=torch.full((3, B, 2), -1, dtype=torch.long))
+                    for _ in range(self.C)]
+        self.tokens = torch.zeros((B, H, 2), dtype=torch.long)
+        self.logits = torch.zeros((B, H, 2, K))
+        # vertical phases: layer 0 | fusion_v, v2h 0 | layer 1 | layer l, v2h l-1 | v2h L-1
+        self.phases = ([[("layer", 0)], [("fusion", 0), ("v2h", 0)]]
+                       + [[("layer", l)] + ([("v2h", l - 1)] if l > 1 else []) for l in range(1, L)]
+                       + [[("v2h", L - 1)]])
+        self.v2h_phase = {op[1]: p for p, ops in enumerate(self.phases) for op in ops if op[0] == "v2h"}
 
-
-def _emulate_decode(t, cls, audv, audh, noise, Bn, Hn, L, d, Kn, hid):
-    f = {k: v.float().reshape(-1) for k, v in t.items()}
-    cls, audv, audh = cls.reshape(-1), audv.reshape(-1), audh.reshape(-1)
-    d2, d4 = 2 * d, 4 * d
-    sizes = [Bn * 6 * d, (L - 1) * Bn * d4, Bn * d2, L * Bn * d4, L * Bn * d4,
-             (L + 1) * Bn * d2, Bn * d2, Bn * d, Bn * hid, Bn * Kn]
-    buf = torch.zeros(sum(sizes))
-    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
-    ehist, xs, xv0, hv, v2h, xh, xh0, g, hidb, lg = offs
-    tokens = torch.zeros((Bn, Hn, 2), dtype=torch.long)
-    logits = torch.zeros((Bn, Hn, 2, Kn))
-    for row in range(Hn):
-        for c in range(2):    # layer 0 vertical, per column group
-            _gated(f["wv0"], c * d2 * 6 * d, 6 * d, 0, 6 * d, buf, ehist, 6 * d, Bn, d,
-                   bias=f["bv"][:d2], pre=buf, pre_off=hv + c * d2, pre_ld=d4,
-                   cls=cls, out=buf, out_off=xv0 + c * d, out_ld=d2)
-        for c in range(2):    # fusion_v into layer-1 current row
-            _lin(f["wfv"], 0, d, 0, d, buf, xv0 + c * d, d2, Bn, d, buf,
-                 xs + d + c * d2, d4, add=audv, add_off=row * d, add_ld=Hn * d,
-                 roll_off=xs + c * d2)
-        for l in range(1, L):
-            for c in range(2):
-                kw = {}
-                if l < L - 1:
-                    kw = dict(cls=cls, cls_off=l * Bn * d2, out=buf,
-                              out_off=xs + l * Bn * d4 + d + c * d2, out_ld=d4,
-                              roll_off=xs + l * Bn * d4 + c * d2)
-                _gated(f["wvB"], (l - 1) * 2 * d2 * d4 + c * d2 * d4, d4, 0, d4, buf,
-                       xs + (l - 1) * Bn * d4, d4, Bn, d, bias=f["bv"][l * d2:(l + 1) * d2],
-                       pre=buf, pre_off=hv + l * Bn * d4 + c * d2, pre_ld=d4, **kw)
-        for l in range(L):
-            for c in range(2):
-                _lin(f["wv2h"], l * d2 * d2, d2, 0, d2, buf, hv + l * Bn * d4 + c * d2, d4,
-                     Bn, d2, buf, v2h + l * Bn * d4 + c * d2, d4)
-        for c in range(2):
-            for l in range(L):
-                k0, klen = (d, 0 if l == 0 else d) if c == 0 else (0, d if l == 0 else d2)
-                _gated(f["wh"], l * d2 * d2, d2, k0, klen, buf, xh + l * Bn * d2, d2, Bn, d,
-                       bias=f["bhsum"][l * d2:(l + 1) * d2], add=buf,
-                       add_off=v2h + l * Bn * d4 + c * d2, add_ld=d4, cls=cls,
-                       cls_off=l * Bn * d2, out=buf, out_off=g, out_ld=d)
-                y_off = (xh0 if l == 0 else xh + (l + 1) * Bn * d2) + c * d
-                _lin(f["wres"], l * d * d, d, 0, d, buf, g, d, Bn, d, buf, y_off, d2,
-                     bias=f["br"][l * d:(l + 1) * d],
-                     add=buf if l > 0 else None, add_off=xh + l * Bn * d2 + c * d, add_ld=d2)
-                if l == 0:
-                    _lin(f["wfh"], 0, d, 0, d, buf, xh0 + c * d, d2, Bn, d, buf,
-                         xh + Bn * d2 + c * d, d2, add=audh, add_off=row * d, add_ld=Hn * d)
-            _lin(f["w1"], 0, d, 0, d, buf, xh + L * Bn * d2 + c * d, d2, Bn, hid, buf, hidb,
-                 hid, bias=f["b1"], relu=True)
-            _lin(f["w2"], 0, hid, 0, hid, buf, hidb, hid, Bn, Kn, buf, lg, Kn, bias=f["b2"])
-            z = _view(buf, lg, (Bn, Kn), (Kn, 1))
-            logits[:, row, c] = z
-            tok = torch.argmax(z + noise[row, c], dim=-1)
-            tokens[:, row, c] = tok
-            emb = f["emb"].reshape(Kn, d)
-            if c == 0:
-                _view(buf, xh, (Bn, d), (d2, 1)).copy_(emb[tok])
+    # -- vertical group ------------------------------------------------------
+    def vertical(self, row, p):
+        f, B, d = self.f, self.B, self.d
+        for kind, l in self.phases[p]:
+            if kind == "layer":
+                x = (self.ehist if l == 0 else self.xs[l - 1]).reshape(B, -1)
+                w = f["wv0"] if l == 0 else f["wvB"][l - 1]
+                for c in (0, 1):
+                    pre = x @ w[c].T + f["bv"][l]
+                    self.hv[l, :, c] = pre
+                    if l == 0:
+                        self.xv0[:, c] = _gate(pre, self.cls[0])
+                    elif l < self.L - 1:
+                        self.xs[l, :, c, 0] = self.xs[l, :, c, 1]
+                        self.xs[l, :, c, 1] = _gate(pre, self.cls[l])
+            elif kind == "fusion":
+                for c in (0, 1):
+                    self.xs[0, :, c, 0] = self.xs[0, :, c, 1]
+                    self.xs[0, :, c, 1] = self.xv0[:, c] @ f["wfv"].T + self.audv[:, row]
             else:
-                h = _view(buf, ehist, (Bn, 2, 3, d), (6 * d, 3 * d, d, 1))
-                h[:, :, :2] = h[:, :, 1:].clone()
-                h[:, :, 2] = emb[tokens[:, row]]
-    return tokens, logits
+                for c in (0, 1):
+                    self.v2h[l, :, c] = self.hv[l, :, c] @ f["wv2h"][l].T
+
+    # -- chain cluster -------------------------------------------------------
+    def gather(self, name, layer=None):
+        return torch.cat([s[name] if layer is None else s[name][layer] for s in self.cta], dim=1)
+
+    def sample(self, q, col, row):
+        me = self.cta[q]
+        if row < self.prefix_len:
+            tok = self.prefix[:, row, col].long()
+        else:
+            best, tok = self.cta[0]["cval"].clone(), self.cta[0]["cidx"].clone()
+            for s in self.cta[1:]:
+                take = (s["cval"] > best) | ((s["cval"] == best) & (s["cidx"] < tok))
+                best, tok = torch.where(take, s["cval"], best), torch.where(take, s["cidx"], tok)
+        me["tokh"][2, :, col] = tok
+
+    def chain_step(self, row, s, q):
+        f, me, B, d, L = self.f, self.cta[q], self.B, self.d, self.L
+        kind, col, layer = self.steps[s][0][:3]
+        x = None
+        if kind == GATED:
+            if col == 0:
+                x = self.gather("hist0", layer) if layer > 0 else None
+            elif layer == 0:
+                self.sample(q, 0, row)
+                x = f["emb"][me["tokh"][2, :, 0]]
+            else:
+                x = torch.cat([self.gather("hist0", layer), self.gather("xh1")], dim=1)
+        elif kind == RESID:
+            x = self.gather("gs")
+        elif kind == FUSION:
+            x = self.gather("tmp")
+        elif kind == HIDDEN:
+            x = self.gather("hist0", L) if col == 0 else self.gather("xh1")
+        else:
+            x = self.gather("hid")
+            best, bi = torch.full((B,), -float("inf")), torch.full((B,), 2 ** 31 - 1)
+        for _, _, _, klen, u0, nu, off, _ in self.steps[s]:
+            urows = 2 if kind == GATED else 1
+            w = f["chain"][q, off:off + nu * urows * klen].reshape(nu * urows, klen)
+            acc = x @ w.T if klen else torch.zeros(B, nu * urows)
+            u = torch.arange(u0, u0 + nu)
+            if kind == GATED:
+                j = q * self.n + u
+                v2h, cls = self.v2h[layer, :, col], self.cls[layer]
+                a = acc[:, 0::2] + (f["bhsum"][layer, j] + v2h[:, j]) + cls[:, j]
+                c = acc[:, 1::2] + (f["bhsum"][layer, j + d] + v2h[:, j + d]) + cls[:, j + d]
+                me["gs"][:, u] = torch.tanh(a) * torch.sigmoid(c)
+            elif kind == RESID:
+                o = q * self.n + u
+                own = me["hist0"][layer] if col == 0 else me["xh1"]
+                extra = f["br"][layer, o] + (own[:, u] if layer > 0 else 0.0)
+                y = me["tmp"] if layer == 0 else me["hist0"][layer + 1] if col == 0 else me["xh1"]
+                y[:, u] = acc + extra
+            elif kind == FUSION:
+                y = me["hist0"][1] if col == 0 else me["xh1"]
+                y[:, u] = acc + self.audh[:, row, q * self.n + u]
+            elif kind == HIDDEN:
+                me["hid"][:, u] = (acc + f["b1"][q * self.hn + u]).clamp_min(0)
+            else:
+                o = q * self.kn + u
+                z = acc + f["b2"][o]
+                self.logits[:, row, col, o] = z
+                zz = z + self.noise[row, col][:, o]
+                m, i = zz.max(dim=1)
+                i = (zz == m[:, None]).int().argmax(dim=1) + o[0]   # the first maximum
+                take = (m > best) | ((m == best) & (i < bi))
+                best, bi = torch.where(take, m, best), torch.where(take, i, bi)
+        if kind == LOGITS:
+            me["cval"], me["cidx"] = best, bi
+
+    def row_end(self, row, q):
+        me, n, d = self.cta[q], self.n, self.d
+        self.sample(q, 1, row)
+        if q == 0:
+            self.tokens[:, row] = me["tokh"][2]
+        sl = slice(q * n, (q + 1) * n)
+        for r in range(3):
+            for c in (0, 1):
+                tok = me["tokh"][r, :, c]
+                e = self.f["emb"][tok.clamp_min(0), sl] * (tok >= 0)[:, None]
+                self.ehist[:, c, r, sl] = e
+        me["tokh"][:2] = me["tokh"][1:].clone()
+
+    # -- the tasks and their declared waits -----------------------------------
+    def tasks(self, drop=None):
+        """{task: (run, [tasks it waits for])}, in program order."""
+        C, nph, ns = self.C, len(self.phases), len(self.steps)
+        out = {}
+        for row in range(self.H):
+            for p in range(nph):
+                deps = [("V", row, p - 1)] if p else []
+                if p == 0 and row > 0:
+                    deps.append(("V", row - 1, nph - 1))
+                    if drop != "row":
+                        deps += [("E", row - 1, q) for q in range(C)]
+                out[("V", row, p)] = (lambda row=row, p=p: self.vertical(row, p), deps)
+            for s, parts in enumerate(self.steps):
+                kind, col, layer = parts[0][:3]
+                for q in range(C):
+                    if s:
+                        deps = [("S", row, s - 1, r) for r in range(C)]   # cluster barrier
+                    else:
+                        deps = [("E", row - 1, q)] if row else []
+                    if kind == GATED and col == 0 and drop != "v2h":
+                        deps.append(("V", row, self.v2h_phase[layer]))
+                    out[("S", row, s, q)] = (lambda row=row, s=s, q=q: self.chain_step(row, s, q),
+                                             deps)
+            for q in range(C):
+                out[("E", row, q)] = (lambda row=row, q=q: self.row_end(row, q),
+                                      [("S", row, ns - 1, r) for r in range(C)])
+        return out
+
+    def run(self, order_seed=None, drop=None):
+        """Run every task once; the next is the first ready one in program
+        order, or a random ready one drawn from `order_seed`."""
+        tasks = self.tasks(drop)
+        rng = None if order_seed is None else np.random.default_rng(order_seed)
+        waits = {t: set(deps) for t, (_, deps) in tasks.items()}
+        users = {t: [] for t in tasks}
+        for t, deps in waits.items():
+            for dep in deps:
+                users[dep].append(t)
+        ready = [t for t in tasks if not waits[t]]
+        while ready:
+            t = ready.pop(0 if rng is None else int(rng.integers(len(ready))))
+            tasks[t][0]()
+            for u in users[t]:
+                waits[u].discard(t)
+                if not waits[u]:
+                    ready.append(u)
+        assert not any(waits.values()), "the declared waits deadlock"
+        return self.tokens, self.logits
+
+
+def _decode_case(models, dtype, cluster, prefix_len=0, seed=4):
+    _, _, tm = models
+    label, audio, given = _inputs(seed)
+    lab, aud = torch.as_tensor(label).long(), torch.as_tensor(audio)
+    noise = torch.as_tensor(np.random.default_rng(seed).gumbel(size=(H, 2, B, K)),
+                            dtype=torch.float32)
+    prefix = torch.as_tensor(given).long() if prefix_len else None
+    tables = pack_decode_tables(tm, dtype, cluster)
+    tm = round_like_tables(tm, dtype)   # the plain side gets the same rounded weights
+    cls, audv, audh = conditioning(tm, lab, aud)
+    emu = _Decode(tables, cls, audv, audh, noise, prefix, prefix_len)
+    want = sample_tokens(tm, lab, aud, noise=noise, prefix_tokens=prefix,
+                         prefix_len=prefix_len, return_logits=True)
+    return emu, want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_tables_reproduce_plain_sampler(models, dtype):
-    _, _, tm = models
-    label, audio, _ = _inputs(4)
-    lab, aud = torch.as_tensor(label).long(), torch.as_tensor(audio)
-    noise = torch.as_tensor(np.random.default_rng(4).gumbel(size=(H, 2, B, K)),
-                            dtype=torch.float32)
-    tables = pack_decode_tables(tm, dtype)
-    tm = round_like_tables(tm, dtype)   # the plain side gets the same rounded weights
-    cls, audv, audh = conditioning(tm, lab, aud)
+    emu, (want, want_logits) = _decode_case(models, dtype, 16)
     with torch.no_grad():
-        tok, logits = _emulate_decode(tables, cls, audv, audh, noise, B, H, LAYERS,
-                                      DIM, K, tm.out_hidden.out_features)
-    want, want_logits = sample_tokens(tm, lab, aud, noise=noise, return_logits=True)
+        tok, logits = emu.run()
     np.testing.assert_array_equal(tok.numpy(), want.numpy())
     np.testing.assert_allclose(logits.numpy(), want_logits.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("cluster,order_seed", [(16, 0), (16, 1), (8, 2), (8, 3)])
+def test_declared_waits_suffice_in_any_order(models, cluster, order_seed):
+    emu, (want, want_logits) = _decode_case(models, torch.bfloat16, cluster)
+    with torch.no_grad():
+        tok, logits = emu.run(order_seed)
+    np.testing.assert_array_equal(tok.numpy(), want.numpy())
+    np.testing.assert_allclose(logits.numpy(), want_logits.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("drop", ["v2h", "row"])
+def test_dropping_a_declared_wait_breaks_some_order(models, drop):
+    emu, (_, want_logits) = _decode_case(models, torch.float32, 8)
+    with torch.no_grad():
+        _, logits = emu.run(order_seed=5, drop=drop)
+    assert (logits - want_logits).abs().max().item() > 1e-2
+
+
+@pytest.mark.parametrize("cluster", [16, 8])
+def test_prefix_shorter_than_h(models, cluster):
+    emu, (want, want_logits) = _decode_case(models, torch.float32, cluster, prefix_len=3, seed=6)
+    with torch.no_grad():
+        tok, logits = emu.run(order_seed=cluster)
+    np.testing.assert_array_equal(tok.numpy(), want.numpy())
+    np.testing.assert_array_equal(tok.numpy()[:, :3], _inputs(6)[2][:, :3])
+    np.testing.assert_allclose(logits.numpy(), want_logits.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("cluster", [3, 12, 32])
+def test_cluster_must_be_a_power_of_two_dividing_the_widths(models, cluster):
+    with pytest.raises(ValueError):
+        pack_decode_tables(models[2], torch.float32, cluster)
+
+
+def test_chain_parts_cover_each_cta_stream_once(models):
+    """The part descriptors tile every step's rows of a CTA's stream in
+    order, parts stay within PART_BYTES and the stream ends on a chunk."""
+    from talkshow_torch.kernels import ar_decode as k1
+    tm = models[2]
+    for dtype in (torch.float32, torch.bfloat16):
+        esize = torch.empty((), dtype=dtype).element_size()
+        parts, row_elems = k1.chain_parts(LAYERS, DIM, K, tm.out_hidden.out_features, 8, esize)
+        off = 0
+        for kind, _, _, klen, _, nu, p_off, _ in parts:
+            size = nu * klen * (2 if kind == k1.GATED else 1)
+            assert p_off == off and size * esize <= k1.PART_BYTES and (p_off * esize) % 32 == 0
+            off += size
+        assert off <= row_elems and (row_elems * esize) % k1.CHUNK_BYTES == 0
+        assert row_elems - off < k1.CHUNK_BYTES // esize
