@@ -16,7 +16,8 @@ Phases (one line each; any failure raises and the script exits non-zero):
              b) bf16 tables against the plain version on the same
                 bf16-rounded weights: teacher-forced logits within 1e-3 of
                 max|logit| (activations are f32 on both sides, so only the
-                summation order differs), and >= 97 % of the draws
+                summation order differs, and at B = 32, on the tensor cores,
+                x's split into bf16 hi + lo, 2^-17 of it), and >= 97 % of the draws
                 argmax(logits + noise) agree
              c) in-kernel Philox noise: seeded, in [0, K), and the sampled
                 tokens' mean log-probability within 4 standard errors of the
@@ -31,8 +32,8 @@ Phases (one line each; any failure raises and the script exits non-zero):
              (f32 tables, shared noise): equal tokens, motion within 1e-3
   5 times    generate() p50 over 10 runs at S=1 and 5 runs at S=8 (CUDA
              events, fresh seed per run), the S=1 stages; K1 (bf16 tables,
-             Philox) at B = 1, 8, 32 and H = 75, 25 for a chain cluster of 16
-             CTAs (B = 1, 8 for 8 CTAs): ms, us per row, us per dependent step (the slope
+             Philox) at B = 1, 8, 32 and H = 75, 25: ms, us per row, us per
+             dependent step (the slope
              between H = 75 and 25 over the steps of a row) and the launch's
              shape, and where a row's time goes (the kernel's %globaltimer
              probe, `decode_timeline`); the K1 decode against the plain
@@ -256,52 +257,50 @@ def phase3d(dev) -> None:
 
 
 def phase5_k1(dev, card: str) -> dict:
-    """K1 (bf16 tables, Philox) at B = 1, 8, 32 and H = 75, 25 for both
-    cluster sizes: ms, us per row, us per dependent step (the slope between
-    H = 75 and 25 over the steps of a row) and the launch's shape; the plain
+    """K1 (bf16 tables, Philox) at B = 1, 8, 32 and H = 75, 25: ms, us per
+    row, us per dependent step (the slope between H = 75 and 25 over the
+    steps of a row), the launch's shape and the timeline probe; the plain
     decode at B = 1 and 8 in the order plain, kernel, kernel, plain; one
-    profiler line.  Returns (kernel ms, plain ms) per B for cluster 16."""
+    profiler line.  Returns (kernel ms, plain ms) per B."""
     from talkshow_torch.kernels import ar_decode
     from talkshow_torch.kernels.ar_decode import chain_steps
     from talkshow_torch.models.pixelcnn import sample_tokens
     steps = len(chain_steps(FULL["layers"], FULL["dim"], FULL["K"], 512)) + 2
     res = {}
-    for cluster in (16, 8):
-        # at B = 32 a cluster of 8 leaves too little shared memory for the ring
-        for B in (1, 8, 32) if cluster == 16 else (1, 8):
-            model, label, audio_b, _, _ = prior_case(B, 40 + B, dev)
-            t16 = ar_decode.pack_decode_tables(model, torch.bfloat16, cluster)
-            gen = torch.Generator().manual_seed(0)
-            ms = {}
-            for H in (75, 25):
-                aud = audio_b[:, :H].contiguous()
-                ms[H] = cuda_ms(lambda: ar_decode.sample_tokens_fused(
-                    model, label, aud, tables=t16, generator=gen), 5)
-            step_us = (ms[75] - ms[25]) * 1e3 / 50 / steps
-            shape = dict(ar_decode.last_launch)
-            tl = ar_decode.decode_timeline(model, label, audio_b, t16,
-                                           torch.Generator().manual_seed(1))
-            log(f"phase 5 K1 cluster={cluster} B={B}: H=75 {ms[75]:.3f} ms, H=25 {ms[25]:.3f} ms, "
-                f"{ms[75] * 1e3 / 75:.1f} us/row, {step_us:.3f} us per dependent step "
-                f"({steps} per row); chain CTAs {shape['chain_ctas']}, vertical CTAs "
-                f"{shape['vertical_ctas']}, shared memory {shape['smem_bytes']} B/CTA, "
-                f"ring {shape['ring_stages']} x {ar_decode.CHUNK_BYTES} B [{card}]")
-            log(f"phase 5 K1 cluster={cluster} B={B} timeline (%globaltimer, mean over rows "
-                f"1-74, us): " + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in tl.items()))
-            if cluster == 16 and B in (1, 8):
-                def kern():
-                    return ar_decode.sample_tokens_fused(model, label, audio_b, tables=t16,
-                                                         generator=gen)
+    for B in (1, 8, 32):
+        model, label, audio_b, _, _ = prior_case(B, 40 + B, dev)
+        t16 = ar_decode.pack_decode_tables(model, torch.bfloat16)
+        gen = torch.Generator().manual_seed(0)
+        ms = {}
+        for H in (75, 25):
+            aud = audio_b[:, :H].contiguous()
+            ms[H] = cuda_ms(lambda: ar_decode.sample_tokens_fused(
+                model, label, aud, tables=t16, generator=gen), 5)
+        step_us = (ms[75] - ms[25]) * 1e3 / 50 / steps
+        shape = dict(ar_decode.last_launch)
+        tl = ar_decode.decode_timeline(model, label, audio_b, t16,
+                                       torch.Generator().manual_seed(1))
+        log(f"phase 5 K1 B={B}: H=75 {ms[75]:.3f} ms, H=25 {ms[25]:.3f} ms, "
+            f"{ms[75] * 1e3 / 75:.1f} us/row, {step_us:.3f} us per dependent step "
+            f"({steps} per row); chain CTAs {shape['chain_ctas']}, vertical CTAs "
+            f"{shape['vertical_ctas']}, shared memory {shape['smem_bytes']} B/CTA, "
+            f"ring {shape['ring_stages']} x {ar_decode.CHUNK_BYTES} B [{card}]")
+        log(f"phase 5 K1 B={B} timeline (%globaltimer, mean over rows "
+            f"1-74, us): " + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in tl.items()))
+        if B in (1, 8):
+            def kern():
+                return ar_decode.sample_tokens_fused(model, label, audio_b, tables=t16,
+                                                     generator=gen)
 
-                def plain():
-                    return sample_tokens(model, label, audio_b, generator=gen)
+            def plain():
+                return sample_tokens(model, label, audio_b, generator=gen)
 
-                p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern, 5), cuda_ms(kern, 5), cuda_ms(plain)
-                res[B] = ((k1 + k2) / 2, (p1 + p2) / 2)
-                log(f"phase 5 ar_decode B={B} H=75: kernel (bf16 tables) {k1:.2f} / {k2:.2f} ms, "
-                    f"plain {p1:.2f} / {p2:.2f} ms [{card}]")
-                if B == 1:
-                    log(f"phase 5 K1 B=1 device time by kernel: {kernel_breakdown(kern)} [{card}]")
+            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern, 5), cuda_ms(kern, 5), cuda_ms(plain)
+            res[B] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            log(f"phase 5 ar_decode B={B} H=75: kernel (bf16 tables) {k1:.2f} / {k2:.2f} ms, "
+                f"plain {p1:.2f} / {p2:.2f} ms [{card}]")
+            if B == 1:
+                log(f"phase 5 K1 B=1 device time by kernel: {kernel_breakdown(kern)} [{card}]")
     return res
 
 

@@ -20,7 +20,7 @@
 // What the design does about it: one launch, every CTA resident, two roles.
 // - The chain (everything after v2h: both horizontal passes, fusion_h, the
 //   head, the gumbel-argmax, the embedding feedback) runs on ONE thread-block
-//   cluster of C = 16 (or 8) CTAs.  CTA q owns 1/C of each step's outputs and
+//   cluster of C = 16 CTAs.  CTA q owns 1/C of each step's outputs and
 //   keeps them in its shared memory; steps are separated by barrier.cluster
 //   (arrive.release / wait.acquire), and the next step's input vector is
 //   gathered from the CTAs' shared memory over distributed shared memory, not
@@ -41,13 +41,23 @@
 //   tokens and the embedding history, and the vertical group waits on that
 //   before layer 0 of row r+1.  State written by another CTA is read after
 //   an acquire, never through the read-only path.
+// - A step's products grow with B, so their layout follows it.  Up to 8
+//   batch rows a warp's lanes split the batch rows and the row's k (each
+//   weight chunk is read once and broadcast to the lanes of that chunk);
+//   past 8, with bf16 tables, the chain's parts run on the tensor cores
+//   (mma.sync m16n8k16 over 8 weight rows x 16 batch rows, x split into
+//   bf16 hi + lo so the products keep 16 of x's bits), in a second
+//   instantiation of the kernel that B <= 8 never loads; and the vertical
+//   tasks take two output units each wherever that still leaves a task for
+//   every warp.
 // - Each step's fixed costs are kept off L2 where it can be: the part
 //   descriptors, biases and (when they fit) the class embeddings and column
-//   1's v2h sit in shared memory, the warp reductions are transposed
-//   butterflies, and whether v2h[l + 1] is done is asked one step ahead.
-//   Shared memory leaves L1 ~26 KB, so a load that misses goes to L2.
+//   1's v2h sit in shared memory, and whether v2h[l + 1] is done is asked one
+//   step ahead.  Shared memory leaves L1 ~26 KB, so the vertical group reads
+//   its weights past L1 (no_allocate) and keeps L1 for the row state.
 // Measured (PERF.md): ~3-4 us per chain step and ~6 us per vertical phase
-// at B = 1, so the decode is still bound by its dependent steps.
+// at B = 1, so the decode is still bound by its dependent steps; at B = 32
+// the vertical group's phases (~22 us) pace column 0.
 // Tables are bf16 (f32 for exact comparison), accumulation and all row state
 // f32.  A spin that outlasts 20 s traps (a deadlock becomes a launch error).
 
@@ -59,6 +69,7 @@
 
 #include <algorithm>
 #include <initializer_list>
+#include <type_traits>
 #include <vector>
 
 namespace cg = cooperative_groups;
@@ -67,9 +78,10 @@ namespace {
 
 constexpr int kWarps = 16;              // warps per CTA (one CTA per SM)
 constexpr int kThreads = kWarps * 32;
-constexpr int kBC = 4;                  // batch rows per accumulator pass
+constexpr int kBC = 4;                  // batch rows per vertical accumulator pass
 constexpr int kMaxBatch = 32;           // one lane per batch row in the argmax
 constexpr int kMaxStages = 32;
+constexpr int kCluster = 16;            // CTAs of the chain's cluster
 constexpr int kSmemCap = 227 * 1024;
 constexpr unsigned long long kWatchdogNs = 20ull * 1000 * 1000 * 1000;
 
@@ -87,12 +99,22 @@ __device__ __forceinline__ void cvt8(const float4 a, const float4 b, float v[8])
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// read-only tables in global memory
+// read-only tables in global memory, read once per task: not kept in L1,
+// which then holds the row state the tasks share
+__device__ __forceinline__ uint4 ldg_na(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 f4(uint4 u) {
+  return make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z), __uint_as_float(u.w));
+}
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
-  cvt8(__ldg(reinterpret_cast<const float4*>(p)), __ldg(reinterpret_cast<const float4*>(p) + 1), v);
+  cvt8(f4(ldg_na(p)), f4(ldg_na(p + 4)), v);
 }
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  cvt8(__ldg(reinterpret_cast<const uint4*>(p)), v);
+  cvt8(ldg_na(p), v);
 }
 
 // tables in shared memory (the chain's ring)
@@ -121,13 +143,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Sum acc[r][b] over the warp's lanes and leave the total of (r, b) in
-// res[r] of lane `base` + b, for b < nb.  One batch row: a butterfly per
+// res[r] of lane b, for b < nb.  One batch row: a butterfly per
 // row.  More: a transposed butterfly that halves the values a lane holds
 // at each of the first levels (NR * kBC - 1 shuffles, not 5 per value),
 // then one shuffle per row to place the totals.
 template <int NR>
-__device__ __forceinline__ void warp_totals(float (&acc)[NR][kBC], int nb, int base,
-                                            float (&res)[NR]) {
+__device__ __forceinline__ void warp_totals(float (&acc)[NR][kBC], int nb, float (&res)[NR]) {
   const int lane = threadIdx.x & 31;
   if (nb == 1) {
 #pragma unroll
@@ -152,14 +173,32 @@ __device__ __forceinline__ void warp_totals(float (&acc)[NR][kBC], int nb, int b
     }
   }
   for (; o > 0; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
-  // lane l now holds the total of value (l >> shift): send (r, b) to base + b
-  const int b = (lane - base) & (kBC - 1);
+  // lane l now holds the total of value (l >> shift): send (r, b) to lane b
+  const int b = lane & (kBC - 1);
 #pragma unroll
   for (int r = 0; r < NR; ++r) res[r] = __shfl_sync(0xffffffffu, v[0], (r * kBC + b) << shift);
 }
 
 __device__ __forceinline__ float gate(float a, float c) {
   return tanhf(a) * (1.f / (1.f + expf(-c)));
+}
+
+// (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), x0 in the low half
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d += a b on the tensor cores: m16n8k16, bf16 operands, f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
@@ -266,10 +305,10 @@ __device__ __forceinline__ void warp_dot(const T* const (&w)[NR], const float* x
       }
     }
   }
-  warp_totals<NR>(acc, nb, 0, res);
+  warp_totals<NR>(acc, nb, res);
 }
 
-// y[b, o] = sum_k x[b, k] w[o, k] + add[b, o] for o < nout (even), two
+// y[b, o] = sum_k x[b, k] w[o, k] + add[b, o] for o < nout, 2 * NU
 // outputs per task, over groups gy < ngy (the two columns) that offset x
 // and y by their strides; `add` also moves by add_row per token row.
 // `roll`, when set, first receives the old y[b, o] (same offsets).
@@ -283,31 +322,31 @@ struct Lin {
   int nout, nb;
 };
 
-template <typename T>
+template <typename T, int NU>
 __device__ void run_lin(const Lin& p, int ngy, int row, int gw, int nw) {
+  constexpr int NR = 2 * NU;
   const int lane = threadIdx.x & 31;
-  const int nchunk = (p.nb + kBC - 1) / kBC, npair = p.nout / 2;
-  const int ntask = ngy * npair * nchunk;
+  const int nchunk = (p.nb + kBC - 1) / kBC, nunit = p.nout / NR;
+  const int ntask = ngy * nunit * nchunk;
   for (int t = gw; t < ntask; t += nw) {
     const int bc = (t % nchunk) * kBC, u = t / nchunk;
-    const int o = (u % npair) * 2, gy = u / npair;
-    const T* const w[2] = {static_cast<const T*>(p.w) + o * p.w_ld,
-                           static_cast<const T*>(p.w) + (o + 1) * p.w_ld};
+    const int o = (u % nunit) * NR, gy = u / nunit;
+    const T* w[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) w[r] = static_cast<const T*>(p.w) + (o + r) * p.w_ld;
     const int nb = min(kBC, p.nb - bc);
     const long bb = bc + lane, yi = gy * p.y_gy + o + bb * p.y_ld;
-    float extra[2] = {0.f, 0.f}, old[2] = {0.f, 0.f};
-    if (lane < nb) {    // lane b < nb owns batch row bc + b: fetch its terms now
+    float extra[NR], old[NR];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (p.add) extra[r] = __ldg(p.add + row * p.add_row + bb * p.add_ld + o + r);
-        if (p.roll) old[r] = p.y[yi + r];
-      }
+    for (int r = 0; r < NR; ++r) {   // lane b < nb owns batch row bc + b: fetch its terms now
+      extra[r] = p.add && lane < nb ? __ldg(p.add + row * p.add_row + bb * p.add_ld + o + r) : 0.f;
+      old[r] = p.roll && lane < nb ? p.y[yi + r] : 0.f;
     }
-    float res[2];
-    warp_dot<T, 2>(w, p.x + gy * p.x_gy + bc * p.x_ld, p.x_ld, nb, p.klen, res);
+    float res[NR];
+    warp_dot<T, NR>(w, p.x + gy * p.x_gy + bc * p.x_ld, p.x_ld, nb, p.klen, res);
     if (lane < nb) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
+      for (int r = 0; r < NR; ++r) {
         if (p.roll) p.roll[yi + r] = old[r];
         p.y[yi + r] = res[r] + extra[r];
       }
@@ -315,11 +354,11 @@ __device__ void run_lin(const Lin& p, int ngy, int row, int gw, int nw) {
   }
 }
 
-// Gated pair: for j < half, a = dot(x, w[j]) and c = dot(x, w[j + half]),
-// pre = (a, c) + bias, stored; then, when `out` is set,
-// out[b, j] = tanh(pre_a + cls_a) * sigmoid(pre_c + cls_c).  Groups gy (the
-// two columns) offset w, pre and out by their strides.  `roll`, when set,
-// receives the old out[b, j] first (the row-state shift).
+// Gated pairs, NU per task: for j < half, a = dot(x, w[j]) and
+// c = dot(x, w[j + half]), pre = (a, c) + bias, stored; then, when `out` is
+// set, out[b, j] = tanh(pre_a + cls_a) * sigmoid(pre_c + cls_c).  Groups gy
+// (the two columns) offset w, pre and out by their strides.  `roll`, when
+// set, receives the old out[b, j] first (the row-state shift).
 struct Gated {
   const void* w; long w_ld, w_gy;
   int klen;
@@ -332,38 +371,46 @@ struct Gated {
   int half, nb;
 };
 
-template <typename T>
+template <typename T, int NU>
 __device__ void run_gated(const Gated& p, int ngy, int gw, int nw) {
   const int lane = threadIdx.x & 31;
-  const int nchunk = (p.nb + kBC - 1) / kBC;
-  const int ntask = ngy * p.half * nchunk;
+  const int nchunk = (p.nb + kBC - 1) / kBC, nunit = p.half / NU;
+  const int ntask = ngy * nunit * nchunk;
   for (int t = gw; t < ntask; t += nw) {
     const int bc = (t % nchunk) * kBC, u = t / nchunk;
-    const int j = u % p.half, gy = u / p.half;
+    const int j0 = (u % nunit) * NU, gy = u / nunit;
     const T* base = static_cast<const T*>(p.w) + gy * p.w_gy;
-    const T* const w[2] = {base + j * p.w_ld, base + (j + p.half) * p.w_ld};
-    const int nb = min(kBC, p.nb - bc);
-    const long bb = bc + lane, oi = gy * p.out_gy + bb * p.out_ld + j;
-    float ea = 0.f, ec = 0.f, ca = 0.f, cc = 0.f, old = 0.f;
-    if (lane < nb) {
-      ea = __ldg(p.bias + j);
-      ec = __ldg(p.bias + j + p.half);
-      if (p.out) {
-        ca = __ldg(p.cls + bb * p.cls_ld + j);
-        cc = __ldg(p.cls + bb * p.cls_ld + j + p.half);
-        if (p.roll) old = p.out[oi];
-      }
+    const T* w[2 * NU];   // rows j0 .. j0 + NU - 1, then their c rows
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      w[i] = base + (j0 + i) * p.w_ld;
+      w[NU + i] = base + (j0 + i + p.half) * p.w_ld;
     }
-    float res[2];
-    warp_dot<T, 2>(w, p.x + bc * p.x_ld, p.x_ld, nb, p.klen, res);
+    const int nb = min(kBC, p.nb - bc);
+    const long bb = bc + lane, oi = gy * p.out_gy + bb * p.out_ld + j0;
+    float ea[NU], ec[NU], ca[NU], cc[NU], old[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      const bool own = lane < nb, gate_it = own && p.out;
+      ea[i] = own ? __ldg(p.bias + j0 + i) : 0.f;
+      ec[i] = own ? __ldg(p.bias + j0 + i + p.half) : 0.f;
+      ca[i] = gate_it ? __ldg(p.cls + bb * p.cls_ld + j0 + i) : 0.f;
+      cc[i] = gate_it ? __ldg(p.cls + bb * p.cls_ld + j0 + i + p.half) : 0.f;
+      old[i] = gate_it && p.roll ? p.out[oi + i] : 0.f;
+    }
+    float res[2 * NU];
+    warp_dot<T, 2 * NU>(w, p.x + bc * p.x_ld, p.x_ld, nb, p.klen, res);
     if (lane < nb) {
-      const float a = res[0] + ea, c = res[1] + ec;
       float* pr = p.pre + gy * p.pre_gy + bb * p.pre_ld;
-      pr[j] = a;
-      pr[j + p.half] = c;
-      if (p.out) {
-        if (p.roll) p.roll[oi] = old;
-        p.out[oi] = gate(a + ca, c + cc);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        const float a = res[i] + ea[i], c = res[NU + i] + ec[i];
+        pr[j0 + i] = a;
+        pr[j0 + i + p.half] = c;
+        if (p.out) {
+          if (p.roll) p.roll[oi + i] = old[i];
+          p.out[oi + i] = gate(a + ca[i], c + cc[i]);
+        }
       }
     }
   }
@@ -373,11 +420,11 @@ enum : int { kOpLin = 0, kOpGated = 1 };
 
 // One op of the vertical row.  Ops with the same phase run concurrently;
 // `last` marks the end of a phase (a group barrier follows), `offset` shifts
-// the op's tasks onto warps the phase's earlier ops leave free, and `sig`
+// the op's tasks onto warps the phase's earlier ops leave free, `sig`
 // (l + 1) marks the op that computes v2h[l]: its phase ends with a signal to
-// the chain.
+// the chain, and `unit` is the units (output pairs, gated pairs) of a task.
 struct alignas(16) Op {
-  int kind, gy, last, offset, sig, pad_[3];
+  int kind, gy, last, offset, sig, unit, pad_[2];
   union {
     Lin lin;
     Gated gated;
@@ -397,30 +444,31 @@ template <typename T>
 __device__ void prefetch_op(const Op& op, int gw, int nw) {
   if (op.kind == kOpLin) {
     const Lin& p = op.lin;
-    const int nchunk = (p.nb + kBC - 1) / kBC, npair = p.nout / 2;
-    const int ntask = op.gy * npair * nchunk;
+    const int nchunk = (p.nb + kBC - 1) / kBC, nr = 2 * op.unit, nunit = p.nout / nr;
+    const int ntask = op.gy * nunit * nchunk;
     for (int t = gw; t < ntask; t += nw) {
-      if (t % nchunk) continue;   // one request per pair of weight rows
-      prefetch_l2(static_cast<const T*>(p.w) + (t / nchunk % npair) * 2 * p.w_ld,
-                  2 * p.klen * (long)sizeof(T));
+      if (t % nchunk) continue;   // one request per task's weight rows
+      prefetch_l2(static_cast<const T*>(p.w) + (t / nchunk % nunit) * nr * p.w_ld,
+                  nr * p.klen * (long)sizeof(T));
     }
   } else {
     const Gated& p = op.gated;
-    const int nchunk = (p.nb + kBC - 1) / kBC;
-    const int ntask = op.gy * p.half * nchunk;
+    const int nchunk = (p.nb + kBC - 1) / kBC, nunit = p.half / op.unit;
+    const int ntask = op.gy * nunit * nchunk;
     for (int t = gw; t < ntask; t += nw) {
       if (t % nchunk) continue;
-      const int u = t / nchunk;
-      const T* base = static_cast<const T*>(p.w) + (u / p.half) * p.w_gy;
-      prefetch_l2(base + (u % p.half) * p.w_ld, p.klen * (long)sizeof(T));
-      prefetch_l2(base + (u % p.half + p.half) * p.w_ld, p.klen * (long)sizeof(T));
+      const int u = t / nchunk, j0 = (u % nunit) * op.unit;
+      const T* base = static_cast<const T*>(p.w) + (u / nunit) * p.w_gy;
+      prefetch_l2(base + j0 * p.w_ld, op.unit * p.klen * (long)sizeof(T));
+      prefetch_l2(base + (j0 + p.half) * p.w_ld, op.unit * p.klen * (long)sizeof(T));
     }
   }
 }
 
 int op_tasks(const Op& op) {
-  if (op.kind == kOpLin) return op.gy * (op.lin.nout / 2) * ((op.lin.nb + kBC - 1) / kBC);
-  return op.gy * op.gated.half * ((op.gated.nb + kBC - 1) / kBC);
+  if (op.kind == kOpLin)
+    return op.gy * (op.lin.nout / (2 * op.unit)) * ((op.lin.nb + kBC - 1) / kBC);
+  return op.gy * (op.gated.half / op.unit) * ((op.gated.nb + kBC - 1) / kBC);
 }
 
 // Flags in global memory, one 128-byte line each, all monotonic over the
@@ -435,8 +483,9 @@ constexpr int kFlagStride = 32;
 // the row's start after the "row sampled" wait, the end of every phase, and
 // the time spent in that wait.
 template <typename T>
-__device__ void vertical_role(const Op* __restrict__ ops, int nops, int H, int C,
-                              Flags f, long long* trace, char* smem) {
+__device__ void vertical_role(const Op* __restrict__ ops, int nops, int H, Flags f,
+                              long long* trace, char* smem) {
+  constexpr int C = kCluster;
   uint4* s4 = reinterpret_cast<uint4*>(smem);
   for (int i = threadIdx.x; i < nops * (int)(sizeof(Op) / sizeof(uint4)); i += kThreads)
     s4[i] = reinterpret_cast<const uint4*>(ops)[i];
@@ -461,10 +510,13 @@ __device__ void vertical_role(const Op* __restrict__ ops, int nops, int H, int C
     int sig = 0, phase = 0;
     for (int i = 0; i < nops; ++i) {
       const Op& op = s_ops[i];
-      if (op.kind == kOpLin)
-        run_lin<T>(op.lin, op.gy, row, warp_of(op), nw);
-      else
-        run_gated<T>(op.gated, op.gy, warp_of(op), nw);
+      if (op.kind == kOpLin) {
+        if (op.unit == 2) run_lin<T, 2>(op.lin, op.gy, row, warp_of(op), nw);
+        else run_lin<T, 1>(op.lin, op.gy, row, warp_of(op), nw);
+      } else {
+        if (op.unit == 2) run_gated<T, 2>(op.gated, op.gy, warp_of(op), nw);
+        else run_gated<T, 1>(op.gated, op.gy, warp_of(op), nw);
+      }
       if (op.sig) sig = op.sig;
       if (op.last) {
         for (int j = i + 1;; ++j) {   // the next phase, wrapping to the next row
@@ -536,7 +588,7 @@ struct ChainArgs {
   float* ehist;                              // (B, 2, 3, d) for the vertical group
   long long* trace; long long trace_voff;    // timeline probe, or null
   int cls_smem;                              // cls copied to shared memory
-  int B, H, L, d, K, hid, C, nv;
+  int B, H, L, d, K, hid, nv;
 };
 
 constexpr int kChunk = 16384;   // bytes of a ring stage: one bulk copy
@@ -558,8 +610,9 @@ __host__ __device__ inline int bias_floats(int L, int n_own, int h_own, int k_ow
   return 3 * L * n_own + h_own + k_own;
 }
 
-__host__ __device__ inline ChainSmem chain_smem(int B, int L, int d, int hid, int K, int C,
-                                                int nparts, bool cls_smem, int chunk, int nst) {
+__host__ __device__ inline ChainSmem chain_smem(int B, int L, int d, int hid, int K, int nparts,
+                                                bool cls_smem, int chunk, int nst) {
+  constexpr int C = kCluster;
   ChainSmem s{};
   int o = 0;
   auto take = [&o](int bytes, int align) {
@@ -569,7 +622,7 @@ __host__ __device__ inline ChainSmem chain_smem(int B, int L, int d, int hid, in
     return at;
   };
   const int n_own = d / C, h_own = hid / C, kx = 2 * d > hid ? 2 * d : hid;
-  s.x = take(B * kx * 4, 16);                   // the step's gathered input
+  s.x = take(B * (kx + 4) * 4, 16);             // the step's gathered input
   s.hist0 = take((L + 1) * B * n_own * 4, 16);  // column 0's x_h at every layer
   s.xh1 = take(B * n_own * 4, 16);              // column 1's x_h
   s.gs = take(B * n_own * 4, 16);               // gated output
@@ -591,46 +644,49 @@ __host__ __device__ inline ChainSmem chain_smem(int B, int L, int d, int hid, in
   return s;
 }
 
-// res[r] of lane base + b = sum_k w[r][k] x[b * x_ld + k] for b < nb
-// (<= kBC), with weight row r at byte w0[r] of the ring (wrapping at
-// ring_bytes) and x in shared memory.
+// res[r] of lane b = sum_k w[r][k] x[b * x_ld + k] for every batch row
+// b < B at once, with weight row r at byte w0[r] of the ring (wrapping at
+// ring_bytes) and x in shared memory.  Lane b + s * bp (bp = 1 << bshift,
+// the power of two >= B) reads the 8-element chunks s, s + 32 / bp, ... of
+// row b: the lanes of one chunk share its weights (a broadcast), the work
+// per lane grows with B instead of the tasks, and the sums over a row's
+// lanes take log2(32 / bp) shuffles.  x_ld is 4 floats past a multiple of
+// 32, so the lanes' x loads fall in different banks.
 template <typename T, int NR>
 __device__ __forceinline__ void ring_dot(const char* ring, uint32_t ring_bytes,
                                          const uint32_t (&w0)[NR], const float* x, int x_ld,
-                                         int nb, int klen, int base, float (&res)[NR]) {
+                                         int B, int bshift, int klen, float (&res)[NR]) {
   const int lane = threadIdx.x & 31;
-  float acc[NR][kBC];
+  const float* xb = x + min(lane & ((1 << bshift) - 1), B - 1) * x_ld;
+  float acc[NR];
 #pragma unroll
-  for (int r = 0; r < NR; ++r)
-#pragma unroll
-    for (int b = 0; b < kBC; ++b) acc[r][b] = 0.f;
-  for (int k = lane * 8; k < klen; k += 32 * 8) {
-    float wv[NR][8];
+  for (int r = 0; r < NR; ++r) acc[r] = 0.f;
+#pragma unroll 2
+  for (int k = (lane >> bshift) * 8; k < klen; k += 256 >> bshift) {
+    float xv[8];
+    load8_smem(xb + k, xv);
 #pragma unroll
     for (int r = 0; r < NR; ++r) {
       uint32_t o = w0[r] + k * static_cast<uint32_t>(sizeof(T));
       if (o >= ring_bytes) o -= ring_bytes;
-      load8_smem(reinterpret_cast<const T*>(ring + o), wv[r]);
-    }
+      float wv[8];
+      load8_smem(reinterpret_cast<const T*>(ring + o), wv);
 #pragma unroll
-    for (int b = 0; b < kBC; ++b) {
-      if (b < nb) {
-        float xv[8];
-        load8_smem(x + b * x_ld + k, xv);
-#pragma unroll
-        for (int r = 0; r < NR; ++r)
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[r][b] = fmaf(wv[r][i], xv[i], acc[r][b]);
-      }
+      for (int i = 0; i < 8; ++i) acc[r] = fmaf(wv[i], xv[i], acc[r]);
     }
   }
-  warp_totals<NR>(acc, nb, base, res);
+  for (int o = 16; o >= (1 << bshift); o >>= 1)
+#pragma unroll
+    for (int r = 0; r < NR; ++r) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) res[r] = acc[r];
 }
 
 // x[b, k0 + k] = slice k / n_own of CTA k / n_own at (b, k % n_own), for the
 // whole cluster's n_own * C outputs: the previous step's result, read over
 // distributed shared memory.
-__device__ void gather(float* x, int x_ld, int k0, const float* own, int n_own, int C, int B) {
+__device__ void gather(float* x, int x_ld, int k0, const float* own, int n_own, int B) {
+  constexpr int C = kCluster;
   cg::cluster_group cl = cg::this_cluster();
   if ((n_own & 3) == 0) {
     const int n4 = n_own / 4, per_b = C * n4;
@@ -652,14 +708,77 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <typename T>
+// The rows of a part as a product on the tensor cores (bf16 tables, B > 8):
+// a task is 8 rows x 16 batch rows, mma.sync m16n8k16 (bf16 in, f32 sums).
+// x is split into bf16 hi + lo, so each product keeps 16 of x's bits
+// (2^-17 relative).  k runs in an order that gives lane (g, t) 16
+// contiguous bytes of its weight row per 32 k: logical k 2t, 2t+1, 2t+8,
+// 2t+9 of half s are elements 8t + 4s + 0..3.  Lane (g, t) ends with batch
+// rows m0 + g, m0 + g + 8 of rows n0 + 2t, n0 + 2t + 1, which `terms` and
+// `finish` complete (a logits step's candidates go to cand / code, one per
+// batch row of the lane).
+template <typename Terms, typename Finish>
+__device__ __forceinline__ void mma_part(const char* ring, uint32_t ring_bytes, uint32_t pbase,
+                                      const float* x, int x_ld, int B, int rows, int klen,
+                                      const Terms& terms, const Finish& finish,
+                                      float (&cand)[2], int (&code)[2]) {
+  using Two = std::integral_constant<int, 2>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mt = (B + 15) >> 4, g = lane >> 2, t4 = lane & 3;
+  for (int t = warp; t < (rows / 8) * mt; t += kWarps) {
+    const int m0 = (t % mt) * 16, n0 = (t / mt) * 8;
+    uint32_t wrow = pbase + (n0 + g) * klen * 2u;
+    if (wrow >= ring_bytes) wrow -= ring_bytes;
+    const float* xa = x + min(m0 + g, B - 1) * x_ld + 8 * t4;
+    const float* xc = x + min(m0 + g + 8, B - 1) * x_ld + 8 * t4;
+    float e[2][2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (m0 + g + 8 * h < B) terms(m0 + g + 8 * h, n0 + 2 * t4, Two{}, e[h]);
+    float dh[4] = {0.f, 0.f, 0.f, 0.f}, dl[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < klen; k0 += 32) {
+      uint32_t o = wrow + (k0 + 8 * t4) * 2u;
+      if (o >= ring_bytes) o -= ring_bytes;
+      const uint4 wq = *reinterpret_cast<const uint4*>(ring + o);
+      const float4 xs[4] = {*reinterpret_cast<const float4*>(xa + k0),
+                            *reinterpret_cast<const float4*>(xa + k0 + 4),
+                            *reinterpret_cast<const float4*>(xc + k0),
+                            *reinterpret_cast<const float4*>(xc + k0 + 4)};
+#pragma unroll
+      for (int hs = 0; hs < 2; ++hs) {   // half s: x elements 4s .. 4s + 3
+        const float4 ra = xs[hs], rc = xs[2 + hs];
+        uint32_t ah[4], al[4];
+        split_bf16(ra.x, ra.y, ah[0], al[0]);   // row g, logical k 2t, 2t + 1
+        split_bf16(rc.x, rc.y, ah[1], al[1]);   // row g + 8
+        split_bf16(ra.z, ra.w, ah[2], al[2]);   // row g, logical k 2t + 8, 2t + 9
+        split_bf16(rc.z, rc.w, ah[3], al[3]);
+        const uint32_t b0 = hs ? wq.z : wq.x, b1 = hs ? wq.w : wq.y;
+        mma_bf16(dh, ah, b0, b1);
+        mma_bf16(dl, al, b0, b1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int bb = m0 + g + 8 * h;
+      if (bb < B) {
+        const float v[2] = {dh[2 * h] + dl[2 * h], dh[2 * h + 1] + dl[2 * h + 1]};
+        finish(bb, n0 + 2 * t4, Two{}, v, e[h], cand[h], code[h]);
+      }
+    }
+  }
+}
+
+template <typename T, bool kTensor>
 __device__ void chain_role(const ChainArgs& a, const Flags f, char* smem) {
   cg::cluster_group cl = cg::this_cluster();
   const int q = static_cast<int>(cl.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int B = a.B, d = a.d, C = a.C, H = a.H;
+  constexpr int C = kCluster;
+  const int B = a.B, d = a.d, H = a.H;
   const int n_own = d / C, h_own = a.hid / C, k_own = a.K / C;
-  const ChainSmem lay = chain_smem(B, a.L, d, a.hid, a.K, C, a.nparts, a.cls_smem, kChunk, a.nst);
+  int bshift = 0;   // lanes per batch row in ring_dot: 32 >> bshift
+  while ((1 << bshift) < B) ++bshift;
+  const ChainSmem lay = chain_smem(B, a.L, d, a.hid, a.K, a.nparts, a.cls_smem, kChunk, a.nst);
   float* x = reinterpret_cast<float*>(smem + lay.x);
   float* hist0 = reinterpret_cast<float*>(smem + lay.hist0);
   float* xh1 = reinterpret_cast<float*>(smem + lay.xh1);
@@ -687,9 +806,10 @@ __device__ void chain_role(const ChainArgs& a, const Flags f, char* smem) {
   const char* stream = static_cast<const char*>(a.chain) + q * a.row_bytes;
   const long long total = (a.row_bytes / kChunk) * H;   // chunks of the launch
   // timeline probe (CTA 0, thread 0): per row its start, the end of every
-  // step, the row's end and the time spent waiting for v2h
+  // step, the row's end, and the time spent waiting for v2h, gathering the
+  // steps' inputs (with the gumbel noise) and waiting for weight chunks
   long long* tr = a.trace && q == 0 && tid == 0 ? a.trace : nullptr;
-  int tr_stride = 3;
+  int tr_stride = 5;
   for (int p = 0; tr && p < a.nparts; ++p)
     tr_stride += (__ldg(&a.parts[p].flags) & kLastPart) ? 1 : 0;
 
@@ -763,18 +883,22 @@ __device__ void chain_role(const ChainArgs& a, const Flags f, char* smem) {
   for (int row = 0; row < H; ++row) {
     const long long row_base = row * a.row_bytes;
     if (row) row_ring = (row_ring + row_step) % ring_bytes;
-    long long wait_ns = 0;
+    long long wait_ns = 0, input_ns = 0, ring_ns = 0;
     int step = 0;
     if (tr) tr[row * tr_stride] = static_cast<long long>(globaltimer());
-    float best = -INFINITY;   // lane b's candidate for batch row b (logits steps)
-    int bi = 0x7fffffff;
+    // a logits step's candidates: lane b's for batch row b (FMA path), and
+    // lane (g, t)'s for batch rows m0 + g, m0 + g + 8 (tensor-core path)
+    float best = -INFINITY, best2[2];
+    int bi = 0x7fffffff, bi2[2];
     for (int p = 0; p < a.nparts; ++p) {
       const int4 p0 = reinterpret_cast<const int4*>(parts + p)[0];
       const int4 p1 = reinterpret_cast<const int4*>(parts + p)[1];
       const int kind = p0.x, col = p0.y, layer = p0.z, klen = p0.w;
       const int u0 = p1.x, nu = p1.y, off = p1.z, flags = p1.w;
-      const int x_ld = kind == kStepLogits ? a.hid : (kind == kStepGated && col == 1 && layer > 0) ? 2 * d : d;
+      // the input's row stride: its width + 4 floats (see ring_dot)
+      const int x_ld = 4 + (kind == kStepLogits ? a.hid : (kind == kStepGated && col == 1 && layer > 0) ? 2 * d : d);
       if (flags & kFirstPart) {   // the step's input
+        unsigned long long t_in = tr ? globaltimer() : 0;
         if (kind == kStepGated && col == 0 && tid == 0 && s_v2h_ready < layer) {
           // v2h[layer] of this row; the bar.sync below orders every
           // thread's reads of it after this acquire
@@ -784,31 +908,33 @@ __device__ void chain_role(const ChainArgs& a, const Flags f, char* smem) {
                                 static_cast<unsigned int>((row + 1) * a.nv)) < 0; ++n)
             if ((n & 1023u) == 1023u && globaltimer() - t0 > kWatchdogNs) __trap();
           wait_ns += globaltimer() - t0;
+          t_in = globaltimer();
         }
 
         if (kind == kStepGated) {
           if (col == 0) {
-            if (layer > 0) gather(x, x_ld, 0, hist0 + layer * B * n_own, n_own, C, B);
+            if (layer > 0) gather(x, x_ld, 0, hist0 + layer * B * n_own, n_own, B);
           } else if (layer == 0) {   // column 1's left tap at layer 0: e0 = emb[t0]
             sample(0, row);
             for (int i = tid; i < B * d; i += kThreads) {
               const int b = i / d;
-              x[i] = to_float(emb[static_cast<long>(tokh[(2 * kMaxBatch + b) * 2]) * d + (i - b * d)]);
+              x[b * x_ld + (i - b * d)] =
+                  to_float(emb[static_cast<long>(tokh[(2 * kMaxBatch + b) * 2]) * d + (i - b * d)]);
             }
           } else {
-            gather(x, x_ld, 0, hist0 + layer * B * n_own, n_own, C, B);
-            gather(x, x_ld, d, xh1, n_own, C, B);
+            gather(x, x_ld, 0, hist0 + layer * B * n_own, n_own, B);
+            gather(x, x_ld, d, xh1, n_own, B);
           }
         } else if (kind == kStepResid) {
-          gather(x, x_ld, 0, gs, n_own, C, B);
+          gather(x, x_ld, 0, gs, n_own, B);
         } else if (kind == kStepFusion) {
-          gather(x, x_ld, 0, tmp, n_own, C, B);
+          gather(x, x_ld, 0, tmp, n_own, B);
         } else if (kind == kStepHidden) {
-          gather(x, x_ld, 0, col == 0 ? hist0 + a.L * B * n_own : xh1, n_own, C, B);
+          gather(x, x_ld, 0, col == 0 ? hist0 + a.L * B * n_own : xh1, n_own, B);
         } else {
-          gather(x, x_ld, 0, hidb, h_own, C, B);
-          best = -INFINITY;
-          bi = 0x7fffffff;
+          gather(x, x_ld, 0, hidb, h_own, B);
+          best = best2[0] = best2[1] = -INFINITY;
+          bi = bi2[0] = bi2[1] = 0x7fffffff;
           // gumbel noise of this CTA's codes, by all threads at once
           const int rc = row * 2 + col;
           if (a.noise) {
@@ -834,119 +960,141 @@ __device__ void chain_role(const ChainArgs& a, const Flags f, char* smem) {
           }
         }
         __syncthreads();
+        if (tr) input_ns += globaltimer() - t_in;
       }
       // wait for every chunk up to the end of this part
       const int urows = kind == kStepGated ? 2 : 1;
       const uint32_t ubytes = urows * klen * static_cast<uint32_t>(sizeof(T));
       const long long s0 = row_base + static_cast<long long>(off) * sizeof(T);
       const long long s1 = s0 + static_cast<long long>(nu) * ubytes;
+      const unsigned long long t_ring = tr ? globaltimer() : 0;
       for (const long long need = (s1 + kChunk - 1) / kChunk; waited < need; ++waited) {
         mbar_wait(smem_addr(bars + wait_stage), wait_phase);
         if (++wait_stage == a.nst) { wait_stage = 0; wait_phase ^= 1u; }
       }
+      if (tr) ring_ns += globaltimer() - t_ring;
       const uint32_t pbase = (row_ring + static_cast<uint32_t>(off) * sizeof(T)) % ring_bytes;
       if (kind == kStepResid && col == 0 && (flags & kFirstPart) && layer + 1 < a.L &&
           tid == kThreads - 32) {
         // ask one step ahead whether v2h[layer + 1] is done, from the last
-        // warp (idle in a resid step at B <= 8): the load's latency overlaps
+        // warp (idle in a resid step): the load's latency overlaps
         // the step, the bar.sync at its end orders it before the next step
         const unsigned int v = load_acquire(f.v2h_done + (layer + 1) * kFlagStride);
         s_v2h_ready = static_cast<int>(v - static_cast<unsigned int>((row + 1) * a.nv)) >= 0
                           ? layer + 1 : layer;
       }
 
-      // a task: one gated pair, or two rows of a linear step (one where the
-      // part's units are odd), for one chunk of kBC batch rows
-      const int nchunk = (B + kBC - 1) / kBC;
-      const int upt = kind != kStepGated && (nu & 1) == 0 ? 2 : 1;
-      for (int t = warp; t < nu / upt * nchunk; t += kWarps) {
-        const int bc = (t % nchunk) * kBC, ui = t / nchunk * upt, u = u0 + ui;
-        const int nb = min(kBC, B - bc);
-        uint32_t w[2];
-        for (int r = 0; r < 2; ++r) {
-          w[r] = pbase + ui * ubytes + r * klen * static_cast<uint32_t>(sizeof(T));
-          if (w[r] >= ring_bytes) w[r] -= ring_bytes;
-        }
-        const int bb = lane;             // lane bb (bc <= bb < bc + nb) finishes batch row bb
-        const bool mine = bb >= bc && bb < bc + nb;
-        // the epilogue's terms first, so their latency overlaps the dot
-        float e[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-        if (mine) {
-          if (kind == kStepGated) {
-            const int j = q * n_own + u;
-            const float* v2 = a.v2h + (static_cast<long>(layer) * B + bb) * 4 * d + col * 2 * d;
-            float* v2s = s_v2h1 + ((layer * B + bb) * 2) * n_own + u;
-            float va, vc;
-            if (col == 1 && a.cls_smem) {
-              va = v2s[0];
-              vc = v2s[n_own];
-            } else {
-              va = __ldcg(v2 + j);
-              vc = __ldcg(v2 + j + d);
-              if (col == 0 && a.cls_smem) {   // column 1's share, for its gated step
-                v2s[0] = __ldcg(v2 + 2 * d + j);
-                v2s[n_own] = __ldcg(v2 + 3 * d + j);
-              }
-            }
-            e[0][0] = s_bh[(layer * 2) * n_own + u] + va;
-            e[1][0] = s_bh[(layer * 2 + 1) * n_own + u] + vc;
-            if (a.cls_smem) {
-              const float* cls = s_cls + ((layer * B + bb) * 2) * n_own + u;
-              e[0][1] = cls[0];
-              e[1][1] = cls[n_own];
-            } else {
-              const float* cls = a.cls + (static_cast<long>(layer) * B + bb) * 2 * d;
-              e[0][1] = __ldg(cls + j);
-              e[1][1] = __ldg(cls + j + d);
-            }
+      // The epilogue of rows r0 (and r0 + 1 when nr = 2) of the part for
+      // batch row bb: a gated pair (a, c) at unit u0 + r0 / 2, or linear
+      // rows at units u0 + r0, ..  `terms` fetches what the rows add (its
+      // latency can overlap the dot), `finish` writes the outputs and, in a
+      // logits step, keeps the best candidate (value v + noise, code).
+      auto terms = [&](int bb, int r0, auto nr_tag, float (&e)[2][2]) {
+        constexpr int NR = decltype(nr_tag)::value;
+        e[0][0] = e[0][1] = e[1][0] = e[1][1] = 0.f;
+        if (kind == kStepGated) {
+          const int u = u0 + r0 / 2, j = q * n_own + u;
+          const float* v2 = a.v2h + (static_cast<long>(layer) * B + bb) * 4 * d + col * 2 * d;
+          float* v2s = s_v2h1 + ((layer * B + bb) * 2) * n_own + u;
+          float va, vc;
+          if (col == 1 && a.cls_smem) {
+            va = v2s[0];
+            vc = v2s[n_own];
           } else {
-            for (int r = 0; r < upt; ++r) {
-              const int ur = u + r;
-              if (kind == kStepResid) {
-                e[r][0] = s_br[layer * n_own + ur];
-                if (layer > 0) e[r][0] += (col == 0 ? hist0 + layer * B * n_own : xh1)[bb * n_own + ur];
-              } else if (kind == kStepFusion) {
-                e[r][0] = __ldg(a.audh + (static_cast<long>(bb) * H + row) * d + q * n_own + ur);
-              } else if (kind == kStepHidden) {
-                e[r][0] = s_b1[ur];
-              } else {
-                e[r][0] = s_b2[ur];
-                e[r][1] = gum[bb * k_own + ur];
-              }
+            va = __ldcg(v2 + j);
+            vc = __ldcg(v2 + j + d);
+            if (col == 0 && a.cls_smem) {   // column 1's share, for its gated step
+              v2s[0] = __ldcg(v2 + 2 * d + j);
+              v2s[n_own] = __ldcg(v2 + 3 * d + j);
             }
           }
-        }
-        float v[2] = {0.f, 0.f};
-        if (upt == 2 || kind == kStepGated) {
-          ring_dot<T, 2>(ring, ring_bytes, w, x + bc * x_ld, x_ld, nb, klen, bc, v);
-        } else {
-          const uint32_t w1[1] = {w[0]};
-          float v1[1];
-          ring_dot<T, 1>(ring, ring_bytes, w1, x + bc * x_ld, x_ld, nb, klen, bc, v1);
-          v[0] = v1[0];
-        }
-        if (mine) {
-          if (kind == kStepGated) {
-            gs[bb * n_own + u] = gate(v[0] + e[0][0] + e[0][1], v[1] + e[1][0] + e[1][1]);
+          e[0][0] = s_bh[(layer * 2) * n_own + u] + va;
+          e[1][0] = s_bh[(layer * 2 + 1) * n_own + u] + vc;
+          if (a.cls_smem) {
+            const float* cls = s_cls + ((layer * B + bb) * 2) * n_own + u;
+            e[0][1] = cls[0];
+            e[1][1] = cls[n_own];
           } else {
-            for (int r = 0; r < upt; ++r) {
-              const int ur = u + r;
-              if (kind == kStepResid) {
-                float* y = layer == 0 ? tmp : col == 0 ? hist0 + (layer + 1) * B * n_own : xh1;
-                y[bb * n_own + ur] = v[r] + e[r][0];
-              } else if (kind == kStepFusion) {
-                (col == 0 ? hist0 + B * n_own : xh1)[bb * n_own + ur] = v[r] + e[r][0];
-              } else if (kind == kStepHidden) {
-                hidb[bb * h_own + ur] = fmaxf(v[r] + e[r][0], 0.f);
-              } else {
-                const int o = q * k_own + ur;
-                const float z = v[r] + e[r][0];
-                if (a.logits) a.logits[((static_cast<long>(bb) * H + row) * 2 + col) * a.K + o] = z;
-                if (better(z + e[r][1], o, best, bi)) { best = z + e[r][1]; bi = o; }
-              }
-            }
+            const float* cls = a.cls + (static_cast<long>(layer) * B + bb) * 2 * d;
+            e[0][1] = __ldg(cls + j);
+            e[1][1] = __ldg(cls + j + d);
+          }
+          return;
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const int ur = u0 + r0 + r;
+          if (kind == kStepResid) {
+            e[r][0] = s_br[layer * n_own + ur];
+            if (layer > 0) e[r][0] += (col == 0 ? hist0 + layer * B * n_own : xh1)[bb * n_own + ur];
+          } else if (kind == kStepFusion) {
+            e[r][0] = __ldg(a.audh + (static_cast<long>(bb) * H + row) * d + q * n_own + ur);
+          } else if (kind == kStepHidden) {
+            e[r][0] = s_b1[ur];
+          } else {
+            e[r][0] = s_b2[ur];
+            e[r][1] = gum[bb * k_own + ur];
           }
         }
+      };
+      auto finish = [&](int bb, int r0, auto nr_tag, const float (&v)[2], const float (&e)[2][2],
+                        float& cand, int& code) {
+        constexpr int NR = decltype(nr_tag)::value;
+        if (kind == kStepGated) {
+          gs[bb * n_own + u0 + r0 / 2] = gate(v[0] + e[0][0] + e[0][1], v[1] + e[1][0] + e[1][1]);
+          return;
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const int ur = u0 + r0 + r;
+          if (kind == kStepResid) {
+            float* y = layer == 0 ? tmp : col == 0 ? hist0 + (layer + 1) * B * n_own : xh1;
+            y[bb * n_own + ur] = v[r] + e[r][0];
+          } else if (kind == kStepFusion) {
+            (col == 0 ? hist0 + B * n_own : xh1)[bb * n_own + ur] = v[r] + e[r][0];
+          } else if (kind == kStepHidden) {
+            hidb[bb * h_own + ur] = fmaxf(v[r] + e[r][0], 0.f);
+          } else {
+            const int o = q * k_own + ur;
+            const float z = v[r] + e[r][0];
+            if (a.logits) a.logits[((static_cast<long>(bb) * H + row) * 2 + col) * a.K + o] = z;
+            if (better(z + e[r][1], o, cand, code)) { cand = z + e[r][1]; code = o; }
+          }
+        }
+      };
+      const int rows = nu * urows;
+      using Two = std::integral_constant<int, 2>;
+      if (kTensor && rows % 8 == 0 && klen % 32 == 0) {
+        if constexpr (kTensor)
+          mma_part(ring, ring_bytes, pbase, x, x_ld, B, rows, klen, terms, finish, best2, bi2);
+      } else {
+        // On the FMA pipes: a task is a gated pair or two rows of a linear
+        // step (one where the part's rows are odd), for every batch row;
+        // lane bb < B finishes batch row bb
+        auto fma_tasks = [&](auto nr_tag) {
+          constexpr int NR = decltype(nr_tag)::value;
+          const int bb = lane;
+          for (int t = warp; t < rows / NR; t += kWarps) {
+            const int r0 = t * NR;
+            uint32_t w[NR];
+#pragma unroll
+            for (int r = 0; r < NR; ++r) {
+              w[r] = pbase + (r0 + r) * klen * static_cast<uint32_t>(sizeof(T));
+              if (w[r] >= ring_bytes) w[r] -= ring_bytes;
+            }
+            float e[2][2];
+            if (bb < B) terms(bb, r0, nr_tag, e);
+            float v[NR], v2[2] = {0.f, 0.f};
+            ring_dot<T, NR>(ring, ring_bytes, w, x, x_ld, B, bshift, klen, v);
+#pragma unroll
+            for (int r = 0; r < NR; ++r) v2[r] = v[r];
+            if (bb < B) finish(bb, r0, nr_tag, v2, e, best, bi);
+          }
+        };
+        if (kind == kStepGated || rows % 2 == 0)
+          fma_tasks(Two{});
+        else
+          fma_tasks(std::integral_constant<int, 1>{});
       }
       // A step's last part ends at the cluster barrier (which also joins
       // this CTA's threads); the logits step first reduces its candidates.
@@ -958,6 +1106,27 @@ __device__ void chain_role(const ChainArgs& a, const Flags f, char* smem) {
         if (kind == kStepLogits) {   // this CTA's candidate per batch row
           wval[warp * 32 + lane] = best;
           widx[warp * 32 + lane] = bi;
+          if constexpr (kTensor) {   // the tensor-core path's: over the 4 lanes of a row
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int o = 1; o < 4; o <<= 1) {
+                const float ov = __shfl_xor_sync(0xffffffffu, best2[h], o);
+                const int oi = __shfl_xor_sync(0xffffffffu, bi2[h], o);
+                if (better(ov, oi, best2[h], bi2[h])) { best2[h] = ov; bi2[h] = oi; }
+              }
+            __syncwarp();
+            const int m0 = (warp % ((B + 15) >> 4)) * 16;   // this warp's batch rows
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int bb = m0 + (lane >> 2) + 8 * h;
+              if ((lane & 3) == 0 && bb < B &&
+                  better(best2[h], bi2[h], wval[warp * 32 + bb], widx[warp * 32 + bb])) {
+                wval[warp * 32 + bb] = best2[h];
+                widx[warp * 32 + bb] = bi2[h];
+              }
+            }
+          }
           __syncthreads();
           if (tid < B) {
             float bv = -INFINITY;
@@ -1001,6 +1170,8 @@ __device__ void chain_role(const ChainArgs& a, const Flags f, char* smem) {
     if (tr) {
       tr[row * tr_stride + step + 1] = static_cast<long long>(globaltimer());
       tr[row * tr_stride + step + 2] = wait_ns;
+      tr[row * tr_stride + step + 3] = input_ns;
+      tr[row * tr_stride + step + 4] = ring_ns;
     }
     if (tid < 2 * B) {
       tokh[tid] = tokh[kMaxBatch * 2 + tid];
@@ -1018,15 +1189,17 @@ struct Args {
   Flags flags;
 };
 
-// CTAs 0 .. C-1 form the first cluster: the chain.  The rest, in clusters
-// of the same size that never use them, are the vertical group.
-template <typename T>
+// CTAs 0 .. kCluster-1 form the first cluster: the chain.  The rest, in
+// clusters of the same size that never use them, are the vertical group.
+// kTensor: the chain's parts go to the tensor cores (bf16 tables, B > 8);
+// without it that code is left out, and so are its registers.
+template <typename T, bool kTensor>
 __global__ void __launch_bounds__(kThreads, 1) decode_kernel(const Args a) {
   extern __shared__ __align__(128) char smem[];
-  if (blockIdx.x < a.chain.C)
-    chain_role<T>(a.chain, a.flags, smem);
+  if (blockIdx.x < kCluster)
+    chain_role<T, kTensor>(a.chain, a.flags, smem);
   else
-    vertical_role<T>(a.ops, a.nops, a.chain.H, a.chain.C, a.flags,
+    vertical_role<T>(a.ops, a.nops, a.chain.H, a.flags,
                      a.chain.trace ? a.chain.trace + a.chain.trace_voff : nullptr, smem);
 }
 
@@ -1084,13 +1257,13 @@ struct Tables {
 
 Op lin_op(const Lin& p, int sig = 0) {
   Op op{};
-  op.kind = kOpLin; op.gy = 2; op.sig = sig; op.lin = p;
+  op.kind = kOpLin; op.gy = 2; op.sig = sig; op.unit = 1; op.lin = p;
   return op;
 }
 
 Op gated_op(const Gated& p) {
   Op op{};
-  op.kind = kOpGated; op.gy = 2; op.gated = p;
+  op.kind = kOpGated; op.gy = 2; op.unit = 1; op.gated = p;
   return op;
 }
 
@@ -1122,6 +1295,11 @@ struct RowBuilder {
       for (size_t i = 0; i < ops.size(); ++i) {
         if (phase[i] != ph) continue;
         Op op = ops[i];
+        // two units per task where that still leaves a task for every
+        // warp (large B): each weight row and input chunk a task reads
+        // serves twice the products, which is what the phase waits on there
+        op.unit = 2;
+        if (op_tasks(op) < nw) op.unit = 1;
         op.offset = offset % nw;
         op.last = 0;
         offset += op_tasks(op);
@@ -1203,25 +1381,27 @@ cudaError_t decode(const Dims& m, const Tables& t, ChainArgs ca, const float* cl
   TRY(cudaGetDevice(&dev));
   TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   TRY(cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  const int C = ca.C;
-  if (C < 1 || C > 16 || (C & (C - 1)) || m.d % C || m.hid % C || m.K % C || m.B > kMaxBatch ||
-      part_bytes % 32)
+  constexpr int C = kCluster;
+  if (m.d % C || m.hid % C || m.K % C || m.B > kMaxBatch || part_bytes % 32)
     return cudaErrorInvalidValue;
   // the ring takes what shared memory the chain's buffers leave (cls goes
   // there too while the ring keeps 12 stages); a part of at most
   // part_bytes must fit beside a chunk it may start in
   auto stages = [&](bool cls_smem) {
-    const int fixed = chain_smem(m.B, m.L, m.d, m.hid, m.K, C, ca.nparts, cls_smem, kChunk, 0).total;
+    const int fixed = chain_smem(m.B, m.L, m.d, m.hid, m.K, ca.nparts, cls_smem, kChunk, 0).total;
     return std::min(kMaxStages, (std::min(cap, kSmemCap) - (fixed + 127) / 128 * 128) / kChunk);
   };
   ca.cls_smem = stages(true) >= 12;
   ca.nst = stages(ca.cls_smem);
   if (ca.nst * kChunk < part_bytes + 2 * kChunk) return cudaErrorInvalidValue;
   const int smem = std::max(
-      chain_smem(m.B, m.L, m.d, m.hid, m.K, C, ca.nparts, ca.cls_smem, kChunk, ca.nst).total,
+      chain_smem(m.B, m.L, m.d, m.hid, m.K, ca.nparts, ca.cls_smem, kChunk, ca.nst).total,
       vertical_ops(m.L) * static_cast<int>(sizeof(Op)));
-  TRY(cudaFuncSetAttribute(decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  if (C > 8) TRY(cudaFuncSetAttribute(decode_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  void (*kernel)(Args) = decode_kernel<T, false>;
+  if constexpr (sizeof(T) == 2)
+    if (m.B > 8) kernel = decode_kernel<T, true>;
+  TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
 
   // every CTA must be resident at once (the roles wait on each other): size
   // the grid from the clusters the card can hold, one chain + >= 1 vertical,
@@ -1242,7 +1422,7 @@ cudaError_t decode(const Dims& m, const Tables& t, ChainArgs ca, const float* cl
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  TRY(cudaOccupancyMaxActiveClusters(&clusters, decode_kernel<T>, &cfg));
+  TRY(cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg));
   clusters = std::min(clusters, sms / C);
   if (clusters < 2) return cudaErrorCooperativeLaunchTooLarge;
   cfg.gridDim = dim3(clusters * C);
@@ -1259,7 +1439,7 @@ cudaError_t decode(const Dims& m, const Tables& t, ChainArgs ca, const float* cl
   // pageable source: the copy is staged before this call returns
   TRY(cudaMemcpyAsync(s.ops, ops.data(), ops.size() * sizeof(Op), cudaMemcpyHostToDevice, st));
   const Args args{ca, s.ops, static_cast<int>(ops.size()), s.flags};
-  TRY(cudaLaunchKernelEx(&cfg, decode_kernel<T>, args));
+  TRY(cudaLaunchKernelEx(&cfg, kernel, args));
   return cudaGetLastError();
 }
 
@@ -1277,8 +1457,8 @@ long long talkshow_ar_decode_scratch(int B, int L, int dim) {
 }
 
 // Decode the (H, 2) token grid of B samples on `stream`.  table_dtype: 0 f32
-// tables, 1 bf16 tables.  The chain's weights are `chain` (cluster,
-// row_bytes) with `nparts` part descriptors (8 int32 each) from
+// tables, 1 bf16 tables.  The chain's weights are `chain` (16,
+// row_bytes), one stream per CTA of the chain's cluster, with `nparts` part descriptors (8 int32 each) from
 // kernels/ar_decode.py:chain_parts, streamed in chunks of chunk_bytes; no
 // part is longer than part_bytes.  noise (H, 2, B, K) f32 or null for
 // Philox keyed by `seed`.  prefix (B, H, 2) int32 or null.  logits
@@ -1288,7 +1468,7 @@ long long talkshow_ar_decode_scratch(int B, int L, int dim) {
 // shape: cluster size, vertical CTAs, shared memory per CTA, ring stages.
 // Returns the first CUDA error (0 on success); nothing here synchronises.
 int talkshow_ar_decode(int table_dtype, int B, int H, int L, int dim, int K, int hidden,
-                       int cluster, int chunk_bytes, int part_bytes, const int* parts,
+                       int chunk_bytes, int part_bytes, const int* parts,
                        int nparts, long long row_bytes, const void* wv0, const void* wvB,
                        const void* wv2h, const void* wfv, const void* emb, const void* chain,
                        const float* bv, const float* bhsum, const float* br, const float* b1,
@@ -1309,7 +1489,7 @@ int talkshow_ar_decode(int table_dtype, int B, int H, int L, int dim, int K, int
   ca.prefix = prefix; ca.prefix_len = prefix ? prefix_len : 0;
   ca.tokens = tokens; ca.logits = logits;
   ca.trace = trace; ca.trace_voff = trace_voff;
-  ca.B = B; ca.H = H; ca.L = L; ca.d = dim; ca.K = K; ca.hid = hidden; ca.C = cluster;
+  ca.B = B; ca.H = H; ca.L = L; ca.d = dim; ca.K = K; ca.hid = hidden;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Launch* li = reinterpret_cast<Launch*>(info);
   cudaError_t e;

@@ -7,8 +7,10 @@ does about it are set out at the top of the CUDA source: each of the H rows
 is a chain of ~70 dependent GEMV steps with M = B <= 32, so the decode is
 latency-bound.  One launch holds two roles: the vertical stack and v2h on
 most of the card, and the horizontal chain, the head and the sampling on
-one thread-block cluster of `cluster` CTAs, fed by asynchronous bulk copies
-of the weight streams laid out here (`chain_parts`, `pack_decode_tables`).
+one thread-block cluster of CLUSTER = 16 CTAs, fed by asynchronous bulk
+copies of the weight streams laid out here (`chain_parts`,
+`pack_decode_tables`).  Past 8 samples, with bf16 tables, the chain's
+products run on the tensor cores (the kernel picks this from B).
 
 `sample_tokens_fused` takes the arguments of the plain sampler
 `talkshow_torch.models.pixelcnn.sample_tokens` (its plain PyTorch version).
@@ -37,6 +39,8 @@ MAX_BATCH = 32
 SOURCE = "talkshow_torch/csrc/ar_decode.cu"
 REPLACES = "talkshow_tpu/models/pixelcnn_pallas.py:363"
 
+#: CTAs of the chain's cluster (csrc/ar_decode.cu kCluster)
+CLUSTER = 16
 #: the chain's ring stage (one bulk copy) and the longest part of a step
 CHUNK_BYTES = 16384
 PART_BYTES = 32768
@@ -47,8 +51,8 @@ FIRST, LAST = 1, 2
 _TABLE_KEYS = ("wv0", "wvB", "wv2h", "wfv", "emb", "chain")
 _BIAS_KEYS = ("bv", "bhsum", "br", "b1", "b2")
 
-#: the shape of the last launch: cluster size, CTAs per role, shared memory
-#: per CTA and ring stages
+#: the shape of the last launch: CTAs per role, shared memory per CTA and
+#: ring stages
 last_launch: dict = {}
 
 _P, _I, _LL, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
@@ -61,7 +65,7 @@ def _lib() -> ctypes.CDLL:
         lib.talkshow_ar_decode_scratch.argtypes = [_I] * 3
         lib.talkshow_ar_decode_scratch.restype = _LL
         lib.talkshow_ar_decode.argtypes = (
-            [_I] * 10 + [_P, _I, _LL] + [_P] * 6 + [_P] * 5 + [_P] * 4 + [_U64, _P, _I]
+            [_I] * 9 + [_P, _I, _LL] + [_P] * 6 + [_P] * 5 + [_P] * 4 + [_U64, _P, _I]
             + [_P] * 4 + [_LL, _P, _P])
         lib.talkshow_ar_decode.restype = _I
         lib.talkshow_ar_decode_error.argtypes = [_I]
@@ -89,7 +93,7 @@ def chain_steps(L: int, d: int, K: int, hid: int):
     return steps
 
 
-def chain_parts(L: int, d: int, K: int, hid: int, cluster: int, esize: int):
+def chain_parts(L: int, d: int, K: int, hid: int, esize: int):
     """Parts of the chain's steps and the length of each CTA's weight stream
     per token row, in elements.
 
@@ -101,7 +105,7 @@ def chain_parts(L: int, d: int, K: int, hid: int, cluster: int, esize: int):
     the stream is padded to whole CHUNK_BYTES."""
     parts, off = [], 0
     for kind, c, l, klen, n, urows in chain_steps(L, d, K, hid):
-        per_cta = n // cluster
+        per_cta = n // CLUSTER
         ubytes = urows * klen * esize
         per_part = max(1, PART_BYTES // ubytes) if ubytes else per_cta
         for u0 in range(0, per_cta, per_part):
@@ -114,12 +118,9 @@ def chain_parts(L: int, d: int, K: int, hid: int, cluster: int, esize: int):
 
 
 @torch.no_grad()
-def pack_decode_tables(model: GatedPixelCNN, dtype: torch.dtype = torch.bfloat16,
-                       cluster: int = 16) -> dict:
+def pack_decode_tables(model: GatedPixelCNN, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Rearrange the prior's weights into the kernel's tables (on the
-    model's device), for a chain cluster of `cluster` CTAs (16, or 8 where
-    16 cannot be co-scheduled).  Label and audio conditioning is computed
-    per call.
+    model's device).  Label and audio conditioning is computed per call.
 
     The vertical group's matrices are output-major (row o holds the weights
     of output o):
@@ -129,7 +130,7 @@ def pack_decode_tables(model: GatedPixelCNN, dtype: torch.dtype = torch.bfloat16
       wv2h (L, 2d, 2d)      vert_to_horiz
       wfv  (d, d)           x-part of fusion_v
       emb  (K, d)
-    The chain's, `chain` (cluster, row_elems): CTA q's rows of wh (the
+    The chain's, `chain` (CLUSTER, row_elems): CTA q's rows of wh (the
     horizontal taps), wres, the x-part of fusion_h, w1 (512, d) and
     w2 (K, 512), in the order of `chain_parts`, whose descriptors are
     `parts` (int32, (n, 8)).  Biases stay f32: bv (L, 2d), bhsum = v2h +
@@ -138,10 +139,10 @@ def pack_decode_tables(model: GatedPixelCNN, dtype: torch.dtype = torch.bfloat16
         raise ValueError(f"table dtype must be float32 or bfloat16, got {dtype}")
     d, L, K = model.dim, model.n_layers, model.input_dim
     hid = model.out_hidden.out_features
-    C = cluster
-    if C not in (1, 2, 4, 8, 16) or d % C or hid % C or K % C:
-        raise ValueError(f"cluster {C}: a power of two up to 16 that divides dim {d}, "
-                         f"head {hid} and codebook {K}")
+    C = CLUSTER
+    if d % C or hid % C or K % C:
+        raise ValueError(f"dim {d}, head {hid} and codebook {K} must be multiples of the "
+                         f"chain's cluster of {C} CTAs")
 
     def vert(layer):
         w = layer.vert_stack.weight                      # (2d, d, R, 3)
@@ -180,7 +181,7 @@ def pack_decode_tables(model: GatedPixelCNN, dtype: torch.dtype = torch.bfloat16
         else:
             w = model.out_hidden.weight if kind == HIDDEN else model.out_logits.weight
         blocks.append(w.to(dtype).reshape(C, -1))
-    parts, row_elems = chain_parts(L, d, K, hid, C, torch.empty((), dtype=dtype).element_size())
+    parts, row_elems = chain_parts(L, d, K, hid, torch.empty((), dtype=dtype).element_size())
     chain = torch.cat(blocks, dim=1)
     tables["chain"] = torch.nn.functional.pad(chain, (0, row_elems - chain.shape[1])).contiguous()
     tables["parts"] = torch.tensor(parts, dtype=torch.int32, device=chain.device)
@@ -276,10 +277,9 @@ def _decode(model, label, audio, tables, noise, generator, prefix_tokens, prefix
     tdtype = tables["emb"].dtype
     if tdtype not in TABLE_DTYPES:
         raise TypeError(f"tables must be float32 or bfloat16, got {tdtype}")
-    C = tables["chain"].shape[0]
-    parts, row_elems = chain_parts(L, d, K, hid, C, tables["emb"].element_size())
+    parts, row_elems = chain_parts(L, d, K, hid, tables["emb"].element_size())
     shapes = dict(wv0=(2, 2 * d, 6 * d), wvB=(L - 1, 2, 2 * d, 4 * d),
-                  wv2h=(L, 2 * d, 2 * d), wfv=(d, d), emb=(K, d), chain=(C, row_elems),
+                  wv2h=(L, 2 * d, 2 * d), wfv=(d, d), emb=(K, d), chain=(CLUSTER, row_elems),
                   bv=(L, 2 * d), bhsum=(L, 2 * d), br=(L, d), b1=(hid,), b2=(K,))
     for k, shape in shapes.items():
         check(k, tables[k], shape, tdtype if k in _TABLE_KEYS else torch.float32, dev)
@@ -311,7 +311,7 @@ def _decode(model, label, audio, tables, noise, generator, prefix_tokens, prefix
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.talkshow_ar_decode(
-            TABLE_DTYPES[tdtype], B, H, L, d, K, hid, C, CHUNK_BYTES, PART_BYTES,
+            TABLE_DTYPES[tdtype], B, H, L, d, K, hid, CHUNK_BYTES, PART_BYTES,
             ptr(tables["parts"]), len(parts), row_elems * tables["emb"].element_size(),
             *(ptr(tables[k]) for k in _TABLE_KEYS),
             *(ptr(tables[k]) for k in _BIAS_KEYS),
@@ -322,19 +322,20 @@ def _decode(model, label, audio, tables, noise, generator, prefix_tokens, prefix
     if err != 0:
         name = lib.talkshow_ar_decode_error(err).decode()
         raise RuntimeError(f"ar_decode launch failed: cudaError_t {err} ({name}), "
-                           f"cluster {C}, B={B}")
+                           f"cluster {CLUSTER}, B={B}")
     counts["ar_decode"] += 1
-    last_launch.update(cluster=info[0], chain_ctas=info[0], vertical_ctas=info[1],
-                       smem_bytes=info[2], ring_stages=info[3])
+    last_launch.update(chain_ctas=info[0], vertical_ctas=info[1], smem_bytes=info[2],
+                       ring_stages=info[3])
     tokens = tokens.long()
     return (tokens, logits) if return_logits else tokens
 
 
 def _chain_stride(L: int) -> int:
     """Timeline entries per row of the chain: its start, the end of each of
-    its steps, its end, its wait for v2h (the vertical group's: its start,
+    its steps, its end, its wait for v2h, its time gathering the steps'
+    inputs and waiting for weight chunks (the vertical group's: its start,
     the end of each of its L + 2 phases, its wait for "row sampled")."""
-    return len(chain_steps(L, 1, 1, 1)) + 3
+    return len(chain_steps(L, 1, 1, 1)) + 5
 
 
 @torch.no_grad()
@@ -342,7 +343,9 @@ def decode_timeline(model: GatedPixelCNN, label: torch.Tensor, audio: torch.Tens
                     tables: dict, generator: torch.Generator | None = None) -> dict:
     """One decode (Philox noise) with the kernel's %globaltimer probe on:
     the mean over token rows 1.. of the row's time, the chain's steps by
-    kind and column, the chain's wait for v2h, the vertical group's phases
+    kind and column, the chain's wait for v2h, its time gathering the
+    steps' inputs (DSMEM, with the gumbel noise) and waiting for weight
+    chunks (the ring's bulk copies), the vertical group's phases
     and its wait for the previous row's tokens, in microseconds."""
     H = audio.shape[1]
     L, K, d = model.n_layers, model.input_dim, model.dim
@@ -356,6 +359,8 @@ def decode_timeline(model: GatedPixelCNN, label: torch.Tensor, audio: torch.Tens
     dur = (chain[:, 1:n + 1] - chain[:, :n]).mean(0) / 1e3
     out = {"row_us": float((chain[:, n + 1] - chain[:, 0]).mean() / 1e3),
            "v2h_wait_us": float(chain[:, n + 2].mean() / 1e3),
+           "input_us": float(chain[:, n + 3].mean() / 1e3),
+           "ring_wait_us": float(chain[:, n + 4].mean() / 1e3),
            "row_end_us": float((chain[:, n + 1] - chain[:, n]).mean() / 1e3),
            "vertical_phases_us": float((vert[:, V - 2] - vert[:, 0]).mean() / 1e3),
            "vertical_phase_us": float(((vert[:, 1:V - 1] - vert[:, :V - 2]).mean()) / 1e3),

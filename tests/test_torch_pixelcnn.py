@@ -330,14 +330,14 @@ class _Decode:
         return self.tokens, self.logits
 
 
-def _decode_case(models, dtype, cluster, prefix_len=0, seed=4):
+def _decode_case(models, dtype, prefix_len=0, seed=4):
     _, _, tm = models
     label, audio, given = _inputs(seed)
     lab, aud = torch.as_tensor(label).long(), torch.as_tensor(audio)
     noise = torch.as_tensor(np.random.default_rng(seed).gumbel(size=(H, 2, B, K)),
                             dtype=torch.float32)
     prefix = torch.as_tensor(given).long() if prefix_len else None
-    tables = pack_decode_tables(tm, dtype, cluster)
+    tables = pack_decode_tables(tm, dtype)
     tm = round_like_tables(tm, dtype)   # the plain side gets the same rounded weights
     cls, audv, audh = conditioning(tm, lab, aud)
     emu = _Decode(tables, cls, audv, audh, noise, prefix, prefix_len)
@@ -348,16 +348,16 @@ def _decode_case(models, dtype, cluster, prefix_len=0, seed=4):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_tables_reproduce_plain_sampler(models, dtype):
-    emu, (want, want_logits) = _decode_case(models, dtype, 16)
+    emu, (want, want_logits) = _decode_case(models, dtype)
     with torch.no_grad():
         tok, logits = emu.run()
     np.testing.assert_array_equal(tok.numpy(), want.numpy())
     np.testing.assert_allclose(logits.numpy(), want_logits.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("cluster,order_seed", [(16, 0), (16, 1), (8, 2), (8, 3)])
-def test_declared_waits_suffice_in_any_order(models, cluster, order_seed):
-    emu, (want, want_logits) = _decode_case(models, torch.bfloat16, cluster)
+@pytest.mark.parametrize("order_seed", [0, 1, 2, 3])
+def test_declared_waits_suffice_in_any_order(models, order_seed):
+    emu, (want, want_logits) = _decode_case(models, torch.bfloat16)
     with torch.no_grad():
         tok, logits = emu.run(order_seed)
     np.testing.assert_array_equal(tok.numpy(), want.numpy())
@@ -366,26 +366,29 @@ def test_declared_waits_suffice_in_any_order(models, cluster, order_seed):
 
 @pytest.mark.parametrize("drop", ["v2h", "row"])
 def test_dropping_a_declared_wait_breaks_some_order(models, drop):
-    emu, (_, want_logits) = _decode_case(models, torch.float32, 8)
+    emu, (_, want_logits) = _decode_case(models, torch.float32)
     with torch.no_grad():
         _, logits = emu.run(order_seed=5, drop=drop)
     assert (logits - want_logits).abs().max().item() > 1e-2
 
 
-@pytest.mark.parametrize("cluster", [16, 8])
-def test_prefix_shorter_than_h(models, cluster):
-    emu, (want, want_logits) = _decode_case(models, torch.float32, cluster, prefix_len=3, seed=6)
+@pytest.mark.parametrize("order_seed", [8, 16])
+def test_prefix_shorter_than_h(models, order_seed):
+    emu, (want, want_logits) = _decode_case(models, torch.float32, prefix_len=3, seed=6)
     with torch.no_grad():
-        tok, logits = emu.run(order_seed=cluster)
+        tok, logits = emu.run(order_seed=order_seed)
     np.testing.assert_array_equal(tok.numpy(), want.numpy())
     np.testing.assert_array_equal(tok.numpy()[:, :3], _inputs(6)[2][:, :3])
     np.testing.assert_allclose(logits.numpy(), want_logits.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("cluster", [3, 12, 32])
-def test_cluster_must_be_a_power_of_two_dividing_the_widths(models, cluster):
+@pytest.mark.parametrize("widths", [dict(dim=24), dict(input_dim=40), dict(hidden=72)],
+                         ids=["dim", "codebook", "head"])
+def test_widths_must_divide_among_the_chain_cluster(widths):
+    """Each of the chain's 16 CTAs owns an equal slice of every step."""
+    kw = dict(input_dim=K, dim=DIM, n_layers=2, n_classes=CLASSES, audio_channels=AUDC)
     with pytest.raises(ValueError):
-        pack_decode_tables(models[2], torch.float32, cluster)
+        pack_decode_tables(GatedPixelCNN(**{**kw, **widths}), torch.float32)
 
 
 def test_chain_parts_cover_each_cta_stream_once(models):
@@ -395,7 +398,7 @@ def test_chain_parts_cover_each_cta_stream_once(models):
     tm = models[2]
     for dtype in (torch.float32, torch.bfloat16):
         esize = torch.empty((), dtype=dtype).element_size()
-        parts, row_elems = k1.chain_parts(LAYERS, DIM, K, tm.out_hidden.out_features, 8, esize)
+        parts, row_elems = k1.chain_parts(LAYERS, DIM, K, tm.out_hidden.out_features, esize)
         off = 0
         for kind, _, _, klen, _, nu, p_off, _ in parts:
             size = nu * klen * (2 if kind == k1.GATED else 1)
