@@ -272,8 +272,9 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 
 // ---------------------------------------------------------------------------
 // The vertical role: ops over the vertical CTAs' warps (warp `gw` of `nw`
-// takes tasks gw, gw + nw, ...; a task is one output or one gated pair for a
-// chunk of kBC batch rows), weights streamed from global memory.
+// takes tasks gw, gw + nw, ...; a task is one or two output pairs or gated
+// pairs (`unit`) for a chunk of kBC batch rows), weights streamed from
+// global memory.
 // ---------------------------------------------------------------------------
 
 // res[r] of lane b = sum_{k < klen} w[r][k] * x[b * x_ld + k] for b < nb
