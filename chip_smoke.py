@@ -43,10 +43,14 @@ Phases (one line each; any failure raises and the script exits non-zero):
   6 K2       the wav2vec encoder-layer kernel against its plain version at
              full width (12 layers, 768 wide, 12 heads, FFN 3072, T = 300) on
              random weights: B = 1 unmasked, B = 8 masked (valid 300, 270, ..,
-             90); f32 tables within 1e-3 on valid rows (the same f32 math in
-             another order through 12 post-norm layers), bf16 tables within
-             1e-2 of max|out| (both sides round every product's operands to
-             bf16; an intermediate may round the other way), padded rows finite
+             90); two runs equal bit for bit; f32 tables within 1e-3 on valid
+             rows (the same f32 math in another order through 12 post-norm
+             layers), bf16 tables within 1e-2 of max|out| (both sides round
+             every product's operands to bf16; an intermediate may round the
+             other way), padded rows finite; then the Hopper GEMM that K2 and
+             K3 share, alone, at each of their product shapes (B = 1 and 8):
+             within 1e-4 of max|C| of torch.matmul on the same bf16 operands,
+             and its TFLOP/s from a captured CUDA graph
   7 K3       the conv-extractor kernel against its plain version, full 7-conv
              512-channel stack, 10 s clip, B = 1 and 8, f32 within 1e-3 and
              bf16 within 1e-2 of max|out|; two runs equal bit for bit
@@ -59,10 +63,12 @@ Phases (one line each; any failure raises and the script exits non-zero):
              masked); bf16 tables reported beside them
   9 times    K2, K3 and face_apply_fused (bf16 tables) against their plain
              versions at B = 1 and 8, K2's library yardstick (one
-             nn.TransformerEncoder call on the same weights, bf16) and the
-             device time of one K2 and one K3 call by kernel (torch.profiler),
-             each beside the card (phase 5's "face" stage is the plain
-             Pipeline.generate_face)
+             nn.TransformerEncoder call on the same weights, bf16, eager and
+             replayed from a captured CUDA graph) and, at B = 1 and 8, the
+             device time of one K2 and one K3 call by kernel (torch.profiler)
+             with the device-idle share of the call (1 - device time / CUDA-event
+             wall time), each beside the card (phase 5's "face" stage is the
+             plain Pipeline.generate_face)
  10 K4       the nearest-code kernel against its plain version at full width
              (codebook 2048 x 64, N in {75, 2816}): two runs equal bit for bit,
              exact ties take the lower index, indices equal to plain except on
@@ -393,13 +399,68 @@ def phase6(dev) -> float:
         for dtype in (torch.float32, torch.bfloat16):
             tables = k2.pack_encoder_tables(enc, dtype)
             out = k2.encoder_layers_kernel(tables, x, vf)
+            if not torch.equal(out, k2.encoder_layers_kernel(tables, x, vf)):
+                raise AssertionError(f"phase 6 K2 B={B} {dtype}: two runs differ")
             errs[dtype] = check_close(f"phase 6 K2 B={B} {dtype}", out,
                                       k2.encoder_layers_plain(tables, x, vf), valid, dtype)
         worst = max(worst, errs[torch.float32])
         log(f"phase 6 K2 B={B} {'masked ' + str(valid) if vf is not None else 'unmasked'}: "
-            f"f32 tables max|d| {errs[torch.float32]:.3e} <= 1e-3, bf16 tables max|d|/max|out| "
-            f"{errs[torch.bfloat16]:.3e} <= 1e-2, all rows finite")
+            f"two runs equal; f32 tables max|d| {errs[torch.float32]:.3e} <= 1e-3, bf16 tables "
+            f"max|d|/max|out| {errs[torch.bfloat16]:.3e} <= 1e-2, all rows finite")
     return worst
+
+
+def gemm_shapes() -> dict:
+    """(M, N, K, lda, a_batch, Z) of every product K2 and K3 run at full
+    width: K2's four at B = 1 and 8 (T = 300), K3's six strided convs of a
+    10 s clip at B = 1 and 8 (overlapping rows, one batch per clip)."""
+    shapes = {}
+    for B in (1, 8):
+        M = 300 * B
+        for name, N, K in (("qkv", 2304, 768), ("wo", 768, 768), ("w1", 3072, 768),
+                           ("w2", 768, 3072)):
+            shapes[f"K2 {name} M={M}"] = (M, N, K, K, 0, 1)
+        T_in = 31999
+        for i, k in enumerate((3, 3, 3, 3, 2, 2)):
+            T_out = (T_in - k) // 2 + 1
+            shapes[f"K3 layer{i + 1} B={B}"] = (T_out, 512, k * 512, 1024, T_in * 512, B)
+            T_in = T_out
+    return shapes
+
+
+def graph_ms(fn, reps: int = 5) -> float:
+    """Device ms of fn() replayed from a captured CUDA graph (host work out)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def phase6_gemm(dev, card: str) -> None:
+    """The Hopper GEMM that K2 and K3 share, alone, at every product shape
+    they run: against torch.matmul on the same bf16 operands in f32 (TF32
+    off; only the f32 summation order differs: within 1e-4 of max|C|), and
+    its device time from a captured graph of 10 calls."""
+    from talkshow_torch.kernels import wav2vec_layers as k2
+    gen = torch.Generator().manual_seed(66)
+    for name, (M, N, K, lda, ab, Z) in gemm_shapes().items():
+        a = torch.randn((Z - 1) * ab + (M - 1) * lda + K, generator=gen).to(dev, torch.bfloat16)
+        w = (torch.randn((N, K), generator=gen) / K ** 0.5).to(dev, torch.bfloat16)
+        c = k2.gemm_kernel(a, w, M, lda, ab, Z)
+        want = a.as_strided((Z, M, K), (ab, lda, 1)).float() @ w.float().T
+        err = (c - want).abs().max().item() / want.abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"phase 6 gemm {name}: max|d|/max|C| {err}")
+        ms = graph_ms(lambda: [k2.gemm_kernel(a, w, M, lda, ab, Z) for _ in range(10)]) / 10
+        wg, splits, kt = k2.gemm_plan(M, N, K, Z)
+        log(f"phase 6 gemm {name} (M={M} N={N} K={K} z={Z}; {64 * wg}-row tiles, {splits} "
+            f"split(s) of {kt} k tiles): max|d|/max|C| {err:.2e} <= 1e-4; {ms * 1e3:.2f} us, "
+            f"{2.0 * M * N * K * Z / ms / 1e9:.1f} TFLOP/s [{card}]")
 
 
 def phase7(dev) -> float:
@@ -466,6 +527,12 @@ def kernel_breakdown(fn, reps: int = 3) -> str:
     """Device time per kernel name over reps calls (torch.profiler), as
     'name: total ms / launches'; 'not measured' when the trace holds no
     device time."""
+    return device_breakdown(fn, reps)[1]
+
+
+def device_breakdown(fn, reps: int = 3) -> tuple[float | None, str]:
+    """(device ms per call, kernel_breakdown's text); None when the trace
+    holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -480,10 +547,10 @@ def kernel_breakdown(fn, reps: int = 3) -> str:
                 and "CUDA" in str(ev.device_type):
             rows.append((dev_us / reps / 1e3, ev.count // reps, ev.key))
     if not rows:
-        return "not measured"
+        return None, "not measured"
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    return f"total {total:.3f} ms; " + "; ".join(
+    return total, f"total {total:.3f} ms; " + "; ".join(
         f"{key[:60]}: {ms:.3f} ms / {n}" for ms, n, key in rows[:8])
 
 
@@ -548,16 +615,21 @@ def phase9(face, card: str) -> dict:
                 extra = ""
                 if name.startswith("K2"):
                     lib_ms = cuda_ms(lambda: lib16(x16, src_key_padding_mask=pad), 5)
+                    lib_graph = graph_ms(lambda: lib16(x16))
                     res[("library", B)] = lib_ms
-                    extra = (f"; library nn.TransformerEncoder bf16 {lib_ms:.3f} ms "
-                             f"(its f32 output vs the plain f32 stack max|d| {lib_err:.2e})")
+                    extra = (f"; library nn.TransformerEncoder bf16 {lib_ms:.3f} ms eager, "
+                             f"{lib_graph:.3f} ms replayed from a CUDA graph (its f32 output vs "
+                             f"the plain f32 stack max|d| {lib_err:.2e})")
                 log(f"phase 9 {name} B={B}: kernel (bf16 tables) {k1:.3f} / {k2_:.3f} ms, "
                     f"plain {p1:.3f} / {p2:.3f} ms{extra} [{card}]")
-    x1, w1 = torch.randn((1, 300, 768), generator=gen).to(dev), speech(1, 10.0, 98, dev)
-    for name, fn in (("K2 B=1", lambda: k2.encoder_layers_kernel(t16["enc"], x1)),
-                     ("K3 B=1", lambda: k3.extractor_kernel(t16["ext"], w1))):
-        log(f"phase 9 {name} device time by kernel: {kernel_breakdown(fn)} [{card}]")
-    res["x1"] = x1
+            for name, fn in (("K2", rows["K2 wav2vec_layers"][0]),
+                             ("K3", rows["K3 wav2vec_extractor"][0])):
+                dev_ms, text = device_breakdown(fn)
+                idle = ("not measured" if dev_ms is None else
+                        f"{1 - dev_ms / cuda_ms(fn, 5):.1%} of the call's wall time")
+                log(f"phase 9 {name} B={B} device time by kernel: {text}; device idle {idle} "
+                    f"[{card}]")
+    res["x1"] = torch.randn((1, 300, 768), generator=gen).to(dev)
     res["t16"] = t16
     return res
 
@@ -988,6 +1060,7 @@ def main() -> int:
 
     # ---- phases 6-9: the fused face stage (K2, K3) -------------------------------
     err_k2 = phase6(dev)
+    phase6_gemm(dev, card)
     err_k3 = phase7(dev)
     face_launches = phase8(pipe.face_model, speech(1, 10.0, 0, dev))
     times = phase9(pipe.face_model, card)

@@ -30,11 +30,12 @@ import torch
 import torch.nn.functional as F
 
 from talkshow_torch.kernels import TABLE_DTYPES, check, counts
+from talkshow_torch.kernels.wav2vec_layers import describe_error
 
 SOURCE = "talkshow_torch/csrc/wav2vec_extractor.cu"
 REPLACES = "talkshow_tpu/models/wav2vec_pallas.py:405"
 
-#: longest layer-0 kernel the CUDA code holds in registers
+#: longest layer-0 kernel the CUDA code takes
 MAX_K0 = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -151,6 +152,6 @@ def extractor_kernel(tables: dict, wave: torch.Tensor) -> torch.Tensor:
             tables["w0"].data_ptr(), tables["ws"].data_ptr(), tables["gn"].data_ptr(),
             wave.data_ptr(), out.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"wav2vec_extractor launch failed: cudaError_t {err}")
+        raise RuntimeError(f"wav2vec_extractor launch failed: {describe_error(err)}")
     counts["wav2vec_extractor"] += 1
     return out

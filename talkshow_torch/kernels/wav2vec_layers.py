@@ -12,8 +12,16 @@ Numerics, the same in the kernel and in `encoder_layers_plain`: both
 operands of every product are rounded to the table type (bf16 in
 production, f32 for exact comparison) and the sums are f32, as
 `_make_layer_kernel.dot` computes them (:104-107); softmax, LayerNorm and
-gelu run in f32 on f32 activations.  So the two differ only in summation
-order.
+gelu run in f32.  With bf16 tables the kernel stores in bf16 only what the
+next product rounds to bf16 anyway (qkv with q already scaled, the
+attention output, the FFN hidden layer, a copy of each LayerNorm output;
+`tests/test_torch_w2v_plan.py` holds that plan bit-equal to the plain
+version), and its attention takes exp from the special-function unit
+(~2^-21 relative).  So the two differ only in summation order and in that
+last bit of exp.
+
+`gemm_kernel` runs the Hopper GEMM that K2 and K3 share on its own, for its
+tests and the smoke run's shape sweep.
 
 A CUDA tensor launches the kernel (`encoder_layers_kernel`, one launch of
 the whole stack adds one to ``counts["wav2vec_layers"]``) or raises; the
@@ -36,18 +44,27 @@ REPLACES = "talkshow_tpu/models/wav2vec_pallas.py:143"
 
 _MATS = ("wqkv", "wo", "w1", "w2")
 _VECS = ("bqkv", "bo", "b1", "b2", "ln1", "ln2")
+#: widest hidden size the LayerNorm kernel holds in registers
+MAX_HIDDEN = 1024
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+#: return codes from this value up are this + the CUresult of a refused tensor map
+ERR_TENSOR_MAP = 10000
 
 
 def _lib() -> ctypes.CDLL:
     from talkshow_torch.kernels import _build
     lib = _build.load("wav2vec_layers")
     if not getattr(lib, "_talkshow_typed", False):
-        lib.talkshow_w2v_layers_scratch.argtypes = [_I] * 4
+        lib.talkshow_w2v_layers_scratch.argtypes = [_I] * 5
         lib.talkshow_w2v_layers_scratch.restype = ctypes.c_longlong
         lib.talkshow_w2v_layers.argtypes = [_I] * 7 + [ctypes.c_float] + [_P] * 15
         lib.talkshow_w2v_layers.restype = _I
+        lib.talkshow_w2v_gemm_plan.argtypes = [_I] * 5 + [_P]
+        lib.talkshow_w2v_gemm_plan.restype = None
+        lib.talkshow_w2v_gemm.argtypes = [_P, _L, _L, _P] + [_I] * 5 + [_P] * 2
+        lib.talkshow_w2v_gemm.restype = _I
         lib._talkshow_typed = True
     return lib
 
@@ -154,9 +171,10 @@ def encoder_layers_kernel(tables: dict, x: torch.Tensor, valid_frames=None) -> t
         raise TypeError(f"tables must be float32 or bfloat16, got {tdtype}")
     L, F_ = tables["wqkv"].shape[0], tables["w1"].shape[1]
     nh = tables["heads"]
-    if H % nh or H // nh > 128 or (H // nh) % 4 or H % 8 or F_ % 8:
-        raise ValueError(f"hidden {H} and FFN {F_} must be multiples of 8 and split into "
-                         f"{nh} heads of at most 128, a multiple of 4 wide")
+    step = 8 if tdtype == torch.bfloat16 else 4
+    if H % nh or H // nh > 128 or (H // nh) % step or H % 8 or F_ % 8 or H > MAX_HIDDEN:
+        raise ValueError(f"hidden {H} (at most {MAX_HIDDEN}) and FFN {F_} must be multiples of 8 "
+                         f"and split into {nh} heads of at most 128, a multiple of {step} wide")
     shapes = dict(wqkv=(L, 3 * H, H), wo=(L, H, H), w1=(L, F_, H), w2=(L, H, F_),
                   bqkv=(L, 3 * H), bo=(L, H), b1=(L, F_), b2=(L, H),
                   ln1=(L, 2, H), ln2=(L, 2, H))
@@ -166,8 +184,8 @@ def encoder_layers_kernel(tables: dict, x: torch.Tensor, valid_frames=None) -> t
     valid = _valid(x, valid_frames)
     lib = _lib()
     out = torch.empty_like(x)
-    scratch = torch.empty(lib.talkshow_w2v_layers_scratch(B, T, H, F_),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.talkshow_w2v_layers_scratch(TABLE_DTYPES[tdtype], B, T, H, F_),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.talkshow_w2v_layers(
@@ -175,6 +193,49 @@ def encoder_layers_kernel(tables: dict, x: torch.Tensor, valid_frames=None) -> t
             *(tables[k].data_ptr() for k in _MATS + _VECS),
             valid.data_ptr(), x.data_ptr(), out.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"wav2vec_layers launch failed: cudaError_t {err}")
+        raise RuntimeError(f"wav2vec_layers launch failed: {describe_error(err)}")
     counts["wav2vec_layers"] += 1
+    return out
+
+
+def describe_error(err: int) -> str:
+    """A C entry's return code in words."""
+    if err >= ERR_TENSOR_MAP:
+        return f"cuTensorMapEncodeTiled refused a tensor map (CUresult {err - ERR_TENSOR_MAP})"
+    return f"cudaError_t {err}"
+
+
+def gemm_plan(M: int, N: int, K: int, Z: int = 1, splits: int = 0) -> tuple[int, int, int]:
+    """The Hopper GEMM's plan for this shape: (consumer warpgroups, each
+    64 rows of a 128-column tile; split-K count; 64-wide k tiles per
+    split).  `splits` > 0 forces the split count, as `gemm_kernel` does."""
+    plan = (ctypes.c_int * 3)()
+    _lib().talkshow_w2v_gemm_plan(M, N, K, Z, splits, plan)
+    return tuple(plan)
+
+
+@torch.no_grad()
+def gemm_kernel(a: torch.Tensor, w: torch.Tensor, M: int, lda: int, a_batch: int = 0,
+                Z: int = 1, splits: int = 0) -> torch.Tensor:
+    """The Hopper GEMM that K2 and K3 share, alone (for its tests and the
+    smoke run's shape sweep): (Z, M, N) f32 = A W^T, A row m of batch z the
+    K bf16 values at a[z * a_batch + m * lda:], which may overlap as a
+    strided conv's rows do; w (N, K) bf16.  `splits` 0 lets the plan pick
+    split-K, > 0 forces that many splits.  A CUDA tensor or raises."""
+    if a.device.type != "cuda":
+        raise ValueError(f"the GEMM runs on CUDA tensors, not {a.device}")
+    N, K = w.shape
+    for name, t in (("a", a), ("w", w)):
+        check(name, t, tuple(t.shape), torch.bfloat16, a.device)
+    reach = (Z - 1) * a_batch + (M - 1) * lda + K
+    if a.dim() != 1 or a.numel() < reach:
+        raise ValueError(f"a must be flat and hold {reach} values, not {tuple(a.shape)}")
+    lib = _lib()
+    out = torch.empty((Z, M, N), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.talkshow_w2v_gemm(a.data_ptr(), lda, a_batch, w.data_ptr(), M, N, K, Z,
+                                    splits, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"wav2vec GEMM launch failed: {describe_error(err)}")
     return out

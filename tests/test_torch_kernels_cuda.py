@@ -21,7 +21,9 @@ or past valid_frames must stay finite.  K4 sums the same f32 products in
 another order than the plain matmul: its indices equal the plain version's
 except on near-tie rows (best and second-best distances within
 1e-5 (1 + |best|)), and every pick lies within that tolerance of the row's
-minimum distance.
+minimum distance.  The Hopper GEMM that K2 and K3 share is held alone to
+torch.matmul on the same bf16 operands in f32 (TF32 off): only the order of
+the f32 sums differs, so within 1e-4 of max|C|.
 """
 import numpy as np
 import pytest
@@ -219,6 +221,86 @@ def test_extractor_kernel_matches_plain(cuda, name, dtype):
     assert torch.equal(out, again)     # fixed-order GroupNorm reduction: bit-for-bit
 
 
+def _conv_gemm(B, T_in, k, s, cin, cout):
+    """(M, N, K, lda, a_batch, Z) of a stride-s conv over channels-last rows."""
+    return ((T_in - k) // s + 1, cout, k * cin, s * cin, T_in * cin, B)
+
+
+GEMM_SHAPES = {  # name: (M, N, K, lda, a_batch, Z)
+    **{f"k2_{n}_M{M}": (M, N, K, K, 0, 1)
+       for M in (300, 2400)
+       for n, N, K in (("qkv", 2304, 768), ("wo", 768, 768), ("w1", 3072, 768),
+                       ("w2", 768, 3072))},
+    **{f"k3_layer{i + 1}_B2": _conv_gemm(2, T_in, k, 2, 512, 512)
+       for i, (T_in, k) in enumerate(((31999, 3), (15999, 3), (7999, 3), (3999, 3),
+                                      (1999, 2), (999, 2)))},
+    "tiny_conv_k3": _conv_gemm(3, 599, 3, 2, 32, 64)[:1] + (64, 96, 64, 599 * 32, 3),
+    "tiny_conv_k2": _conv_gemm(3, 149, 2, 2, 32, 32),
+    "tiny_qkv": (111, 192, 64, 64, 0, 1),
+    "M1": (1, 768, 768, 768, 0, 1),
+    "M77_ragged": (77, 136, 200, 200, 0, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3], ids=["unsplit", "split3"])
+@pytest.mark.parametrize("name", list(GEMM_SHAPES))
+def test_gemm_matches_matmul(cuda, name, splits):
+    M, N, K, lda, a_batch, Z = GEMM_SHAPES[name]
+    gen = torch.Generator().manual_seed(M + N + K)
+    a = torch.randn((Z - 1) * a_batch + (M - 1) * lda + K, generator=gen).to(cuda, torch.bfloat16)
+    w = torch.randn((N, K), generator=gen).to(cuda, torch.bfloat16)
+    c = k2.gemm_kernel(a, w, M, lda, a_batch, Z, splits=splits)
+    torch.cuda.synchronize()
+    A = a.as_strided((Z, M, K), (a_batch, lda, 1)).float()
+    want = A @ w.float().T
+    assert c.shape == want.shape
+    assert (c - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    if splits > 1:
+        assert torch.equal(c, k2.gemm_kernel(a, w, M, lda, a_batch, Z, splits=splits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_encoder_layers_kernel_padded_head_dim(cuda, dtype):
+    """hd = 40 is padded to 48 in the attention's tiles (its K and V boxes
+    carry the next head's columns there), and 3H = 240, H = 80 leave ragged
+    GEMM tiles in N and K."""
+    cfg = Wav2Vec2Config(hidden_size=80, num_layers=2, num_heads=2, intermediate_size=160)
+    gen = torch.Generator().manual_seed(12)
+    enc = init_weights_(Wav2Vec2Encoder(cfg), gen)
+    x = torch.randn((2, 37, 80), generator=gen).to(cuda)
+    tables = k2.pack_encoder_tables(enc.to(cuda).eval(), dtype)
+    vf = torch.tensor([37, 20], dtype=torch.int32)
+    _w2v_check(k2.encoder_layers_kernel(tables, x, vf), k2.encoder_layers_plain(tables, x, vf),
+               [37, 20], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_encoder_layers_kernel_long_clip(cuda, dtype):
+    """T = 3000 frames (100 s), one layer of hd = 64: the tensor-core
+    attention stages K and V in tiles, so no clip length is too long for it."""
+    cfg = Wav2Vec2Config(hidden_size=128, num_layers=1, num_heads=2, intermediate_size=256)
+    gen = torch.Generator().manual_seed(11)
+    enc = init_weights_(Wav2Vec2Encoder(cfg), gen)
+    x = torch.randn((1, 3000, 128), generator=gen).to(cuda)
+    tables = k2.pack_encoder_tables(enc.to(cuda).eval(), dtype)
+    vf = torch.tensor([2900], dtype=torch.int32)
+    _w2v_check(k2.encoder_layers_kernel(tables, x, vf), k2.encoder_layers_plain(tables, x, vf),
+               [2900], dtype)
+
+
+@pytest.mark.cuda
+def test_encoder_layers_kernel_reruns_are_bit_equal(cuda):
+    """Split-K sums its partial tiles in split order, never with float atomics."""
+    enc, x, _ = _w2v_case("full", cuda, seed=2)
+    tables = k2.pack_encoder_tables(enc, torch.bfloat16)
+    vf = torch.tensor([300, 211], dtype=torch.int32)
+    out = k2.encoder_layers_kernel(tables, x, vf)
+    assert torch.equal(out, k2.encoder_layers_kernel(tables, x, vf))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,K,D", [(37, 100, 16), (75, 2048, 64), (2816, 2048, 64)])
 def test_nearest_code_kernel_matches_plain(cuda, N, K, D):
@@ -250,3 +332,6 @@ def test_kernels_raise_on_cpu_tensors():
         k2.encoder_layers_kernel(k2.pack_encoder_tables(enc), x)
     with pytest.raises(ValueError):
         k3.extractor_kernel(k3.pack_extractor_tables(enc.feature_extractor), wave)
+    with pytest.raises(ValueError):
+        k2.gemm_kernel(torch.zeros(64, dtype=torch.bfloat16), torch.zeros((8, 8), dtype=torch.bfloat16),
+                       1, 8)
