@@ -70,11 +70,13 @@ Phases (one line each; any failure raises and the script exits non-zero):
              wall time), each beside the card (phase 5's "face" stage is the
              plain Pipeline.generate_face)
  10 K4       the nearest-code kernel against its plain version at full width
-             (codebook 2048 x 64, N in {75, 2816}): two runs equal bit for bit,
-             exact ties take the lower index, indices equal to plain except on
-             near-tie rows (best and second-best distances within
-             1e-5 (1 + |best|)), and on every row the pick's distance within
-             that tolerance of the minimum
+             (codebook 2048 x 64 and 2047 x 64, N in {1, 75, 2816}; each shape's
+             plan: tile rows, cluster, CTAs): two runs equal bit for bit, exact
+             ties between codes in different CTAs' slices take the lower index,
+             indices equal to plain except on near-tie rows (best and
+             second-best distances within 1e-5 (1 + |best|); the kernel sums
+             ||e||^2 itself), and on every row the pick's distance within that
+             tolerance of the minimum
  11 train    python -m talkshow_torch.train (its main()) for s2g_body_vq at full
              width (batch 128, window 88, num_hiddens 1024) on a synthetic
              dataset, one epoch of >= 10 steps: every logged loss finite,
@@ -94,9 +96,11 @@ Phases (one line each; any failure raises and the script exits non-zero):
  12 times    the body-VQ step p50 and windows/s at B = 128, T = 88, its device
              time by kernel (torch.profiler) and, for the record, its time with
              cuDNN's non-deterministic algorithms (TF32 off) and with TF32 on;
-             K4, its plain version and the two-call yardstick
-             argmin(addmm) at N = 75 and 2816, with K4's device time by kernel;
-             the token encode at B = 128; each beside the card
+             K4 (bare, and through ops/vq.nearest_code as the step calls it), its
+             plain version and the two-call yardstick argmin(addmm) at N = 75
+             and 2816 with the bound share, the kernels one ops/vq.nearest_code
+             call launches (torch.profiler; more than one fails); the token
+             encode at B = 128; each beside the card
 Then one JSON line of kernels, the nvidia-smi line, and the result line.
 """
 from __future__ import annotations
@@ -530,9 +534,10 @@ def kernel_breakdown(fn, reps: int = 3) -> str:
     return device_breakdown(fn, reps)[1]
 
 
-def device_breakdown(fn, reps: int = 3) -> tuple[float | None, str]:
-    """(device ms per call, kernel_breakdown's text); None when the trace
-    holds no device time."""
+def device_rows(fn, reps: int = 3) -> list:
+    """(device ms per call, launches per call, kernel name) of fn()'s
+    kernels over reps calls (torch.profiler; a trace of many short launches
+    may drop a few), largest first; [] when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -545,13 +550,34 @@ def device_breakdown(fn, reps: int = 3) -> tuple[float | None, str]:
         dev_us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
         if dev_us > 0 and ev.count > 0 and getattr(ev, "device_type", None) is not None \
                 and "CUDA" in str(ev.device_type):
-            rows.append((dev_us / reps / 1e3, ev.count // reps, ev.key))
+            rows.append((dev_us / reps / 1e3, ev.count / reps, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def launches_per_call(fn, reps: int = 20) -> float | None:
+    """Kernel launches per fn() call: the CUDA runtime's launch calls that
+    torch.profiler records on the host, over reps calls; None when it
+    records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages() if ev.key.startswith("cudaLaunch"))
+    return n / reps if n else None
+
+
+def device_breakdown(fn, reps: int = 3) -> tuple[float | None, str]:
+    """(device ms per call, kernel_breakdown's text); None when the trace
+    holds no device time."""
+    rows = device_rows(fn, reps)
     if not rows:
         return None, "not measured"
-    rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     return total, f"total {total:.3f} ms; " + "; ".join(
-        f"{key[:60]}: {ms:.3f} ms / {n}" for ms, n, key in rows[:8])
+        f"{key[:60]}: {ms:.3f} ms / {n:g}" for ms, n, key in rows[:8])
 
 
 def library_encoder(tables, dtype):
@@ -669,28 +695,40 @@ def phase10(dev) -> float:
     K, D = TRAIN["codes"], TRAIN["dim"]
     gen = torch.Generator().manual_seed(10)
     limit = (6.0 / (K + D)) ** 0.5               # init_vq_state's codebook
-    emb = (torch.rand((K, D), generator=gen) * 2 - 1) * limit
+    emb0 = (torch.rand((K, D), generator=gen) * 2 - 1) * limit
     dup = torch.arange(8) * 7
-    emb[K - 8:] = emb[dup]                       # exact duplicates: the lower index must win
-    emb = emb.to(dev)
-    e2 = k4.code_norms(emb)
+    emb0[K - 8:] = emb0[dup]                     # exact duplicates: the lower index must win
+    emb0 = emb0.to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
-    for N in (75, 2816):
+    for N, Kc in ((1, K), (75, K), (2816, K), (75, K - 1), (2816, K - 1)):
+        emb = emb0[:Kc]                          # K - 1: a ragged last slice
+        e2 = k4.code_norms(emb)
+        plan = k4.search_plan(N, Kc, D, sms)
+        twins = [(int(a), b) for a, b in zip(dup, range(K - 8, Kc))]
+        if plan.cluster < 2 or any(a // plan.slice == b // plan.slice for a, b in twins):
+            raise AssertionError(f"phase 10 K4 N={N} K={Kc}: a duplicated code shares its "
+                                 f"twin's slice ({plan})")
         x = 0.05 * torch.randn((N, D), generator=gen)
-        x[:8] = emb[dup].cpu()                   # rows sitting on a duplicated code
+        n8 = min(N, 8)
+        x[:n8] = emb0[dup[:n8]].cpu()            # rows sitting on a duplicated code
         x = x.to(dev)
-        idx = k4.nearest_code_kernel(x, emb, e2)
-        again = k4.nearest_code_kernel(x, emb, e2)
+        idx = k4.nearest_code_kernel(x, emb)
+        again = k4.nearest_code_kernel(x, emb)
         plain = k4.nearest_code_plain(x, emb, e2)
         torch.cuda.synchronize()
-        if not (torch.equal(idx, again) and torch.equal(idx[:8].cpu(), dup)):
-            raise AssertionError(f"phase 10 K4 N={N}: runs differ or a tie took the higher index")
-        near, differ, excess = check_codes(f"phase 10 K4 N={N}", idx, x, emb, e2, plain)
+        if not (torch.equal(idx, again) and torch.equal(idx[:n8].cpu(), dup[:n8])):
+            raise AssertionError(f"phase 10 K4 N={N} K={Kc}: runs differ or a tie took the "
+                                 f"higher index")
+        near, differ, excess = check_codes(f"phase 10 K4 N={N} K={Kc}", idx, x, emb, e2, plain)
         worst = max(worst, excess)
-        log(f"phase 10 K4 N={N} codebook ({K}, {D}): two runs equal bit for bit, exact ties "
-            f"take the lower index, indices equal to plain on {N - differ}/{N} rows "
-            f"({differ} differ, all near-ties; {near} near-tie rows), largest distance excess "
-            f"of a pick {excess:.3e} <= 1e-5 (1 + |best|)")
+        log(f"phase 10 K4 N={N} codebook ({Kc}, {D}), plan {plan.rows}-row tiles x cluster "
+            f"{plan.cluster} of {plan.slice} codes = {plan.ctas} CTAs, {plan.smem} B shared: "
+            f"two runs equal bit for bit, exact ties across slices take the lower index, "
+            f"indices equal to plain on {N - differ}/{N} rows ({differ} differ, all near-ties; "
+            f"{near} near-tie rows; the kernel sums ||e||^2 itself in depth order, the plain "
+            f"version with torch.sum, so e2 may differ by ulps), largest distance excess of a "
+            f"pick {excess:.3e} <= 1e-5 (1 + |best|)")
     return worst
 
 
@@ -883,6 +921,7 @@ def phase12(train: dict, card: str) -> dict:
     """Times: the body-VQ step, K4 against its plain version and the
     two-call yardstick, the token encode; returns K4's numbers at N = 2816."""
     from talkshow_torch.kernels import nearest_code as k4
+    from talkshow_torch.ops import vq as vq_ops
     trainer = train["trainer"]
     batch = trainer.put_batch(train["batch"])
     times = []
@@ -923,20 +962,55 @@ def phase12(train: dict, card: str) -> dict:
     res = {}
     for N in (75, 2816):
         x = (0.05 * torch.randn((N, TRAIN["dim"]), generator=gen)).to(emb.device)
-        kern = lambda: k4.nearest_code_kernel(x, emb, e2)         # noqa: E731
+        kern = lambda: k4.nearest_code_kernel(x, emb)             # noqa: E731
+        step_call = lambda: vq_ops.nearest_code(x, emb)           # noqa: E731
         plain = lambda: k4.nearest_code_plain(x, emb, e2)         # noqa: E731
         lib = lambda: torch.argmin(torch.addmm(e2, x, emb.T, alpha=-2), 1)  # noqa: E731
-        p1, k1, k2, p2 = cuda_ms(plain, 50), cuda_ms(kern, 50), cuda_ms(kern, 50), cuda_ms(plain, 50)
-        lib_ms = cuda_ms(lib, 50)
-        res[N] = ((k1 + k2) / 2, (p1 + p2) / 2, lib_ms, x)
+        # in turns: plain, kernel, yardstick, step call, step call, yardstick, kernel, plain
+        p1, k1, l1, o1 = (cuda_ms(f, 50) for f in (plain, kern, lib, step_call))
+        o2, l2, k2, p2 = (cuda_ms(f, 50) for f in (step_call, lib, kern, plain))
+        res[N] = ((k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2, x)
+        bms, by = bound(nbytes(x, emb) + N * 8, 2.0 * N * emb.numel() + 2.0 * emb.numel(),
+                        F32_FLOP_S)
         log(f"phase 12 K4 nearest_code N={N} K={TRAIN['codes']} D={TRAIN['dim']}: kernel "
-            f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, two-call yardstick "
-            f"argmin(addmm) {lib_ms:.4f} ms [{card}]")
-        log(f"phase 12 K4 N={N} device time by kernel: {kernel_breakdown(kern, reps=20)} "
+            f"{k1:.4f} / {k2:.4f} ms, through ops/vq.nearest_code (the step's call, ||e||^2 "
+            f"included) {o1:.4f} / {o2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, two-call "
+            f"yardstick argmin(addmm) {l1:.4f} / {l2:.4f} ms; bound {bms:.4f} ms ({by}), the "
+            f"kernel at {bms / ((k1 + k2) / 2):.1%} of it [{card}]")
+        launches = launches_per_call(step_call)
+        if launches is not None and round(launches) != 1:
+            raise AssertionError(f"phase 12 K4 N={N}: ops/vq.nearest_code launched {launches:g} "
+                                 f"kernels a call")
+        log(f"phase 12 K4 N={N} ops/vq.nearest_code device time by kernel: "
+            f"{kernel_breakdown(step_call, reps=20)}; kernel launches a call (CUDA runtime "
+            f"calls in the trace) {'not measured' if launches is None else f'{launches:g}'} "
             f"[{card}]")
+    # why search_plan takes 8-row tiles at N = 75, 64-row tiles at 300, and
+    # two passes a CTA at 2816: each choice's device time a launch
+    K, D = emb.shape
+    sms = torch.cuda.get_device_properties(emb.device).multi_processor_count
+    alts = []
+    for N, plans in ((75, [k4.tile_plan(75, K, D, 1), k4.tile_plan(75, K, D, 0)]),
+                     (300, [k4.tile_plan(300, K, D, 1), k4.tile_plan(300, K, D, 0)]),
+                     (2816, [k4.tile_plan(2816, K, D, 0), k4.tile_plan(2816, K, D, 0, 2)])):
+        x = (0.05 * torch.randn((N, D), generator=gen)).to(emb.device)
+        idx = torch.empty((N,), dtype=torch.int64, device=emb.device)
+        for plan in plans:
+            launch = lambda: k4._lib().talkshow_nearest_code(       # noqa: E731
+                N, K, D, plan.variant, plan.cluster, plan.slice, x.data_ptr(), emb.data_ptr(),
+                idx.data_ptr(), emb.device.index,
+                torch._C._cuda_getCurrentRawStream(emb.device.index))
+            if launch() or not torch.equal(idx, k4.nearest_code_plain(x, emb, e2)):
+                raise AssertionError(f"phase 12 K4 N={N} {plan}: refused or not the plain indices")
+            rows = device_rows(launch, reps=50)
+            us = "not measured" if not rows else f"{rows[0][0] / rows[0][1] * 1e3:.2f} us"
+            chosen = " (search_plan's)" if plan == k4.search_plan(N, K, D, sms) else ""
+            alts.append(f"N={N} {plan.rows}-row tiles x cluster {plan.cluster}, {plan.passes} "
+                        f"pass(es), {plan.ctas} CTAs{chosen}: {us}")
+    log(f"phase 12 K4 plans, device time a launch: {'; '.join(alts)} [{card}]")
     enc_ms = cuda_ms(lambda: train["encode"](train["poses"]), 10)
     log(f"phase 12 token encode B={TRAIN['batch']} T={TRAIN['window']}: {enc_ms:.3f} ms [{card}]")
-    res["emb"], res["e2"] = emb, e2
+    res["emb"] = emb
     return res
 
 
@@ -1091,7 +1165,7 @@ def main() -> int:
     k3_bytes = nbytes(ext_t["w0"], ext_t["ws"], ext_t["gn"]) + 160000 * 4 + 499 * 512 * 4
     k4_ms, k4_plain, _, k4_x = k4_times[2816]
     N4, K4, D4 = k4_x.shape[0], TRAIN["codes"], TRAIN["dim"]
-    k4_bytes = nbytes(k4_x, k4_times["emb"], k4_times["e2"]) + N4 * 8
+    k4_bytes = nbytes(k4_x, k4_times["emb"]) + N4 * 8
     rows = [
         ("ar_decode", "B=1", ar_decode, launches, max_err, decode[1],
          bound(k1_bytes, k1_ops), None),
@@ -1104,7 +1178,7 @@ def main() -> int:
         # f32 sums, so the f32 peak; no single PyTorch call computes K4 (phase 12 times
         # the two-call argmin(addmm) yardstick)
         ("nearest_code", f"N={N4}", nearest_code, train["launches"], err_k4, (k4_ms, k4_plain),
-         bound(k4_bytes, 2.0 * N4 * K4 * D4, F32_FLOP_S), None),
+         bound(k4_bytes, 2.0 * (N4 + 1) * K4 * D4, F32_FLOP_S), None),
     ]
     for name, shape, _, n, _, (ms, plain_ms), (bms, by), _ in rows:
         log(f"bound {name} {shape}: {bms:.4f} ms ({by}); kernel {ms:.4f} ms = {bms / ms:.1%} "

@@ -17,8 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from talkshow_torch.kernels.nearest_code import (code_norms, nearest_code_kernel,
-                                                 nearest_code_plain)
+from talkshow_torch.kernels.nearest_code import nearest_code_kernel, nearest_code_plain
 
 __all__ = ["VQState", "init_vq_state", "nearest_code", "nearest_code_plain", "quantize",
            "quantize_train", "lookup"]
@@ -48,10 +47,9 @@ def init_vq_state(generator: torch.Generator, num_embeddings: int,
 
 def nearest_code(flat_x: torch.Tensor, embeddings: torch.Tensor) -> torch.Tensor:
     """argmin_k ||x - e_k||^2 over (N, D) x (K, D) -> (N,) int64: K4 on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    CUDA tensor (one launch), the plain version on a CPU tensor."""
     if flat_x.device.type == "cuda":
-        return nearest_code_kernel(flat_x.contiguous(), embeddings.contiguous(),
-                                   code_norms(embeddings))
+        return nearest_code_kernel(flat_x.contiguous(), embeddings.contiguous())
     return nearest_code_plain(flat_x, embeddings)
 
 

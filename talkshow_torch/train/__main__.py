@@ -27,10 +27,10 @@ from talkshow_torch.train.steps import make_body_vq_step
 from talkshow_torch.train.trainer import Trainer
 
 NOT_PORTED = {
-    "s2g_body_pixel": "ROADMAP.md Queue 0 item 1 (the body-pixel step)",
-    "s2g_face": "ROADMAP.md Queue 0 item 2 (the face step)",
-    "s2g_body_ae": "ROADMAP.md Queue 1 item 10 (the body-AE step)",
-    "s2g_LS3DCG": "ROADMAP.md Queue 1 item 10 (the LS3DCG step)",
+    "s2g_body_pixel": "ROADMAP.md Queue 1 item 3 (the body-pixel step)",
+    "s2g_face": "ROADMAP.md Queue 1 item 4 (the face step)",
+    "s2g_body_ae": "ROADMAP.md Queue 1 item 7 (the body-AE step)",
+    "s2g_LS3DCG": "ROADMAP.md Queue 1 item 7 (the LS3DCG step)",
 }
 #: least batches per epoch of the synthetic dataset, whatever the batch size
 SYNTHETIC_STEPS = 10
@@ -69,10 +69,10 @@ def main(argv=None) -> Trainer:
     if name in NOT_PORTED:
         raise SystemExit(f"stage {name} is not ported to talkshow_torch yet: {NOT_PORTED[name]}")
     if cfg.data.pose.convert_to_6d:
-        raise SystemExit("the 6-D pose variant is not ported yet: ROADMAP.md Queue 1 item 10")
+        raise SystemExit("the 6-D pose variant is not ported yet: ROADMAP.md Queue 1 item 7")
     if not args.synthetic:
         raise SystemExit("loading the SHOW dataset is not ported yet (ROADMAP.md Queue 1 "
-                         "item 10); pass --synthetic")
+                         "item 7); pass --synthetic")
     device = torch.device(args.device)
     if device.type == "cuda":
         # f32 sums, and deterministic cuDNN algorithms, so that a resumed

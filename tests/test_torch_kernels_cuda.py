@@ -34,7 +34,8 @@ from talkshow_torch.kernels import wav2vec_extractor as k3
 from talkshow_torch.kernels import wav2vec_layers as k2
 from talkshow_torch.kernels.ar_decode import (pack_decode_tables, round_like_tables,
                                               sample_tokens_fused)
-from talkshow_torch.kernels.nearest_code import nearest_code_plain
+from talkshow_torch.kernels.nearest_code import (nearest_code_kernel, nearest_code_plain,
+                                                 search_plan)
 from talkshow_torch.ops import vq as vq_ops
 from talkshow_torch.models.layers import init_weights_
 from talkshow_torch.models.pixelcnn import GatedPixelCNN, sample_tokens
@@ -302,21 +303,32 @@ def test_encoder_layers_kernel_reruns_are_bit_equal(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,K,D", [(37, 100, 16), (75, 2048, 64), (2816, 2048, 64)])
+@pytest.mark.parametrize("N,K,D", [(37, 100, 16), (75, 2048, 64), (2816, 2048, 64),
+                                   (1, 2048, 64), (11264, 2048, 64), (75, 2047, 64),
+                                   (2816, 2047, 64), (300, 2048, 16), (300, 2048, 39),
+                                   (75, 5000, 64), (2816, 5000, 39)])
 def test_nearest_code_kernel_matches_plain(cuda, N, K, D):
+    """Shapes of both tile variants, a ragged last slice (K = 2047), depths
+    that are not a multiple of 4 or 8, and a codebook held in several
+    passes (K = 5000).  Codes K-3..K-1 duplicate codes 0..2, whose slices
+    lie in other CTAs of the cluster: the lower index must win across them."""
     gen = torch.Generator().manual_seed(N)
     emb = (torch.rand((K, D), generator=gen) * 2 - 1) * 0.05
     emb[K - 3:] = emb[:3]                      # duplicated codes: exact ties
     x = 0.05 * torch.randn((N, D), generator=gen)
-    x[:3] = emb[:3]
+    n3 = min(N, 3)
+    x[:n3] = emb[:n3]
     x, emb = x.to(cuda), emb.to(cuda)
+    plan = search_plan(N, K, D, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    if plan.cluster > 1:
+        assert (K - 3) // plan.slice != 0      # the twins sit in another CTA's slice
     counts.clear()
     idx = vq_ops.nearest_code(x, emb)
     torch.cuda.synchronize()
     assert counts["nearest_code"] == 1 and counts["nearest_code_plain"] == 0
     assert idx.dtype == torch.int64 and idx.shape == (N,)
-    assert torch.equal(idx, vq_ops.nearest_code(x, emb))
-    assert idx[:3].tolist() == [0, 1, 2]       # the lower index wins a tie
+    assert torch.equal(idx, vq_ops.nearest_code(x, emb))   # reruns bit-equal
+    assert idx[:n3].tolist() == list(range(n3))   # the lower index wins a tie
     e2 = (emb * emb).sum(1)
     dist = -2.0 * (x @ emb.T) + e2[None]
     top2 = dist.topk(2, dim=1, largest=False).values
@@ -324,6 +336,32 @@ def test_nearest_code_kernel_matches_plain(cuda, N, K, D):
     assert bool((dist.gather(1, idx[:, None])[:, 0] - top2[:, 0] <= tol).all())
     near = top2[:, 1] - top2[:, 0] <= tol
     assert not bool(((idx != nearest_code_plain(x, emb, e2)) & ~near).any())
+
+
+@pytest.mark.cuda
+def test_nearest_code_kernel_unaligned_rows(cuda):
+    """Rows whose base is not 16-byte aligned (a view at an odd offset) are
+    searched through an aligned copy, with the same indices."""
+    gen = torch.Generator().manual_seed(5)
+    emb = ((torch.rand((2048, 64), generator=gen) * 2 - 1) * 0.05).to(cuda)
+    x = (0.05 * torch.randn(75 * 64 + 1, generator=gen)).to(cuda)[1:].view(75, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert torch.equal(nearest_code_kernel(x, emb), nearest_code_kernel(x.clone(), emb))
+
+
+@pytest.mark.cuda
+def test_nearest_code_kernel_raises_without_fallback(cuda):
+    """D > 64 and non-contiguous rows raise; nothing falls back to the plain
+    version."""
+    emb = torch.zeros((16, 64), device=cuda)
+    counts.clear()
+    with pytest.raises(ValueError):
+        nearest_code_kernel(torch.zeros((4, 65), device=cuda), torch.zeros((16, 65), device=cuda))
+    with pytest.raises(ValueError):
+        nearest_code_kernel(torch.zeros((64, 4), device=cuda).T, emb)
+    with pytest.raises(ValueError):
+        nearest_code_kernel(torch.zeros((4, 64), device=cuda), torch.zeros((64, 16), device=cuda).T)
+    assert counts["nearest_code"] == 0 and counts["nearest_code_plain"] == 0
 
 
 def test_kernels_raise_on_cpu_tensors():
