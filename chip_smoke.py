@@ -27,13 +27,17 @@ Phases (one line each; any failure raises and the script exits non-zero):
                 Philox seed (bf16 tables) bit-equal in tokens and logits
   4 main     Pipeline.create(seed, device="cuda") at full width: generate()
              on a synthetic 10 s 16 kHz wav for S in {1, 8}; (S, 300, 265)
-             finite output, the kernel launched, the plain sampler not
-             called; then a 1 s clip against the same weights on the CPU
-             (f32 tables, shared noise): equal tokens, motion within 1e-3
+             finite output; K1 launched and the plain sampler not called; the
+             face stage through K3 and K2 (one launch each per call, bf16
+             tables), the plain face stage not called; then a 1 s clip against
+             the same weights on the CPU (f32 decode and face tables, shared
+             noise): equal tokens, motion within 1e-3 (bf16 tables reported)
   5 times    generate() p50 over 10 runs at S=1 and 5 runs at S=8 (CUDA
-             events, fresh seed per run), the S=1 stages; K1 (bf16 tables,
-             Philox) at B = 1, 8, 32 and H = 75, 25: ms, us per row, us per
-             dependent step (the slope
+             events, fresh seed per run) with the fused face stage, in turns
+             with the same pipeline on the plain face stage (the parent's
+             generate); the S=1 stages (face fused and plain); K1 (bf16
+             tables, Philox) at B = 1, 8, 32 and H = 75, 25: ms, us per row,
+             us per dependent step (the slope
              between H = 75 and 25 over the steps of a row) and the launch's
              shape, and where a row's time goes (the kernel's %globaltimer
              probe, `decode_timeline`); the K1 decode against the plain
@@ -67,8 +71,7 @@ Phases (one line each; any failure raises and the script exits non-zero):
              replayed from a captured CUDA graph) and, at B = 1 and 8, the
              device time of one K2 and one K3 call by kernel (torch.profiler)
              with the device-idle share of the call (1 - device time / CUDA-event
-             wall time), each beside the card (phase 5's "face" stage is the
-             plain Pipeline.generate_face)
+             wall time), each beside the card
  10 K4       the nearest-code kernel against its plain version at full width
              (codebook 2048 x 64 and 2047 x 64, N in {1, 75, 2816}; each shape's
              plan: tile rows, cluster, CTAs): two runs equal bit for bit, exact
@@ -101,7 +104,28 @@ Phases (one line each; any failure raises and the script exits non-zero):
              and 2816 with the bound share, the kernels one ops/vq.nearest_code
              call launches (torch.profiler; more than one fails); the token
              encode at B = 128; each beside the card
-Then one JSON line of kernels, the nvidia-smi line, and the result line.
+ 13 continuity  generate(continuity=True) at full width on the 10 s clip: K1
+             launched twice, K2 and K3 once, no plain sampler or face stage;
+             (1, 300, 265) finite; the second decode's first gap // 4 rows
+             equal the first decode's tokens; p50 over 5 runs; ms of
+             get_mfcc_sepa against get_mfcc and of the two decodes against one
+ 14 serve    MotionServer(bucket_frames=32, max_batch=8) at full width:
+             warmup(10) and its bucket count; 8 requests of 3-10 s in 4
+             buckets, one flush: (frames, 265) finite each, per group one K1
+             launch at B = 8 and one K2 launch (the plain masked extractor, as
+             in JAX), no plain sampler or face stage; a served clip's face
+             frames (f32 tables) within 1e-3 of its unpadded fused and plain
+             face stages; flush p50 ms, requests/s, audio-seconds/s
+ 15 stream   StreamingSession(chunk_rows=8, context_rows=16) on the 10 s clip
+             fed in 1.07 s chunks: blocks of 32 frames, (300, 265) finite; K1,
+             K2 and K3 launched once at every step; the window's K3 and K2
+             against their plain versions at 32, 64 and 96 frames (f32 within
+             1e-3, bf16 within 1e-2 of max|out|); step p50 and the real-time
+             factor; device time by kernel and the device-idle share of
+             generate (phase 5), a flush and a whole session
+Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
+continuity, the serve flush and the stream, summed; K4: phase 11), the
+nvidia-smi line, and the result line.
 """
 from __future__ import annotations
 
@@ -488,14 +512,13 @@ def phase7(dev) -> float:
     return worst
 
 
-def phase8(face, wav10: torch.Tensor) -> dict:
-    """face_apply_fused against the plain face stage; returns the launches
-    of the kernels over both runs."""
+def phase8(face, wav10: torch.Tensor) -> None:
+    """face_apply_fused against the plain face stage, launch counts read
+    around each call."""
     from talkshow_torch.kernels import counts
     from talkshow_torch.models.wav2vec_fused import face_apply_fused, pack_face_tables
     dev = wav10.device
     t32, t16 = (pack_face_tables(face, dt) for dt in (torch.float32, torch.bfloat16))
-    launches = dict.fromkeys(KERNELS, 0)
     seconds = [10 - i for i in range(8)]
     masked_wave = torch.zeros((8, 160000), device=dev)
     for i, sec in enumerate(seconds):
@@ -510,8 +533,6 @@ def phase8(face, wav10: torch.Tensor) -> dict:
         out = face_apply_fused(face, wave, onehot, 300, tables=t32, **kw)
         torch.cuda.synchronize()
         seen = dict(counts)
-        for k in launches:
-            launches[k] += seen.get(k, 0)
         with torch.no_grad():
             want = face(wave, onehot, 300, **kw)
         err = check_close(f"phase 8 {tag}", out, want, valid, torch.float32)
@@ -524,7 +545,6 @@ def phase8(face, wav10: torch.Tensor) -> dict:
         log(f"phase 8 face {tag}: face_apply_fused f32 tables vs plain face stage max|d| "
             f"{err:.3e} <= 1e-3 on real frames; counts {dict(sorted(seen.items()))}; "
             f"bf16 tables vs plain (f32) max|d| {err16:.3e} (reported)")
-    return launches
 
 
 def kernel_breakdown(fn, reps: int = 3) -> str:
@@ -578,6 +598,14 @@ def device_breakdown(fn, reps: int = 3) -> tuple[float | None, str]:
     total = sum(r[0] for r in rows)
     return total, f"total {total:.3f} ms; " + "; ".join(
         f"{key[:60]}: {ms:.3f} ms / {n:g}" for ms, n, key in rows[:8])
+
+
+def idle_line(fn, wall_ms: float, reps: int = 3) -> str:
+    """fn()'s device time by kernel (torch.profiler) and its device-idle
+    share, 1 - device time / wall_ms."""
+    dev_ms, text = device_breakdown(fn, reps)
+    idle = "not measured" if dev_ms is None else f"{1 - dev_ms / wall_ms:.1%}"
+    return f"device idle {idle} of {wall_ms:.2f} ms; {text}"
 
 
 def library_encoder(tables, dtype):
@@ -1014,6 +1042,253 @@ def phase12(train: dict, card: str) -> dict:
     return res
 
 
+def plain_face_pipeline(pipe):
+    """`pipe` with the plain face stage on the card (FaceGenerator.forward,
+    cuDNN / cuBLAS in f32, TF32 off): the parent's `generate`, for timing
+    beside the fused one.  Shares the modules and the decode tables."""
+    import dataclasses
+    other = dataclasses.replace(pipe)
+    other.__dict__["_decode_tables"] = pipe._decode_tables
+
+    def plain(wav, onehot, frames, valid_samples=None, valid_frames=None):
+        with torch.no_grad():
+            return pipe.face_model(wav, onehot, frames, valid_samples, valid_frames)
+
+    other.face_stage = plain
+    return other
+
+
+def generate_p50(pipe, plain, wav: str, S: int, runs: int) -> dict:
+    """(p50, min, max) ms of generate() with the fused and with the plain
+    face stage, CUDA events around each call, a fresh seed per run, the two
+    in turns (fused, plain, plain, fused, ...) after one warm-up call each."""
+    times = {"fused": [], "plain": []}
+    for p in (pipe, plain):
+        p.generate(wav, speaker="oliver", num_samples=S, seed=1)
+    for i in range(runs):
+        order = [("fused", pipe), ("plain", plain)]
+        for name, p in (order if i % 2 == 0 else order[::-1]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            p.generate(wav, speaker="oliver", num_samples=S, seed=100 * S + i)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {k: (float(np.median(v)), min(v), max(v)) for k, v in times.items()}
+
+
+def phase13(pipe, wav10: str, card: str) -> dict:
+    """Continuity at full width on the 10 s clip; returns the launch counts
+    of one generate(continuity=True)."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.ops.audio import get_mfcc_sepa
+    counts.clear()
+    motion = pipe.generate(wav10, speaker="oliver", num_samples=1, seed=13, continuity=True)
+    torch.cuda.synchronize()
+    seen = dict(counts)
+    feat, gap = get_mfcc_sepa(wav10, sr=22000, device=pipe.device)
+    conv, tok0, tok = pipe.generate_conv_continuity(feat, gap, 0, 1, seed=13)
+    h0 = gap // 4
+    if not (seen.get("ar_decode") == 2 and not seen.get("sample_tokens_plain")
+            and seen.get("wav2vec_layers") == 1 and not seen.get("face_plain")
+            and motion.shape == (1, 300, 265) and np.isfinite(motion).all()
+            and tok0.shape[1] == h0 and torch.equal(tok[:, :h0], tok0)
+            and bool(torch.isfinite(conv).all())):
+        raise AssertionError(f"phase 13 continuity: counts {seen}, motion {motion.shape}, "
+                             f"prefix rows kept {torch.equal(tok[:, :h0], tok0)}")
+    times = []
+    for i in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pipe.generate(wav10, speaker="oliver", num_samples=1, seed=300 + i, continuity=True)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    from talkshow_torch.ops.audio import get_mfcc
+    feat1 = get_mfcc(wav10, device=pipe.device)
+    stages = {"get_mfcc_sepa": cuda_ms(lambda: get_mfcc_sepa(wav10, sr=22000,
+                                                             device=pipe.device), 3),
+              "get_mfcc": cuda_ms(lambda: get_mfcc(wav10, device=pipe.device), 3),
+              "generate_conv_continuity": cuda_ms(lambda: pipe.generate_conv_continuity(
+                  feat, gap, 0, 1, seed=14), 3),
+              "generate_conv": cuda_ms(lambda: pipe.generate_conv(feat1, 0, 1, seed=14), 3)}
+    log(f"phase 13 continuity: generate(continuity=True) on the 10 s clip -> {motion.shape}, "
+        f"finite; gap {gap} feature frames, so the second decode's first {h0} of "
+        f"{tok.shape[1]} rows equal the first decode's tokens; counts "
+        f"{dict(sorted(seen.items()))}; p50 {float(np.median(times[1:])):.2f} ms over "
+        f"{len(times) - 1} runs; stages (ms) " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                             stages.items()) + f" [{card}]")
+    return seen
+
+
+#: MotionServer requests of phase 14 (seconds of the 10 s clip): buckets of 32
+#: frames 96, 96, 160, 160, 224, 224, 320, 320
+SERVE_SECONDS = (3.0, 3.2, 5.0, 5.3, 7.0, 7.1, 10.0, 9.8)
+
+
+def phase14(pipe, wav10: str, card: str) -> dict:
+    """MotionServer(bucket_frames=32, max_batch=8) at full width; returns
+    the launch counts of one flush."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models import body as body_mod
+    from talkshow_torch.ops.audio import load_wav
+    from talkshow_torch.serving import MotionServer
+    wav, _ = load_wav(wav10)
+    server = MotionServer(pipe, bucket_frames=32, max_batch=8)
+    t0 = time.perf_counter()
+    n = server.warmup(10.0)
+    log(f"phase 14 serve: warmup(10) ran {n} buckets at max_batch 8 in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    clips = [wav[:int(16000 * sec)] for sec in SERVE_SECONDS]
+    buckets = [-(-(len(c) * 30 // 16000) // 32) * 32 for c in clips]
+    groups = sum(-(-buckets.count(b) // 8) for b in set(buckets))
+    batches, fused = [], body_mod.sample_tokens_fused
+
+    def spy(model, label, audio, **kw):
+        batches.append(audio.shape[0])
+        return fused(model, label, audio, **kw)
+
+    body_mod.sample_tokens_fused = spy
+    try:
+        rids = [server.submit(c, speaker=i % 4) for i, c in enumerate(clips)]
+        counts.clear()
+        out = server.flush(seed=0)
+        torch.cuda.synchronize()
+        seen = dict(counts)
+    finally:
+        body_mod.sample_tokens_fused = fused
+    shapes_ok = all(out[r].shape == (len(c) * 30 // 16000, 265) and np.isfinite(out[r]).all()
+                    for r, c in zip(rids, clips))
+    if not (shapes_ok and len(out) == len(clips) and seen.get("ar_decode") == groups
+            and batches == [8] * groups and seen.get("wav2vec_layers") == groups
+            and seen.get("extractor_plain") == groups and not seen.get("sample_tokens_plain")
+            and not seen.get("face_plain")):
+        raise AssertionError(f"phase 14 serve: shapes ok {shapes_ok}, {groups} groups, decode "
+                             f"batches {batches}, counts {seen}")
+    log(f"phase 14 serve: {len(clips)} requests of {min(SERVE_SECONDS)}-{max(SERVE_SECONDS)} s "
+        f"in buckets {sorted(set(buckets))}, one flush -> (frames, 265) each, finite; "
+        f"{groups} groups, K1 launched once a group at B = {sorted(set(batches))}; counts "
+        f"{dict(sorted(seen.items()))}")
+    # one clip's served face frames against its unpadded face stage, f32 tables
+    p32 = pipe.with_face_dtype(torch.float32)
+    s32 = MotionServer(p32, bucket_frames=32, max_batch=8)
+    clip = clips[3]
+    rid = s32.submit(clip, speaker=0)
+    served = s32.flush(seed=0)[rid]
+    want = p32.generate_face(clip)
+    with torch.no_grad():
+        plain = pipe.face_model(torch.as_tensor(clip, device=pipe.device)[None],
+                                torch.zeros((1, 4), device=pipe.device),
+                                len(clip) * 30 // 16000)[0].cpu().numpy()
+    errs = [max(np.abs(served[:, :3] - w[:, :3]).max(), np.abs(served[:, -100:] - w[:, 3:]).max())
+            for w in (want, plain)]
+    if not max(errs) <= 1e-3:
+        raise AssertionError(f"phase 14 serve face: served vs unpadded max|d| {errs}")
+    log(f"phase 14 serve face: a {SERVE_SECONDS[3]} s clip served in bucket {buckets[3]} "
+        f"(masked, f32 tables) vs its unpadded fused face stage max|d| {errs[0]:.2e}, vs the "
+        f"unpadded plain stage {errs[1]:.2e}, <= 1e-3")
+    del s32, p32
+    times = []
+    for i in range(6):
+        for c in clips:
+            server.submit(c, speaker=0)
+        t0 = time.perf_counter()
+        server.flush()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times[1:]))
+    log(f"phase 14 serve flush of {len(clips)} requests ({groups} groups of 8): p50 {p50:.2f} ms "
+        f"over {len(times) - 1} flushes (min {min(times[1:]):.2f}, max {max(times[1:]):.2f}; "
+        f"host clock, readback included), {len(clips) / p50 * 1e3:.1f} requests/s, "
+        f"{sum(SERVE_SECONDS) / p50 * 1e3:.1f} audio-seconds/s [{card}]")
+
+    def flush():
+        for c in clips:
+            server.submit(c, speaker=0)
+        server.flush()
+
+    log(f"phase 14 serve flush device time by kernel: {idle_line(flush, p50)} [{card}]")
+    return seen
+
+
+def phase15(pipe, wav10: str, card: str) -> dict:
+    """StreamingSession(chunk_rows=8, context_rows=16) on the 10 s clip fed in
+    1.07 s chunks; returns the launch counts of the session."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.kernels import wav2vec_extractor as k3
+    from talkshow_torch.kernels import wav2vec_layers as k2
+    from talkshow_torch.models.wav2vec_fused import pack_face_tables
+    from talkshow_torch.ops.audio import load_wav
+    from talkshow_torch.streaming import StreamingSession, samples_for
+    wav, _ = load_wav(wav10)
+    sess = StreamingSession(pipe, speaker=0, chunk_rows=8, context_rows=16, seed=0)
+    step, per_step, step_ms = sess._step, [], []
+
+    def timed_step():
+        before = dict(counts)
+        t0 = time.perf_counter()
+        out = step()                      # reads the step back: synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before.get(k, 0) for k, v in counts.items()
+                         if v != before.get(k, 0)})
+        return out
+
+    sess._step = timed_step
+    chunk = int(16000 * 1.07)
+    counts.clear()
+    blocks = [sess.feed(wav[i:i + chunk]) for i in range(0, len(wav), chunk)]
+    blocks.append(sess.finish())
+    torch.cuda.synchronize()
+    seen = dict(counts)
+    blocks = [b for b in blocks if b is not None]
+    motion = np.concatenate(blocks)
+    want = {"ar_decode": 1, "wav2vec_layers": 1, "wav2vec_extractor": 1}
+    if not (motion.shape == (300, 265) and np.isfinite(motion).all()
+            and all(b.shape[0] % 32 == 0 for b in blocks[:-1])
+            and all(d == want for d in per_step)):
+        raise AssertionError(f"phase 15 stream: motion {motion.shape}, block frames "
+                             f"{[b.shape[0] for b in blocks]}, per-step counts {per_step}")
+    # the window's K3 and K2 against their plain versions at each window length
+    dev = pipe.device
+    t32 = pack_face_tables(pipe.face_model, torch.float32)
+    notes = []
+    with torch.no_grad():
+        for frames in (32, 64, 96):
+            x = torch.as_tensor(wav[:samples_for(frames)], device=dev)[None]
+            errs = []
+            for dtype, tables in ((torch.float32, t32), (torch.bfloat16, pipe._face_tables)):
+                ext = k3.extractor_kernel(tables["ext"], x)
+                n = ext.shape[1]
+                errs.append(check_close(f"phase 15 K3 {frames} frames {dtype}", ext,
+                                        k3.extractor_plain(tables["ext"], x), [n], dtype))
+                hidden = pipe.face_model.audio_encoder.mid_stack(ext, frames)
+                errs.append(check_close(f"phase 15 K2 {frames} frames {dtype}",
+                                        k2.encoder_layers_kernel(tables["enc"], hidden),
+                                        k2.encoder_layers_plain(tables["enc"], hidden),
+                                        [frames], dtype))
+            notes.append(f"{frames} frames ({x.shape[1]} samples, K3 -> {n} x {ext.shape[2]}): K3 f32 "
+                         f"{errs[0]:.2e}, K2 f32 {errs[1]:.2e} <= 1e-3, K3 bf16 {errs[2]:.2e}, "
+                         f"K2 bf16 {errs[3]:.2e} of max <= 1e-2")
+    p50 = float(np.median(step_ms))
+    chunk_ms = sess.chunk_rows * 4 / 30 * 1e3
+    log(f"phase 15 stream: 10 s fed in {chunk / 16000:.2f} s chunks -> {len(per_step)} steps, "
+        f"blocks {[b.shape[0] for b in blocks]} frames, {motion.shape} finite; every step "
+        f"launched K1, K2 and K3 once ({want}); counts {dict(sorted(seen.items()))}")
+    log("phase 15 stream window kernels vs plain: " + "; ".join(notes))
+    def session():
+        run = StreamingSession(pipe, speaker=0, chunk_rows=8, context_rows=16, seed=1)
+        for i in range(0, len(wav), chunk):
+            run.feed(wav[i:i + chunk])
+        run.finish()
+
+    idle = idle_line(session, cuda_ms(session, 2), reps=2)
+    log(f"phase 15 stream step latency p50 {p50:.2f} ms over {len(step_ms)} steps (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}; host clock, readback included) for "
+        f"{chunk_ms:.1f} ms of audio a step: real-time factor {p50 / chunk_ms:.4f} [{card}]")
+    log(f"phase 15 stream, a whole 10 s session ({len(step_ms)} steps), device time by "
+        f"kernel: {idle} [{card}]")
+    return seen
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1054,59 +1329,59 @@ def main() -> int:
     counts.clear()
     outs = {S: pipe.generate(wav10, speaker="oliver", num_samples=S, seed=S) for S in (1, 8)}
     torch.cuda.synchronize()
+    main_counts = dict(counts)
     launches, plain_calls = counts["ar_decode"], counts["sample_tokens_plain"]
     for S, out in outs.items():
         if out.shape != (S, 300, 265) or not np.isfinite(out).all():
             raise AssertionError(f"phase 4: S={S} output {out.shape}, finite={np.isfinite(out).all()}")
-    if launches < 1 or plain_calls != 0:
-        raise AssertionError(f"phase 4: ar_decode launches {launches}, plain sampler calls {plain_calls}")
+    if (launches < 1 or plain_calls != 0 or counts["wav2vec_layers"] != 2
+            or counts["wav2vec_extractor"] != 2 or counts["face_plain"] != 0):
+        raise AssertionError(f"phase 4: counts {dict(counts)}")
     log(f"phase 4 main: generate S=1 -> {outs[1].shape}, S=8 -> {outs[8].shape}, finite; "
-        f"ar_decode launches {launches}, plain sampler calls {plain_calls}")
+        f"ar_decode launches {launches}, plain sampler calls {plain_calls}; face stage fused: "
+        f"wav2vec_extractor launches {counts['wav2vec_extractor']}, wav2vec_layers launches "
+        f"{counts['wav2vec_layers']}, plain face stage calls {counts['face_plain']}")
 
+    # CUDA with f32 decode and face tables against the CPU: same weights, noise
     ref = Pipeline.create(seed=0, device="cpu")
-    pipe.table_dtype = torch.float32
-    pipe.__dict__.pop("_decode_tables", None)
+    p32 = pipe.with_face_dtype(torch.float32)
+    p32.table_dtype = torch.float32
     from talkshow_torch.ops.audio import get_mfcc
     feat = get_mfcc(wav1, device="cpu").numpy()
     noise = gumbel_noise((feat.shape[0] // 4, 2, 2, FULL["K"]),
                          torch.Generator().manual_seed(5), "cpu")
-    _, tok_gpu = pipe.generate_conv(feat, 0, 2, noise=noise)
+    _, tok_gpu = p32.generate_conv(feat, 0, 2, noise=noise)
     _, tok_cpu = ref.generate_conv(feat, 0, 2, noise=noise)
-    m_gpu = pipe.generate(wav1, speaker=0, num_samples=2, noise=noise)
+    counts.clear()
+    m_gpu = p32.generate(wav1, speaker=0, num_samples=2, noise=noise)
+    torch.cuda.synchronize()
+    ref_counts = dict(counts)
     m_cpu = ref.generate(wav1, speaker=0, num_samples=2, noise=noise)
     dm = float(np.abs(m_gpu - m_cpu).max())
-    if not (torch.equal(tok_gpu.cpu(), tok_cpu) and dm <= 1e-3):
+    if not (torch.equal(tok_gpu.cpu(), tok_cpu) and dm <= 1e-3
+            and ref_counts.get("wav2vec_layers") == 1 and not ref_counts.get("face_plain")):
         raise AssertionError(f"phase 4 reference: tokens equal "
-                             f"{torch.equal(tok_gpu.cpu(), tok_cpu)}, max|dmotion| {dm}")
-    log(f"phase 4 reference: 1 s clip, CUDA (f32 tables) vs CPU on the same weights and "
-        f"noise: tokens equal, max|dmotion| {dm:.2e} <= 1e-3")
-    pipe.table_dtype = torch.bfloat16
-    pipe.__dict__.pop("_decode_tables", None)
-    del ref
+                             f"{torch.equal(tok_gpu.cpu(), tok_cpu)}, max|dmotion| {dm}, "
+                             f"counts {ref_counts}")
+    dm16 = float(np.abs(pipe.generate(wav1, speaker=0, num_samples=2, noise=noise)
+                        - m_cpu).max())
+    log(f"phase 4 reference: 1 s clip, CUDA (f32 decode and face tables, face stage fused) vs "
+        f"CPU on the same weights and noise: tokens equal, max|dmotion| {dm:.2e} <= 1e-3; "
+        f"bf16 decode and face tables vs CPU max|dmotion| {dm16:.2e} (reported)")
+    del ref, p32
 
     # ---- phase 5: times ------------------------------------------------------
     card = card_line()
-    times = []
-    for i in range(11):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        pipe.generate(wav10, speaker="oliver", num_samples=1, seed=100 + i)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    p50 = float(np.median(times[1:]))
-    log(f"phase 5 generate S=1 10 s clip: p50 {p50:.2f} ms over {len(times) - 1} runs "
-        f"(min {min(times[1:]):.2f}, max {max(times[1:]):.2f}) [{card}]")
-    times8 = []
-    for i in range(6):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        pipe.generate(wav10, speaker="oliver", num_samples=8, seed=200 + i)
-        end.record()
-        torch.cuda.synchronize()
-        times8.append(start.elapsed_time(end))
-    log(f"phase 5 generate S=8 10 s clip: p50 {float(np.median(times8[1:])):.2f} ms over "
-        f"{len(times8) - 1} runs (min {min(times8[1:]):.2f}, max {max(times8[1:]):.2f}) [{card}]")
+    plain_face = plain_face_pipeline(pipe)
+    gen_p50 = {}
+    for S, runs in ((1, 10), (8, 5)):
+        t = generate_p50(pipe, plain_face, wav10, S, runs)
+        gen_p50[S] = t["fused"][0]
+        log(f"phase 5 generate S={S} 10 s clip, face stage fused (bf16 tables): p50 "
+            f"{t['fused'][0]:.2f} ms over {runs} runs (min {t['fused'][1]:.2f}, max "
+            f"{t['fused'][2]:.2f}); the same pipeline with the plain face stage (the parent's "
+            f"generate), in turns: p50 {t['plain'][0]:.2f} ms (min {t['plain'][1]:.2f}, max "
+            f"{t['plain'][2]:.2f}) [{card}]")
 
     from talkshow_torch.ops.audio import load_wav
     wav, _ = load_wav(wav10)
@@ -1118,7 +1393,8 @@ def main() -> int:
         tokens = ar_decode.sample_tokens_fused(pipe.body.prior, ids, audio,
                                                tables=pipe._decode_tables)
         stages = {
-            "face": cuda_ms(lambda: pipe.generate_face(wav), 3),
+            "face (fused)": cuda_ms(lambda: pipe.generate_face(wav), 3),
+            "face (plain)": cuda_ms(lambda: plain_face.generate_face(wav), 3),
             "mfcc": cuda_ms(lambda: get_mfcc(wav10, device=dev), 3),
             "audio_encoder": cuda_ms(lambda: pipe.body.audio_enc(x), 3),
             "ar_decode": cuda_ms(lambda: ar_decode.sample_tokens_fused(
@@ -1129,6 +1405,9 @@ def main() -> int:
         }
     log("phase 5 stages S=1 (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
         + f" [{card}]")
+    log("phase 5 generate S=1 device time by kernel: " + idle_line(
+        lambda: pipe.generate(wav10, speaker="oliver", num_samples=1, seed=7), gen_p50[1])
+        + f" [{card}]")
 
     decode = phase5_k1(dev, card)
 
@@ -1136,14 +1415,21 @@ def main() -> int:
     err_k2 = phase6(dev)
     phase6_gemm(dev, card)
     err_k3 = phase7(dev)
-    face_launches = phase8(pipe.face_model, speech(1, 10.0, 0, dev))
+    phase8(pipe.face_model, speech(1, 10.0, 0, dev))
     times = phase9(pipe.face_model, card)
-    del pipe
 
     # ---- phases 10-12: training stage 1 and K4 -----------------------------------
     err_k4 = phase10(dev)
     train = phase11(dev, tmp)
     k4_times = phase12(train, card)
+
+    # ---- phases 13-15: continuity, serving, streaming ------------------------------
+    paths = {"generate": main_counts, "continuity": phase13(pipe, wav10, card),
+             "serve": phase14(pipe, wav10, card), "stream": phase15(pipe, wav10, card)}
+    del pipe
+    path_launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in KERNELS}
+    log("launches on the inference paths: " + "; ".join(
+        f"{p}: " + ", ".join(f"{k} {c.get(k, 0)}" for k in KERNELS[:3]) for p, c in paths.items()))
 
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs
@@ -1167,12 +1453,12 @@ def main() -> int:
     N4, K4, D4 = k4_x.shape[0], TRAIN["codes"], TRAIN["dim"]
     k4_bytes = nbytes(k4_x, k4_times["emb"]) + N4 * 8
     rows = [
-        ("ar_decode", "B=1", ar_decode, launches, max_err, decode[1],
+        ("ar_decode", "B=1", ar_decode, path_launches["ar_decode"], max_err, decode[1],
          bound(k1_bytes, k1_ops), None),
-        ("wav2vec_layers", "B=1", wav2vec_layers, face_launches["wav2vec_layers"], err_k2,
+        ("wav2vec_layers", "B=1", wav2vec_layers, path_launches["wav2vec_layers"], err_k2,
          times[("K2 wav2vec_layers", 1)], bound(k2_bytes, k2_ops([300], 300, enc_t)),
          times[("library", 1)]),
-        ("wav2vec_extractor", "B=1", wav2vec_extractor, face_launches["wav2vec_extractor"],
+        ("wav2vec_extractor", "B=1", wav2vec_extractor, path_launches["wav2vec_extractor"],
          err_k3, times[("K3 wav2vec_extractor", 1)], bound(k3_bytes, k3_ops(1, 160000, ext_t)),
          None),
         # f32 sums, so the f32 peak; no single PyTorch call computes K4 (phase 12 times

@@ -9,6 +9,7 @@ extractor, and the VQ nearest-code search that training stage 1 runs.
     pipe = Pipeline.create(seed=0, device="cuda")
     motion = pipe.generate("speech.wav", speaker="oliver", num_samples=4)
     # motion: (num_samples, T, 265) SMPL-X params @30fps
+    # serving.MotionServer / streaming.StreamingSession wrap a pipeline
 
     python -m talkshow_torch.train --config_file body_vq.json --synthetic
 

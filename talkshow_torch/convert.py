@@ -1,4 +1,5 @@
-"""Weights of the JAX package -> state dicts of the port.
+"""Weights of the JAX package, and the reference's .pth checkpoints ->
+state dicts of the port.
 
 `from_jax(face_vars, body_vars)` takes the flax variable trees of a
 talkshow_tpu Pipeline as numpy arrays (the caller runs
@@ -13,6 +14,19 @@ talkshow_tpu/convert/talkshow.py:107-296 and convert/wav2vec.py:
   flax 1x1 Conv2d / Dense (.., in, out) -> torch Linear (out, in)
   flax attention (C, heads, hd) / (heads, hd, C) -> torch Linear (C, C)
   scale/mean/var                      -> weight/running_mean/running_var
+
+The second half reads the reference TalkSHOW trainer's checkpoints (a
+torch-layout copy of what talkshow_tpu/convert/talkshow.py:27-304 reads):
+`reference_face`, `reference_body_vq` and `reference_body_pixel` take the
+loaded `.pth` object and return the port's state dicts, which
+`Pipeline.from_torch_checkpoints` loads strictly.  The port keeps the
+reference's parameter names, so most keys pass unchanged; what differs is
+DataParallel's `module.` prefixes, the Trainer nesting, the face heads'
+names, the weight-normed positional conv, the PixelCNN's 1x1 convs (the
+port's `nn.Linear`) and mask-A's zeroed kernel row and column, which the
+port leaves out.  `config_from_hf` maps Hugging Face `Wav2Vec2Config`
+fields (an object or a plain dict) to the port's config without
+importing `transformers`.
 """
 from __future__ import annotations
 
@@ -21,6 +35,7 @@ import re
 import numpy as np
 import torch
 
+from talkshow_torch.models.wav2vec import Wav2Vec2Config
 from talkshow_torch.ops.vq import VQState
 
 
@@ -179,3 +194,132 @@ def from_jax(face_vars: dict, body_vars: dict) -> dict:
         "vq_body_state": _vq_state(body_vars["vq_body_state"]),
         "vq_hand_state": _vq_state(body_vars["vq_hand_state"]),
     }
+
+
+# ---------------------------------------------------------------------------
+# reference .pth checkpoints
+# ---------------------------------------------------------------------------
+
+def strip_module_prefix(sd: dict) -> dict:
+    """Drop DataParallel's `module.` from every key."""
+    return {k.replace("module.", ""): v for k, v in sd.items()}
+
+
+def _wrapper(ckpt: dict, key: str) -> dict:
+    """The Trainer file {'generator': wrapper state, 'epoch', 'global_steps'}
+    -> the wrapper's state (one that holds `key`; a bare wrapper state
+    passes unchanged)."""
+    return ckpt if key in ckpt else ckpt["generator"]
+
+
+def _float(sd: dict) -> dict:
+    return {k: (v.float() if v.is_floating_point() else v) for k, v in sd.items()}
+
+
+def reference_vqvae(sd: dict) -> tuple[dict, VQState]:
+    """One reference VQVAE state dict (vqvae_1d.py:168-208) -> (the port's
+    VQVAE state dict, VQState).  The EMA statistics default to zeros where
+    the file has none; the reference does not save the update counter."""
+    sd = strip_module_prefix(sd)
+    emb = sd["vq_layer.embeddings"].float()
+    state = VQState(
+        emb,
+        sd.get("vq_layer.ema_dw.hidden", torch.zeros_like(emb)).float(),
+        sd.get("vq_layer.ema_cluster_size.hidden", torch.zeros(emb.shape[0])).float(),
+        torch.zeros((), dtype=torch.int32))
+    return _float({k: v for k, v in sd.items() if not k.startswith("vq_layer.")}), state
+
+
+def reference_body_vq(ckpt: dict) -> dict:
+    """Reference body-VQ checkpoint {'generator': {'g_body', 'g_hand', ..}}
+    -> {"vq_body", "vq_hand": state dicts, "vq_body_state",
+    "vq_hand_state": VQState}."""
+    gen = _wrapper(ckpt, "g_body")
+    (vb, sb), (vh, sh) = reference_vqvae(gen["g_body"]), reference_vqvae(gen["g_hand"])
+    return {"vq_body": vb, "vq_hand": vh, "vq_body_state": sb, "vq_hand_state": sh}
+
+
+def reference_pixelcnn(sd: dict) -> dict:
+    """gated_pixelcnn_v2.GatedPixelCNN (:90-150) -> the port's GatedPixelCNN
+    state dict: 1x1 Conv2d weights (out, in, 1, 1) become Linear (out, in),
+    `output_conv.0/2` the head's out_hidden / out_logits, and layer 0's
+    mask-A kernels lose their causally zeroed last row (vertical) and last
+    column (horizontal)."""
+    sd = strip_module_prefix(sd)
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("output_conv.0.", "out_hidden.").replace("output_conv.2.", "out_logits.")
+        if k == "layers.0.vert_stack.weight":
+            v = v[:, :, :-1, :]
+        elif k == "layers.0.horiz_stack.weight":
+            v = v[:, :, :, :-1]
+        elif v.dim() == 4 and v.shape[2:] == (1, 1) and "stack" not in k:
+            v = v[:, :, 0, 0]
+        out[k] = v
+    return _float(out)
+
+
+def reference_body_pixel(ckpt: dict) -> dict:
+    """Reference body-pixel checkpoint {'generator': {'generator',
+    'audioencoder', ..}} -> {"prior", "audio_enc": state dicts}."""
+    gen = _wrapper(ckpt, "audioencoder")
+    return {"prior": reference_pixelcnn(gen["generator"]),
+            "audio_enc": _float(strip_module_prefix(gen["audioencoder"]))}
+
+
+_FACE_REF = [(r"^decoder\.0\.", "heads.jaw_cnr."), (r"^decoder\.1\.", "heads.exp_cnr."),
+             (r"^final_out\.0\.", "heads.jaw_out."), (r"^final_out\.1\.", "heads.exp_out."),
+             (r"\.residual_layer\.0\.", ".residual_layer.")]
+
+
+def _weight_norm(sd: dict, prefix: str) -> torch.Tensor:
+    """A weight-normed conv weight (dim=2), either key layout, resolved."""
+    if prefix + ".weight_g" in sd:
+        g, v = sd[prefix + ".weight_g"], sd[prefix + ".weight_v"]
+    else:
+        g = sd[prefix + ".parametrizations.weight.original0"]
+        v = sd[prefix + ".parametrizations.weight.original1"]
+    g, v = g.double(), v.double()
+    return (g * v / v.square().sum(dim=(0, 1), keepdim=True).sqrt()).float()
+
+
+def reference_face(ckpt: dict) -> dict:
+    """Reference face checkpoint ({'generator': {'generator': flat
+    s2g_face.Generator state dict, 'generator_optim': ..}, 'epoch', ..}, or
+    any level of that nesting) -> the port's FaceGenerator state dict."""
+    sd = ckpt
+    while isinstance(sd, dict) and "generator" in sd and not any("." in k for k in sd):
+        sd = sd["generator"]
+    sd = strip_module_prefix(sd)
+    pos = "audio_encoder.encoder.pos_conv_embed.conv"
+    out = {}
+    for k, v in sd.items():
+        if k == "audio_encoder.masked_spec_embed" or k.startswith(pos + ".") and k != pos + ".bias":
+            continue
+        out[_rename(k, _FACE_REF)] = v
+    if pos + ".weight" in sd:
+        out[pos + ".weight"] = sd[pos + ".weight"]
+    else:
+        out[pos + ".weight"] = _weight_norm(sd, pos)
+    return _float(out)
+
+
+def config_from_hf(hf) -> Wav2Vec2Config:
+    """Hugging Face Wav2Vec2Config fields -> the port's Wav2Vec2Config (a
+    copy of talkshow_tpu/convert/wav2vec.py:config_from_hf).  `hf` is a
+    config object or a plain dict of its fields (as
+    tests/fixtures/golden/meta.json holds them); a missing
+    `layer_norm_eps` takes Hugging Face's default, 1e-5."""
+    get = hf.get if isinstance(hf, dict) else (lambda k, d=None: getattr(hf, k, d))
+    return Wav2Vec2Config(
+        hidden_size=get("hidden_size"),
+        num_layers=get("num_hidden_layers"),
+        num_heads=get("num_attention_heads"),
+        intermediate_size=get("intermediate_size"),
+        conv_dim=tuple(get("conv_dim")),
+        conv_kernel=tuple(get("conv_kernel")),
+        conv_stride=tuple(get("conv_stride")),
+        num_conv_pos_embeddings=get("num_conv_pos_embeddings"),
+        num_conv_pos_embedding_groups=get("num_conv_pos_embedding_groups"),
+        layer_norm_eps=get("layer_norm_eps", 1e-5),
+    )

@@ -33,18 +33,21 @@ class BodyModels(NamedTuple):
 def create_body_models(generator: torch.Generator, code_num: int = 2048,
                        embedding_dim: int = 64, num_hiddens: int = 1024,
                        pixel_dim: int = 256, pixel_layers: int = 15,
-                       num_classes: int = 4, device="cuda") -> BodyModels:
+                       num_classes: int = 4, audio_channels: int = 256,
+                       device="cuda") -> BodyModels:
     """Random-init every body-stage module from `generator` (shapes per the
-    reference config/body_pixel.json).  The VQ encoders, which inference
+    reference config/body_pixel.json; `audio_channels` is the audio
+    encoder's width, JAX's `AudioEncoder(num_hiddens=)`, which the prior
+    reads).  The VQ encoders, which inference
     does not run, draw their weights last, so every other module gets the
     draws it got before they were ported."""
     st_b = vq_ops.init_vq_state(generator, code_num, embedding_dim, device)
     st_h = vq_ops.init_vq_state(generator, code_num, embedding_dim, device)
     vq_body = VQVAE(BODY_DIM, embedding_dim, num_hiddens)
     vq_hand = VQVAE(HAND_DIM, embedding_dim, num_hiddens)
-    audio_enc = AudioEncoder(64, num_hiddens=256)
+    audio_enc = AudioEncoder(64, num_hiddens=audio_channels)
     prior = GatedPixelCNN(input_dim=code_num, dim=pixel_dim, n_layers=pixel_layers,
-                          n_classes=num_classes, audio_channels=256)
+                          n_classes=num_classes, audio_channels=audio_channels)
     for m in (vq_body.decoder, vq_hand.decoder, audio_enc, prior,
               vq_body.encoder, vq_hand.encoder):
         init_weights_(m, generator)

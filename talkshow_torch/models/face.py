@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from talkshow_torch.kernels import counts
 from talkshow_torch.models.layers import CNR1d, SeqTranslator1D, length_mask
 from talkshow_torch.models.wav2vec import Wav2Vec2Config, Wav2Vec2Encoder
 
@@ -72,7 +73,9 @@ class FaceGenerator(nn.Module):
     def forward(self, waveform, id_onehot, time_steps: int,
                 valid_samples=None, valid_frames=None):
         """valid_samples / valid_frames (B,) select the length-masked path:
-        real frames equal the unpadded program's (Wav2Vec2Encoder)."""
+        real frames equal the unpadded program's (Wav2Vec2Encoder).  This is
+        the plain stage: each call adds one to counts["face_plain"]."""
+        counts["face_plain"] += 1
         hidden = self.audio_encoder(waveform, time_steps, valid_samples, valid_frames)
         return self.from_features(hidden, id_onehot, valid_frames)
 

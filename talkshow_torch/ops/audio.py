@@ -1,6 +1,6 @@
 """Audio front end: wav loading, sinc resampling and MFCC, in PyTorch.
 
-Port of talkshow_tpu/ops/audio.py:39-244.  The numpy builders (polyphase
+Port of talkshow_tpu/ops/audio.py:39-257.  The numpy tables (polyphase
 resampling kernel, periodic Hann window, HTK mel filterbank, orthonormal
 DCT-II) are copied, not imported, and tests/test_torch_ops.py holds them
 equal to the originals.  Everything after `load_wav` runs on the device of
@@ -119,7 +119,9 @@ def dct_matrix(n_mfcc: int = N_MFCC, n_mels: int = N_MELS) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def resample(x: torch.Tensor, orig_freq: int, new_freq: int) -> torch.Tensor:
-    """Resample a 1-D waveform; matches torchaudio.transforms.Resample defaults.
+    """Resample each row of a waveform (..., T) on its own; matches
+    torchaudio.transforms.Resample defaults (the JAX package vmaps its 1-D
+    version over a batch the same way).
 
     The polyphase kernel runs as one strided conv with `new` output
     channels; interleaving the channels gives the output samples in order.
@@ -127,13 +129,13 @@ def resample(x: torch.Tensor, orig_freq: int, new_freq: int) -> torch.Tensor:
     if orig_freq == new_freq:
         return x
     kernel, width, orig, new = _resample_kernel(orig_freq, new_freq)
-    length = x.shape[-1]
-    xp = F.pad(x.reshape(1, 1, -1), (width, width + orig))
+    lead, length = x.shape[:-1], x.shape[-1]
+    xp = F.pad(x.reshape(-1, 1, length), (width, width + orig))
     w = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
-    y = F.conv1d(xp, w, stride=orig)              # (1, new, n)
-    y = y[0].T.reshape(-1)                        # interleave the phases
+    y = F.conv1d(xp, w, stride=orig)              # (N, new, n)
+    y = y.transpose(1, 2).reshape(y.shape[0], -1)  # interleave the phases
     target_len = int(math.ceil(new * length / orig))
-    return y[:target_len]
+    return y[:, :target_len].reshape(lead + (target_len,))
 
 
 def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -189,3 +191,18 @@ def get_mfcc(audio_fn: str, sr: int = 22000, fps: int = 30,
     if sr0 != sr:
         x = resample(x, sr0, sr)
     return mfcc(x, sr, fps=fps)
+
+
+def get_mfcc_sepa(audio_fn: str, sr: int = 16000, fps: int = 30,
+                  device: torch.device | str = "cuda") -> tuple[torch.Tensor, int]:
+    """Two-segment MFCC of the continuity path (reference utils.py:234-263,
+    JAX ops/audio.py:247-257): the waveform is split at 2 s and each part
+    featurized on its own.  Returns (features (T0 + T1, 64) on `device`,
+    gap = T0)."""
+    x, sr0 = load_wav(audio_fn)
+    x = torch.as_tensor(x, device=device)
+    if sr0 != sr:
+        x = resample(x, sr0, sr)
+    a = mfcc(x[: sr * 2], sr, fps=fps)
+    b = mfcc(x[sr * 2:], sr, fps=fps)
+    return torch.cat([a, b], dim=0), a.shape[0]

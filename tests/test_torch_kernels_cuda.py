@@ -23,7 +23,10 @@ except on near-tie rows (best and second-best distances within
 1e-5 (1 + |best|)), and every pick lies within that tolerance of the row's
 minimum distance.  The Hopper GEMM that K2 and K3 share is held alone to
 torch.matmul on the same bf16 operands in f32 (TF32 off): only the order of
-the f32 sums differs, so within 1e-4 of max|C|.
+the f32 sums differs, so within 1e-4 of max|C|.  A short MotionServer
+flush on the card (f32 tables) serves the motion of the same flush on the
+CPU, on the same weights and noise, within 1e-3 (chip_smoke.py phase 4's
+tolerance for `generate`).
 """
 import numpy as np
 import pytest
@@ -158,6 +161,11 @@ W2V_SHAPES = {  # name: (config, B, T frames, N samples)
                   conv_dim=(32, 32, 32), conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2)),
              3, 37, 3001),
     "full": ({}, 2, 300, 160000),
+    # StreamingSession's windows at chunk_rows=8, context_rows=16: 32, 64
+    # and 96 frames of ceil(frames * 16000 / 30) samples, B = 1
+    "stream32": ({}, 1, 32, 17067),
+    "stream64": ({}, 1, 64, 34134),
+    "stream96": ({}, 1, 96, 51200),
 }
 
 
@@ -362,6 +370,57 @@ def test_nearest_code_kernel_raises_without_fallback(cuda):
     with pytest.raises(ValueError):
         nearest_code_kernel(torch.zeros((4, 64), device=cuda), torch.zeros((64, 16), device=cuda).T)
     assert counts["nearest_code"] == 0 and counts["nearest_code_plain"] == 0
+
+
+@pytest.mark.cuda
+def test_served_flush_on_the_card(cuda, monkeypatch):
+    """MotionServer at toy widths: per group one K1 launch at B = max_batch
+    and one K2 launch (the masked face stage runs the plain masked
+    extractor), never the plain sampler or the plain face stage; the
+    served motion equals the CPU server's within 1e-3."""
+    from talkshow_torch.models import body as body_mod
+    from talkshow_torch.pipeline import Pipeline
+    from talkshow_torch.serving import MotionServer
+    cfg = Wav2Vec2Config(**W2V_SHAPES["tiny"][0])
+    kw = dict(num_hiddens=64, pixel_dim=16, pixel_layers=3, code_num=32)
+    gpu = Pipeline.create(3, cuda, cfg, **kw).with_face_dtype(torch.float32)
+    gpu.table_dtype = torch.float32
+    cpu = Pipeline.create(3, "cpu", cfg, **kw)
+    gen, blocks = torch.Generator().manual_seed(0), {}
+
+    def noise(*key):
+        if key not in blocks:
+            u = torch.rand((key[-1], 2, 4, 32), generator=gen).clamp_min(1e-30)
+            blocks[key] = -torch.log(-torch.log(u))
+        return blocks[key]
+
+    batches = []
+    fused = body_mod.sample_tokens_fused
+
+    def spy(model, label, audio, **k):
+        batches.append(audio.shape[0])
+        return fused(model, label, audio, **k)
+
+    monkeypatch.setattr(body_mod, "sample_tokens_fused", spy)
+    rng = np.random.default_rng(0)
+    wavs = [(rng.standard_normal(int(16000 * sec)) * 0.1).astype(np.float32)
+            for sec in (0.5, 0.9, 0.4, 1.0, 0.3)]             # buckets 16, 32, 16, 32, 16
+    out = {}
+    for name, pipe in (("gpu", gpu), ("cpu", cpu)):
+        server = MotionServer(pipe, bucket_frames=16, max_batch=4, noise=noise)
+        rids = [server.submit(w, speaker=i % 4) for i, w in enumerate(wavs)]
+        counts.clear()
+        batches.clear()
+        res = server.flush(seed=1)
+        out[name] = ([res[r] for r in rids], dict(counts), list(batches))
+    seen = out["gpu"][1]
+    assert out["gpu"][2] == [4, 4]
+    assert seen.get("ar_decode") == 2 and seen.get("wav2vec_layers") == 2
+    assert seen.get("extractor_plain") == 2
+    assert not seen.get("sample_tokens_plain") and not seen.get("face_plain")
+    for g, c in zip(out["gpu"][0], out["cpu"][0]):
+        assert g.shape == c.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g, c, atol=1e-3)
 
 
 def test_kernels_raise_on_cpu_tensors():

@@ -1,6 +1,7 @@
 """Port ops (talkshow_torch/ops) against the JAX package: copied tables are
 equal to the originals; part2full and resample to atol 1e-5; mfcc to
-1e-3 dB (torch.fft.rfft against jnp.fft)."""
+1e-3 dB (torch.fft.rfft against jnp.fft), and to the native C++
+featurizer at its own test's tolerance."""
 import wave
 
 import numpy as np
@@ -62,6 +63,17 @@ def test_resample(freqs):
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
+def test_resample_rows_on_their_own():
+    """A batch (2, 3, T) resamples each row as the JAX package's 1-D
+    resample does (the server vmaps it over its group)."""
+    x = np.random.default_rng(2).standard_normal((2, 3, 1601)).astype(np.float32)
+    out = taudio.resample(torch.as_tensor(x), 16000, 22000).numpy()
+    for idx in np.ndindex(2, 3):
+        ref = np.asarray(jaudio.resample(jnp.asarray(x[idx]), 16000, 22000))
+        assert out[idx].shape == ref.shape
+        np.testing.assert_allclose(out[idx], ref, atol=1e-5)
+
+
 def _clip(seed, n=22000, amp=0.3):
     rng = np.random.default_rng(seed)
     t = np.arange(n) / 22000.0
@@ -84,6 +96,20 @@ def test_mfcc_batch_keeps_a_floor_per_clip():
     for i, c in enumerate(clips):
         ref = np.asarray(jaudio.mfcc(jnp.asarray(c), 22000))
         np.testing.assert_allclose(out[i], ref, atol=1e-3)
+
+
+def test_mfcc_matches_the_native_featurizer():
+    """The port's mfcc against the JAX package's C++ featurizer
+    (talkshow_tpu/native.py:native_mfcc), at that featurizer's own test
+    tolerance (tests/test_native.py)."""
+    from talkshow_tpu import native
+    if not native.available():
+        pytest.skip("native library could not be built")
+    x = _clip(6, n=44000, amp=1.0)
+    ours = taudio.mfcc(torch.as_tensor(x), 22000, fps=30).numpy()
+    ref = native.native_mfcc(x, 22000, fps=30)
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, atol=2e-3, rtol=1e-4)
 
 
 def test_get_mfcc_and_load_wav(tmp_path):

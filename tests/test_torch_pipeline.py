@@ -1,11 +1,12 @@
 """The port's whole slice against the JAX package: Pipeline.generate on one
 synthetic wav with the same weights and the same sampling noise gives the
-same tokens and the same motion (atol 1e-4); importing the port pulls in no
-JAX."""
+same tokens and the same motion (atol 1e-4), and so do the continuity
+decode and the bucketed `generate_body(pad_to_bucket=)`; `get_mfcc_sepa`
+equals JAX's (1e-3 dB, as tests/test_torch_ops.py holds `mfcc`); the
+port's own weights file round-trips; importing the port pulls in no JAX."""
 import os
 import subprocess
 import sys
-import wave
 
 import numpy as np
 import jax
@@ -13,86 +14,35 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from talkshow_tpu.models.body import BodyModels
-from talkshow_tpu.models.face import FaceGenerator
-from talkshow_tpu.models.pixelcnn import GatedPixelCNN
-from talkshow_tpu.models.vqvae import VQVAE, AudioEncoder
-from talkshow_tpu.models.wav2vec import Wav2Vec2Config as JCfg
-from talkshow_tpu.ops.pose import BODY_DIM, HAND_DIM
-from talkshow_tpu.ops.vq import init_vq_state
-from talkshow_tpu.pipeline import Pipeline as JPipeline
-from talkshow_torch.convert import from_jax
+from talkshow_tpu.ops import audio as jaudio
 from talkshow_torch.kernels import counts
 from talkshow_torch.models.body import generate_conv_poses
 from talkshow_torch.models.pixelcnn import sample_tokens
 from talkshow_torch.models.wav2vec import Wav2Vec2Config
 from talkshow_torch.ops import audio as taudio
-from talkshow_torch.pipeline import Pipeline
+from talkshow_torch.ops.pose import C_INDEX_3D
+from talkshow_torch.pipeline import Pipeline, load_pipeline, save_pipeline
+from test_torch_harness import BODY, TINY, jax_noise, jax_noise_from_key, pipeline_pair, write_wav
 
 torch.set_num_threads(2)
 
-TINY = dict(hidden_size=32, num_layers=1, num_heads=4, intermediate_size=64,
-            conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2),
-            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
-BODY = dict(num_hiddens=64, pixel_dim=16, pixel_layers=3, code_num=64)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _jax_pipeline(seed):
-    """JPipeline.create(seed, wav2vec_cfg=TINY, **BODY) with every flax init
-    under jit: the same random weights, without op-by-op dispatch (~20 s)."""
-    r_face, r_body = jax.random.split(jax.random.PRNGKey(seed))
-    face = FaceGenerator(wav2vec_cfg=JCfg(**TINY))
-    face_vars = jax.jit(face.init, static_argnums=3)(
-        r_face, jnp.zeros((1, 3200)), jnp.zeros((1, 4)), 6)
-    r = jax.random.split(r_body, 6)
-    vq_b = VQVAE(in_dim=BODY_DIM, embedding_dim=64, num_hiddens=BODY["num_hiddens"])
-    vq_h = VQVAE(in_dim=HAND_DIM, embedding_dim=64, num_hiddens=BODY["num_hiddens"])
-    st_b = init_vq_state(r[0], BODY["code_num"], 64)
-    st_h = init_vq_state(r[1], BODY["code_num"], 64)
-    audio_enc = AudioEncoder(num_hiddens=256)
-    prior = GatedPixelCNN(input_dim=BODY["code_num"], dim=BODY["pixel_dim"],
-                          n_layers=BODY["pixel_layers"], n_classes=4, audio=True,
-                          bh_model=True)
-    body = BodyModels(
-        vq_b, vq_h,
-        jax.jit(vq_b.init)(r[2], jnp.zeros((1, 88, BODY_DIM)), st_b),
-        jax.jit(vq_h.init)(r[3], jnp.zeros((1, 88, HAND_DIM)), st_h),
-        st_b, st_h, audio_enc,
-        jax.jit(audio_enc.init)(r[4], jnp.zeros((1, 88, 64))),
-        prior,
-        jax.jit(prior.init)(r[5], jnp.zeros((1, 22, 2), jnp.int32),
-                            jnp.zeros((1,), jnp.int32), jnp.zeros((1, 22, 256))))
-    return JPipeline(face, face_vars, body)
 
 
 @pytest.fixture(scope="module")
 def pipes():
-    jp = _jax_pipeline(0)
-    tp = Pipeline.create(1, "cpu", wav2vec_cfg=Wav2Vec2Config(**TINY), **BODY)
-    tp.load_converted(from_jax(jax.tree.map(np.asarray, jp.face_vars),
-                               jax.tree.map(np.asarray, jp._body_arrays)))
-    return jp, tp
+    return pipeline_pair(0)
 
 
 @pytest.fixture(scope="module")
 def wav_file(tmp_path_factory):
-    t = np.arange(24000) / 16000.0
-    x = 0.3 * np.sin(2 * np.pi * 180 * t) + 0.05 * np.random.default_rng(0).standard_normal(t.shape)
-    path = str(tmp_path_factory.mktemp("wav") / "speech.wav")
-    with wave.open(path, "wb") as w:
-        w.setnchannels(1)
-        w.setsampwidth(2)
-        w.setframerate(16000)
-        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
-    return path
+    return write_wav(str(tmp_path_factory.mktemp("wav") / "speech.wav"), 1.5)
 
 
-def _jax_noise(seed, H, S, K):
-    """JAX's sampling noise for Pipeline.generate(seed): the gumbel block
-    sample_tokens draws from PRNGKey(seed) (pixelcnn.py:306-315)."""
-    keys01 = jax.vmap(jax.random.split)(jax.random.split(jax.random.PRNGKey(seed), H))
-    return np.array(jax.vmap(jax.vmap(lambda k: jax.random.gumbel(k, (S, K))))(keys01))
+@pytest.fixture(scope="module")
+def long_wav(tmp_path_factory):
+    """Longer than the 2 s split of the continuity path."""
+    return write_wav(str(tmp_path_factory.mktemp("wav") / "long.wav"), 3.2, seed=1, freq=240.0)
 
 
 def test_generate_matches_jax(pipes, wav_file):
@@ -100,7 +50,7 @@ def test_generate_matches_jax(pipes, wav_file):
     S, seed, K = 2, 3, BODY["code_num"]
     feat = taudio.get_mfcc(wav_file, device="cpu").numpy()
     H = feat.shape[0] // 4
-    noise = torch.as_tensor(_jax_noise(seed, H, S, K))
+    noise = torch.as_tensor(jax_noise(seed, H, S, K))
 
     _, j_tok = jp._body_fn(jp._body_arrays, jp._decode_tables,
                            jnp.asarray(feat)[None].repeat(S, 0),
@@ -148,12 +98,116 @@ def test_batches_over_32_decode_in_chunks(pipes):
     np.testing.assert_array_equal(tokens.numpy(), want.numpy())
 
 
+def test_generate_face_routes_plain_on_cpu(pipes, wav_file):
+    """On the CPU the face stage is the plain one and no tables are packed;
+    with_face_dtype keeps the modules and changes only the table type."""
+    _, tp = pipes
+    counts.clear()
+    tp.generate(wav_file, only_face=True)
+    assert counts["face_plain"] == 1 and counts["wav2vec_layers"] == 0
+    assert tp._face_tables is None
+    p32 = tp.with_face_dtype(torch.float32)
+    assert p32.face_model is tp.face_model and p32.face_dtype == torch.float32
+    assert tp.face_dtype == torch.bfloat16
+
+
+def test_get_mfcc_sepa_matches_jax(long_wav):
+    feat, gap = taudio.get_mfcc_sepa(long_wav, sr=22000, device="cpu")
+    ref, ref_gap = jaudio.get_mfcc_sepa(long_wav, sr=22000)
+    assert gap == ref_gap and feat.shape == ref.shape
+    np.testing.assert_allclose(feat.numpy(), ref, atol=1e-3)
+    feat16, gap16 = taudio.get_mfcc_sepa(long_wav, device="cpu")   # JAX's default, 16 kHz
+    ref16, ref_gap16 = jaudio.get_mfcc_sepa(long_wav)
+    assert gap16 == ref_gap16
+    np.testing.assert_allclose(feat16.numpy(), ref16, atol=1e-3)
+
+
+def test_continuity_matches_jax(pipes, long_wav):
+    """generate(continuity=True): the first 2 s sampled, then the whole grid
+    with them as a teacher-forced prefix.  JAX splits PRNGKey(seed) into
+    one key a decode; the port takes the two blocks those keys draw."""
+    jp, tp = pipes
+    S, seed, speaker = 2, 4, 2
+    feat, gap = taudio.get_mfcc_sepa(long_wav, sr=22000, device="cpu")
+    h0, H = gap // 4, feat.shape[0] // 4
+    r0, r1 = jax.random.split(jax.random.PRNGKey(seed))
+    noise = (torch.as_tensor(jax_noise_from_key(r0, h0, S, BODY["code_num"])),
+             torch.as_tensor(jax_noise_from_key(r1, H, S, BODY["code_num"])))
+
+    counts.clear()
+    _, tok0, tok = tp.generate_conv_continuity(feat, gap, speaker, S, noise=noise)
+    assert counts["sample_tokens_plain"] == 2
+    assert tok0.shape == (S, h0, 2) and tok.shape == (S, H, 2)
+    np.testing.assert_array_equal(tok[:, :h0].numpy(), tok0.numpy())
+    ids = jnp.full((S,), speaker, jnp.int32)
+    jf = jnp.asarray(feat.numpy())[None].repeat(S, 0)
+    _, j_tok0 = jp._body_fn(jp._body_arrays, jp._decode_tables, jf[:, :gap], ids, r0)
+    prefix = jnp.zeros((S, H, 2), jnp.int32).at[:, :h0].set(j_tok0)
+    _, j_tok = jp._body_prefix_fn(jp._body_arrays, jp._decode_tables, jf, ids, r1, prefix, h0)
+    np.testing.assert_array_equal(tok0.numpy(), np.asarray(j_tok0))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(j_tok))
+
+    ref = jp.generate(long_wav, speaker=speaker, num_samples=S, seed=seed, continuity=True)
+    out = tp.generate(long_wav, speaker=speaker, num_samples=S, noise=noise, continuity=True)
+    assert out.shape == ref.shape == (S, 96, 265)
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_pad_to_bucket_matches_jax(pipes, wav_file):
+    """generate_body(pad_to_bucket=8): features padded to 32-frame
+    multiples, tail cropped; JAX's noise covers the padded rows."""
+    jp, tp = pipes
+    S, seed, bucket = 2, 6, 8
+    feat = taudio.get_mfcc(wav_file, device="cpu").numpy()[:43]     # not a multiple of 4
+    Hp = -(-43 // (4 * bucket)) * bucket
+    noise = torch.as_tensor(jax_noise(seed, Hp, S, BODY["code_num"]))
+    ref = np.asarray(jp.generate_body(feat, 3, S, seed, pad_to_bucket=bucket))
+    out = tp.generate_body(feat, 3, S, noise=noise, pad_to_bucket=bucket)
+    assert out.shape == ref.shape == (S, 40, 129)
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_norm_stats_denormalize_the_body(pipes, wav_file, tmp_path):
+    """with_norm_stats, as a tuple over the 165 pose channels or a
+    norm_stats.npy path, denormalizes the conv channels (JAX's
+    _denorm_conv slicing)."""
+    _, tp = pipes
+    rng = np.random.default_rng(3)
+    mean, std = rng.standard_normal(165).astype(np.float32), rng.random(165).astype(np.float32)
+    feat = taudio.get_mfcc(wav_file, device="cpu").numpy()
+    plain = tp.generate_body(feat, 0, 1, seed=2)
+    np.save(tmp_path / "norm_stats.npy", np.stack([mean, std]))
+    for stats in ((mean, std), str(tmp_path / "norm_stats.npy")):
+        out = tp.with_norm_stats(stats).generate_body(feat, 0, 1, seed=2)
+        np.testing.assert_allclose(out, plain * std[C_INDEX_3D] + mean[C_INDEX_3D], atol=1e-6)
+    assert tp.norm_stats is None
+
+
+def test_save_load_pipeline_round_trip(pipes, wav_file, tmp_path):
+    _, tp = pipes
+    path = str(tmp_path / "pipe.pt")
+    save_pipeline(tp, path)
+    other = Pipeline.create(9, "cpu", wav2vec_cfg=Wav2Vec2Config(**TINY), **BODY)
+    loaded = load_pipeline(path, template=other)
+    for name, m in tp._modules().items():
+        got = loaded._modules()[name].state_dict()
+        assert all(torch.equal(v, got[k]) for k, v in m.state_dict().items())
+    for a, b in zip(tp.body.vq_body_state + tp.body.vq_hand_state,
+                    loaded.body.vq_body_state + loaded.body.vq_hand_state):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(loaded.generate(wav_file, num_samples=1, seed=1),
+                                  tp.generate(wav_file, num_samples=1, seed=1))
+
+
 def test_import_pulls_in_no_jax():
-    code = ("import sys, talkshow_torch.pipeline, talkshow_torch.kernels.ar_decode, "
-            "talkshow_torch.models.wav2vec_fused, talkshow_torch.kernels.wav2vec_layers, "
-            "talkshow_torch.kernels.wav2vec_extractor; "
+    """Every module of the port, and chip_smoke.py, imports without JAX,
+    flax, transformers or the JAX package."""
+    code = ("import sys, pkgutil, importlib, talkshow_torch, chip_smoke; "
+            "[importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(talkshow_torch.__path__, 'talkshow_torch.')]; "
+            "import talkshow_torch.pipeline, talkshow_torch.serving, talkshow_torch.streaming; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-            "'talkshow_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+            "'transformers', 'talkshow_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
