@@ -123,9 +123,41 @@ Phases (one line each; any failure raises and the script exits non-zero):
              1e-3, bf16 within 1e-2 of max|out|); step p50 and the real-time
              factor; device time by kernel and the device-idle share of
              generate (phase 5), a flush and a whole session
+ 16 train-pixel  python -m talkshow_torch.train (its main()) for s2g_body_pixel at
+             full width (batch 128, window 88, prior 256 x 15 over 2048 codes,
+             audio encoder 256) on phase 11's ckpt-0.pt, 2 epochs of >= 10
+             steps: every logged value finite; K4 twice per batch that missed
+             the token cache and per batch of the epoch-end fill (the windows
+             no batch brought), none in epoch 2, the plain search never;
+             cached token grids (brought and filled) equal a fresh encode bit
+             for bit; ckpt-0 + epoch 2 equals
+             the uninterrupted run bit for bit; one step from one state on
+             CUDA against the CPU (B = 8, TF32 off, the same tokens and
+             dropout mask): ce_loss and grad norm within 1e-4 relative, prior
+             gradients within 1e-3 of max|g|, audio-encoder gradients within
+             2e-2 (batch-statistics BatchNorm, as phase 11's encoder),
+             BatchNorm statistics within 1e-4, parameters within 2 lr and at
+             least 99 % within 1e-2 lr
+ 17 train-face  main() for s2g_face at full width (wav2vec 2.0 base, 12 x 768,
+             with the face heads) on the CLI's synthetic 8 s raw clips: whole
+             clips at batch 1 for 2 epochs, K3 (f32 tables) once a step and the
+             plain extractor never; then --face_bucket 32 --face_batch_size 2
+             through the plain masked extractor (extractor_plain counted);
+             logged values finite, the extractor's parameters bit-equal to
+             their init and without .grad; ckpt-0 + epoch 2 bit-equal to the
+             uninterrupted run; one step CUDA against CPU at stochastic=False
+             (losses and grad norm within 1e-4 relative, gradients within
+             1e-3 of max|g|, parameters within 1e-5 of max|p|); K3's frozen
+             features within 1e-3 of max|out| of the plain extractor
+ 18 times    the body-pixel step p50 and windows/s with cached tokens (warm)
+             and encoding in the step (cold), the encode's share and device
+             time by kernel of each; the face step p50 at batch 1 on the 8 s
+             clip with the frozen extractor on K3 and on the plain extractor
+             in turns, and its device-idle share; both steps with TF32 on,
+             for the record; each beside the card
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
-continuity, the serve flush and the stream, summed; K4: phase 11), the
-nvidia-smi line, and the result line.
+continuity, the serve flush and the stream, summed, and K3 in phase 17;
+K4: phases 11 and 16), the nvidia-smi line, and the result line.
 """
 from __future__ import annotations
 
@@ -148,6 +180,13 @@ HBM_BYTES_S, BF16_FLOP_S, F32_FLOP_S = 3.35e12, 989e12, 67e12
 KERNELS = ("ar_decode", "wav2vec_layers", "wav2vec_extractor", "nearest_code")
 #: stage-1 training at full width (talkshow_tpu/config.py:21,60-62,79)
 TRAIN = dict(batch=128, window=88, num_hiddens=1024, codes=2048, dim=64)
+#: stage-2 training at full width: batch and window as stage 1, the prior of
+#: Pipeline.create (dim 256 x 15 layers over 2048 codes), a 256-wide audio
+#: encoder (talkshow_tpu/config.py:63-65, scripts/train.py:146-151)
+PIXEL = dict(dim=256, layers=15, codes=2048, audio=256)
+#: stage-3 training: wav2vec 2.0 base (layers, hidden) with the face heads on
+#: the CLI's synthetic raw clips of 240-269 frames (scripts/train.py:76-99)
+FACE_WIDTH = (12, 768)
 
 
 def log(msg: str) -> None:
@@ -760,15 +799,25 @@ def phase10(dev) -> float:
     return worst
 
 
-def write_train_config(path: str) -> None:
-    """A reference-format stage-1 config at full width: batch 128, window 88."""
+def write_stage_config(path: str, model_name: str, epochs: int) -> None:
     cfg = {"Data": {"pose": {"generate_length": TRAIN["window"]}},
-           "Model": {"model_name": "s2g_body_vq", "code_num": TRAIN["codes"]},
+           "Model": {"model_name": model_name, "code_num": TRAIN["codes"],
+                     "encoder_choice": "faceformer" if model_name == "s2g_face" else "mfcc"},
            "DataLoader": {"batch_size": TRAIN["batch"]},
-           "Train": {"epochs": 1, "learning_rate": {"generator_learning_rate": 1e-4}},
-           "Log": {"save_every": 1, "print_every": 5, "name": "body-vq"}}
+           "Train": {"epochs": epochs, "learning_rate": {"generator_learning_rate": 1e-4}},
+           "Log": {"save_every": 1, "print_every": 5, "name": model_name}}
     with open(path, "w") as f:
         json.dump(cfg, f)
+
+
+def logged_values(run_dir: str) -> list:
+    """Every number train.log and history.json hold."""
+    import re
+    with open(os.path.join(run_dir, "train.log")) as f:
+        vals = [float(v) for line in f for _, v in re.findall(r"(\w+)=(\S+)", line)]
+    with open(os.path.join(run_dir, "history.json")) as f:
+        vals += [v for h in json.load(f) for k, v in h.items() if k != "epoch"]
+    return vals
 
 
 def flat_state(state) -> dict:
@@ -784,7 +833,6 @@ def phase11(dev, tmp: str) -> dict:
     point at full width; resume; one step CUDA against CPU; the token
     encode.  Returns what phase 12 times and the K4 launch count."""
     import copy
-    import re
 
     from talkshow_torch.kernels import counts
     from talkshow_torch.kernels.nearest_code import code_norms, nearest_code_plain
@@ -795,7 +843,7 @@ def phase11(dev, tmp: str) -> dict:
     from talkshow_torch.train.steps import (PARTS, conv_channels, make_body_vq_step,
                                             make_token_encoder, part_losses)
     cfg = os.path.join(tmp, "body_vq.json")
-    write_train_config(cfg)
+    write_stage_config(cfg, "s2g_body_vq", 1)
     run_a, run_b = os.path.join(tmp, "run_a"), os.path.join(tmp, "run_b")
     argv = ["--config_file", cfg, "--synthetic", "--epochs", "1", "--device", str(dev)]
     counts.clear()
@@ -807,11 +855,7 @@ def phase11(dev, tmp: str) -> dict:
     if (steps < 10 or width != TRAIN["num_hiddens"] or seen.get("nearest_code", 0) != 2 * steps
             or seen.get("nearest_code_plain", 0)):
         raise AssertionError(f"phase 11: {steps} steps, width {width}, counts {seen}")
-    with open(os.path.join(run_a, "train.log")) as f:
-        logged = [float(v) for line in f for _, v in re.findall(r"(\w+)=(\S+)", line)]
-    with open(os.path.join(run_a, "history.json")) as f:
-        hist = json.load(f)
-    logged += [v for h in hist for k, v in h.items() if k != "epoch"]
+    logged = logged_values(run_a)
     ckpt = os.path.join(run_a, "ckpt-0.pt")
     if not (logged and all(math.isfinite(v) for v in logged) and os.path.isfile(ckpt)):
         raise AssertionError(f"phase 11: logged values {logged[:12]}, checkpoint "
@@ -1289,6 +1333,348 @@ def phase15(pipe, wav10: str, card: str) -> dict:
     return seen
 
 
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    """Two nested state dicts equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(states_equal(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(states_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def grad_errors(cpu_models: dict, gpu_models: dict) -> dict:
+    """max |g_gpu - g_cpu| / max|g_cpu| per model."""
+    out = {}
+    for name, mc in cpu_models.items():
+        pg = dict(gpu_models[name].named_parameters())
+        gmax = max(p.grad.abs().max().item() for p in mc.parameters() if p.grad is not None)
+        out[name] = max((pg[k].grad.cpu() - p.grad).abs().max().item()
+                        for k, p in mc.named_parameters() if p.grad is not None) / gmax
+    return out
+
+
+def phase16(dev, tmp: str, vq_ckpt: str) -> dict:
+    """Stage-2 training through `python -m talkshow_torch.train`'s entry
+    point at full width on phase 11's checkpoint; the token cache; resume;
+    one step CUDA against CPU.  Returns what phase 18 times and K4's
+    launches."""
+    from talkshow_torch.config import Config
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.pixelcnn import draw_aud_keep
+    from talkshow_torch.train.__main__ import frozen_vqs, main as train_main
+    cfg = os.path.join(tmp, "body_pixel.json")
+    write_stage_config(cfg, "s2g_body_pixel", 2)
+    run_a, run_b = os.path.join(tmp, "pixel_a"), os.path.join(tmp, "pixel_b")
+    argv = ["--config_file", cfg, "--synthetic", "--device", str(dev), "--vq_ckpt", vq_ckpt]
+    counts.clear()
+    t0 = time.time()
+    trainer = train_main(argv + ["--epochs", "1", "--run_dir", run_a])
+    torch.cuda.synchronize()
+    e1, steps1, t1 = dict(counts), trainer.global_step, time.time() - t0
+    prior, audio = trainer.state.models["prior"], trainer.state.models["audio"]
+    width = (prior.dim, prior.n_layers, prior.input_dim, audio._enc_3.conv.out_channels)
+    # every batch of epoch 1 misses; the epoch then encodes the windows no
+    # batch brought (the jitter's other offsets, the ragged tail) in
+    # batches of 128
+    keys = trainer.dataset.window_keys()
+    fills = -(-(len(keys) - TRAIN["batch"] * steps1) // TRAIN["batch"])
+    if (steps1 < 10 or width != (PIXEL["dim"], PIXEL["layers"], PIXEL["codes"], PIXEL["audio"])
+            or e1.get("nearest_code", 0) != 2 * (steps1 + fills)
+            or e1.get("nearest_code_plain", 0) or set(trainer._token_cache) != set(keys)):
+        raise AssertionError(f"phase 16 epoch 1: {steps1} steps, widths {width}, counts {e1}, "
+                             f"{fills} fill batches")
+    seen = set(trainer._token_cache)
+    misses = sum(not all(tuple(map(int, k)) in seen for k in b["window_key"])
+                 for b in trainer.batch_iter(1))
+    counts.clear()
+    t0 = time.time()
+    trainer.train(epochs=2)
+    torch.cuda.synchronize()
+    e2, steps2, t2 = dict(counts), trainer.global_step - steps1, time.time() - t0
+    if (e2.get("nearest_code", 0) != 2 * misses or e2.get("nearest_code_plain", 0)
+            or not e2.get("nearest_code", 0) < e1["nearest_code"]):
+        raise AssertionError(f"phase 16 epoch 2: {misses} batches missed the cache, counts {e2}")
+    logged = logged_values(run_a)
+    if not (logged and all(math.isfinite(v) for v in logged)):
+        raise AssertionError(f"phase 16: logged values {logged[:12]}")
+    log(f"phase 16 train-pixel: python -m talkshow_torch.train s2g_body_pixel on "
+        f"{os.path.relpath(vq_ckpt, tmp)}, batch {TRAIN['batch']}, window {TRAIN['window']}, "
+        f"prior {PIXEL['dim']} x {PIXEL['layers']} over {PIXEL['codes']} codes, audio encoder "
+        f"{PIXEL['audio']}: epoch 1 {steps1} steps in {t1:.1f} s, nearest_code launches "
+        f"{e1['nearest_code']} = 2 x ({steps1} missed batches + {fills} batches filling the "
+        f"cache with the {len(keys) - TRAIN['batch'] * steps1} windows no batch brought, of "
+        f"{len(keys)}); epoch 2 {steps2} steps in {t2:.1f} s, {misses} batches missed, "
+        f"nearest_code launches {e2.get('nearest_code', 0)}; plain search calls 0; "
+        f"{len(logged)} logged values all finite")
+    # cached tokens against a fresh encode of the same windows: windows a
+    # batch brought, and windows the fill encoded
+    first = next(iter(trainer.batch_iter(0)))
+    brought = [tuple(map(int, k)) for k in first["window_key"]]
+    in_batches = {tuple(map(int, k)) for b in trainer.batch_iter(0) for k in b["window_key"]}
+    filled = [k for k in keys if k not in in_batches][:TRAIN["batch"]]
+    for group in (brought, filled):
+        cached = torch.as_tensor(np.stack([trainer._token_cache[k] for k in group]))
+        poses = np.stack([trainer.dataset.window_poses(k) for k in group])
+        fresh = trainer.token_encoder(trainer.put_batch({"poses": poses})["poses"]).cpu()
+        if not torch.equal(cached, fresh):
+            raise AssertionError("phase 16: cached tokens differ from a fresh encode")
+    cached = torch.as_tensor(np.stack([trainer._token_cache[k] for k in brought]))
+    # resume from epoch 1's checkpoint through epoch 2 (its cache refills)
+    resumed = train_main(argv + ["--epochs", "2", "--run_dir", run_b, "--resume",
+                                 os.path.join(run_a, "ckpt-0.pt")])
+    if not (resumed.global_step == trainer.global_step
+            and states_equal(resumed.state.state_dict(), trainer.state.state_dict())):
+        raise AssertionError("phase 16: resume + epoch 2 differs from the uninterrupted run")
+    log(f"phase 16 cache and resume: the cached token grids of a batch's {len(brought)} "
+        f"windows and of {len(filled)} filled ones equal a fresh encode bit for bit; ckpt-0 + epoch 2 ({steps2} steps, cache "
+        f"refilled) equals the uninterrupted run bit for bit (parameters, BatchNorm "
+        f"statistics, Adam moments)")
+    del resumed
+
+    # one step from one state, CUDA against CPU (B = 8, full width, TF32 off,
+    # the same tokens and dropout mask)
+    from talkshow_torch.models.pixelcnn import GatedPixelCNN
+    from talkshow_torch.models.vqvae import AudioEncoder
+    from talkshow_torch.train.steps import make_body_pixel_step
+
+    def fresh_state(device):
+        vb, vh, sts = frozen_vqs(Config.from_reference_json(cfg), vq_ckpt)
+        init, step = make_body_pixel_step(
+            GatedPixelCNN(input_dim=PIXEL["codes"], dim=PIXEL["dim"], n_layers=PIXEL["layers"]),
+            AudioEncoder(num_hiddens=PIXEL["audio"]), vb, vh, sts, 1e-4, 5.0)
+        return init(torch.Generator().manual_seed(16), device), step
+
+    batch = trainer.put_batch({k: first[k][:8] for k in ("poses", "aud_feat", "speaker")})
+    tokens = cached[:8]
+    keep = draw_aud_keep(8, tokens.shape[1], torch.Generator().manual_seed(17), "cpu")
+    cpu_batch = {"tokens": tokens, "aud_feat": batch["aud_feat"].cpu(),
+                 "speaker": batch["speaker"].cpu(), "aud_keep": keep}
+    gpu_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    (s_cpu, step_cpu), (s_gpu, step_gpu) = fresh_state("cpu"), fresh_state(dev)
+    _, mc = step_cpu(s_cpu, cpu_batch)
+    _, mg = step_gpu(s_gpu, gpu_batch)
+    rel = max(abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k])) for k in ("ce_loss", "grad"))
+    g_err = grad_errors(s_cpu.models, s_gpu.models)
+    p_err, within, total, stat_err = 0.0, 0, 0, 0.0
+    for name, mcpu in s_cpu.models.items():
+        pg = dict(s_gpu.models[name].named_parameters())
+        for k, p in mcpu.named_parameters():
+            d = (pg[k].detach().cpu() - p.detach()).abs()
+            p_err = max(p_err, d.max().item())
+            within += int((d <= 1e-2 * 1e-4).sum())
+            total += d.numel()
+        bg = s_gpu.models[name].state_dict()
+        stat_err = max([stat_err] + [(bg[k].cpu() - v).abs().max().item()
+                                     for k, v in mcpu.state_dict().items()
+                                     if k.endswith(("running_mean", "running_var"))])
+    share = within / total
+    # Adam's first step moves each parameter by about lr sign(g): only those
+    # whose gradient is rounding noise (conv biases under batch-statistics
+    # BatchNorm) may take another sign on the card
+    if not (rel <= 1e-4 and g_err["prior"] <= 1e-3 and g_err["audio"] <= 2e-2
+            and stat_err <= 1e-4 and p_err <= 2e-4 * (1 + 1e-3) and share >= 0.99):
+        raise AssertionError(f"phase 16 CUDA vs CPU: loss/norm rel {rel}, gradients {g_err}, "
+                             f"statistics {stat_err}, params {p_err}, share {share}")
+    log(f"phase 16 CUDA vs CPU, one step from one state (B=8, full width, TF32 off, the same "
+        f"tokens and dropout mask): ce_loss and grad norm within {rel:.2e} relative <= 1e-4; "
+        f"prior gradients within {g_err['prior']:.2e} of max|g| <= 1e-3, audio-encoder "
+        f"gradients (three levels of batch-statistics BatchNorm) {g_err['audio']:.2e} <= 2e-2; "
+        f"BatchNorm statistics within {stat_err:.2e} <= 1e-4; parameters within {p_err:.2e} "
+        f"<= 2 lr, {share:.4%} within 1e-2 lr >= 99 %")
+    del s_cpu, s_gpu
+    return dict(trainer=trainer, batch=first,
+                launches=e1.get("nearest_code", 0) + e2.get("nearest_code", 0))
+
+
+def phase17(dev, tmp: str) -> dict:
+    """Stage-3 training through the CLI's entry point at full width on the
+    synthetic 8 s raw clips: whole clips (K3), bucketed (the plain masked
+    extractor), resume, one step CUDA against CPU, K3's frozen features.
+    Returns what phase 18 times and K3's launches."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.kernels import wav2vec_extractor as k3
+    from talkshow_torch.models.face import FaceGenerator
+    from talkshow_torch.models.wav2vec_fused import frozen_features
+    from talkshow_torch.train.__main__ import main as train_main
+    from talkshow_torch.train.steps import make_face_step
+    cfg = os.path.join(tmp, "face.json")
+    write_stage_config(cfg, "s2g_face", 2)
+    runs = {k: os.path.join(tmp, f"face_{k}") for k in ("a", "b", "c")}
+    argv = ["--config_file", cfg, "--synthetic", "--device", str(dev)]
+    init0, _ = make_face_step(FaceGenerator())
+    ext0 = init0(torch.Generator().manual_seed(0), "cpu").face.audio_encoder \
+        .feature_extractor.state_dict()
+    counts.clear()
+    t0 = time.time()
+    trainer = train_main(argv + ["--run_dir", runs["a"]])
+    torch.cuda.synchronize()
+    seen, steps, wall = dict(counts), trainer.global_step, time.time() - t0
+    face = trainer.state.face
+    enc = face.audio_encoder
+    shapes = [b["waveform"].shape for b in trainer.batch_iter(0)]
+    ext1 = enc.feature_extractor.state_dict()
+    frozen = all(torch.equal(v.cpu(), ext0[k]) for k, v in ext1.items()) and all(
+        p.grad is None and not p.requires_grad for p in enc.feature_extractor.parameters())
+    logged = logged_values(runs["a"])
+    width = (enc.cfg.num_layers, enc.cfg.hidden_size)
+    if (width != FACE_WIDTH or steps != 2 * len(shapes)
+            or seen.get("wav2vec_extractor", 0) != steps or seen.get("extractor_plain", 0)
+            or seen.get("face_plain", 0) or trainer.state.tables["w0"].dtype != torch.float32
+            or not frozen or not all(math.isfinite(v) for v in logged)):
+        raise AssertionError(f"phase 17 whole clips: widths {width}, {steps} steps, counts "
+                             f"{seen}, extractor frozen {frozen}, logged {logged[:12]}")
+    log(f"phase 17 train-face: python -m talkshow_torch.train s2g_face, wav2vec 2.0 base "
+        f"{width[0]} x {width[1]} with the face heads, {len(shapes)} whole clips of "
+        f"{shapes[0][1] / 16000:.2f} s at batch 1, 2 epochs: {steps} steps in {wall:.1f} s; "
+        f"wav2vec_extractor (K3, f32 tables) launches {seen['wav2vec_extractor']} = 1 a step, "
+        f"plain extractor calls 0; the extractor's parameters bit-equal to their init, no "
+        f".grad; {len(logged)} logged values all finite")
+    counts.clear()
+    bucketed = train_main(argv + ["--run_dir", runs["b"], "--epochs", "1", "--face_bucket",
+                                  "32", "--face_batch_size", "2"])
+    torch.cuda.synchronize()
+    seen_b = dict(counts)
+    shapes_b = [b["gt"].shape[:2] for b in bucketed.batch_iter(0)]
+    logged_b = logged_values(runs["b"])
+    if (seen_b.get("extractor_plain", 0) != bucketed.global_step
+            or seen_b.get("wav2vec_extractor", 0) or not all(math.isfinite(v) for v in logged_b)):
+        raise AssertionError(f"phase 17 bucketed: counts {seen_b}, logged {logged_b[:12]}")
+    log(f"phase 17 train-face --face_bucket 32 --face_batch_size 2: batches {shapes_b} "
+        f"(clips, frames), {bucketed.global_step} steps through the plain masked extractor "
+        f"(extractor_plain {seen_b['extractor_plain']}, K3 0, as JAX and serving); "
+        f"{len(logged_b)} logged values all finite")
+    del bucketed
+    resumed = train_main(argv + ["--run_dir", runs["c"], "--resume",
+                                 os.path.join(runs["a"], "ckpt-0.pt")])
+    if not (resumed.global_step == trainer.global_step
+            and states_equal(resumed.state.state_dict(), trainer.state.state_dict())):
+        raise AssertionError("phase 17: resume + epoch 2 differs from the uninterrupted run")
+    log(f"phase 17 resume: ckpt-0 + epoch 2 ({len(shapes)} steps, SpecAugment and dropout "
+        f"from per-step generators) equals the uninterrupted run bit for bit")
+    del resumed
+
+    # K3's frozen features against the plain extractor module, 8 s clip
+    first = next(iter(trainer.batch_iter(0)))
+    wav = torch.as_tensor(first["waveform"], device=dev)
+    with torch.no_grad():
+        want = enc.feature_extractor(wav)
+    got = frozen_features(enc, wav, tables=trainer.state.tables)
+    f_err = (got - want).abs().max().item() / want.abs().max().item()
+    if not (f_err <= 1e-3 and not got.requires_grad and got.shape == want.shape):
+        raise AssertionError(f"phase 17 K3 features: {f_err} of max, shape {tuple(got.shape)}")
+
+    # one step from one state, CUDA against CPU (stochastic=False, TF32 off)
+    def fresh_state(device):
+        init, step = make_face_step(FaceGenerator(), stochastic=False)
+        return init(torch.Generator().manual_seed(17), device), step
+
+    cpu_batch = {k: torch.as_tensor(v) for k, v in first.items()}
+    (s_cpu, step_cpu), (s_gpu, step_gpu) = fresh_state("cpu"), fresh_state(dev)
+    _, mc = step_cpu(s_cpu, cpu_batch)
+    _, mg = step_gpu(s_gpu, {k: v.to(dev) for k, v in cpu_batch.items()})
+    rel = max(abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+              for k in ("loss", "MSELoss", "exp_loss", "grad"))
+    g_err = grad_errors({"face": s_cpu.face}, {"face": s_gpu.face})["face"]
+    sc, sg = s_cpu.face.state_dict(), s_gpu.face.state_dict()
+    top = max(v.abs().max().item() for v in sc.values())
+    p_err = max((sg[k].cpu() - v).abs().max().item() for k, v in sc.items()) / top
+    if not (rel <= 1e-4 and g_err <= 1e-3 and p_err <= 1e-5):
+        raise AssertionError(f"phase 17 CUDA vs CPU: rel {rel}, gradients {g_err}, "
+                             f"params {p_err}")
+    log(f"phase 17 CUDA vs CPU, one step from one state (stochastic=False, TF32 off, the "
+        f"{shapes[0][1] / 16000:.2f} s clip; K3 on the card, its plain version on the CPU): "
+        f"losses and grad norm within {rel:.2e} relative <= 1e-4; gradients within "
+        f"{g_err:.2e} of max|g| <= 1e-3; parameters within {p_err:.2e} of max|p| <= 1e-5 (SGD "
+        f"moves each by lr times its gradient); K3's frozen features vs the plain extractor "
+        f"{f_err:.2e} of max|out| <= 1e-3")
+    del s_cpu, s_gpu
+    return dict(trainer=trainer, batch=first, launches=seen["wav2vec_extractor"],
+                k3_err=f_err)
+
+
+def step_p50(fn, runs: int = 10) -> tuple[float, float, float]:
+    """(p50, min, max) ms of fn() over runs after one warm-up, CUDA events
+    around each call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), min(times), max(times)
+
+
+def phase18(pixel: dict, face: dict, card: str) -> None:
+    """Times of both training steps, each beside the card."""
+    from talkshow_torch.train import steps as steps_mod
+    tr = pixel["trainer"]
+    gen = torch.Generator(device=tr.device).manual_seed(18)
+    warm = tr.device_batch(dict(pixel["batch"]), [])          # cached tokens
+    cold = tr.put_batch({k: pixel["batch"][k] for k in ("poses", "aud_feat", "speaker")})
+    rows = {}
+    for name, batch in (("cold", cold), ("warm", warm)):
+        rows[name] = step_p50(lambda: tr.step_fn(tr.state, batch, gen))
+    enc_ms = cuda_ms(lambda: tr.token_encoder(cold["poses"]), 10)
+    log(f"phase 18 body-pixel step B={TRAIN['batch']} T={TRAIN['window']}: p50 "
+        f"{rows['warm'][0]:.2f} ms (min {rows['warm'][1]:.2f}, max {rows['warm'][2]:.2f}) with "
+        f"cached tokens (warm), {TRAIN['batch'] / rows['warm'][0] * 1e3:.1f} windows/s; "
+        f"{rows['cold'][0]:.2f} ms (min {rows['cold'][1]:.2f}, max {rows['cold'][2]:.2f}) "
+        f"encoding in the step (cold), the encode {1 - rows['warm'][0] / rows['cold'][0]:.1%} "
+        f"of it; the encode alone {enc_ms:.2f} ms [{card}]")
+    for name, batch in (("cold", cold), ("warm", warm)):
+        log(f"phase 18 body-pixel step ({name}) device time by kernel: " + idle_line(
+            lambda: tr.step_fn(tr.state, batch, gen), rows[name][0], reps=2) + f" [{card}]")
+
+    ft = face["trainer"]
+    fbatch = ft.put_batch(dict(face["batch"]))
+    fgen = torch.Generator(device=ft.device).manual_seed(18)
+    k3_step = lambda: ft.step_fn(ft.state, fbatch, fgen)       # noqa: E731
+    fused = steps_mod.frozen_features
+
+    def plain_features(encoder, waveform, valid_samples=None, *, tables):
+        with torch.no_grad():
+            return encoder.feature_extractor(waveform, valid_samples)
+
+    def plain_step():
+        steps_mod.frozen_features = plain_features
+        try:
+            return ft.step_fn(ft.state, fbatch, fgen)
+        finally:
+            steps_mod.frozen_features = fused
+
+    # in turns: plain, K3, K3, plain
+    p1, f1, f2, p2 = (step_p50(f, 20) for f in (plain_step, k3_step, k3_step, plain_step))
+    secs = fbatch["waveform"].shape[1] / 16000
+    enc = ft.state.face.audio_encoder
+    wav = fbatch["waveform"]
+    ext = {"K3": lambda: fused(enc, wav, tables=ft.state.tables),
+           "plain": lambda: plain_features(enc, wav, tables=None)}
+    e1, k1, k2, e2 = (cuda_ms(ext[k], 20) for k in ("plain", "K3", "K3", "plain"))
+    log(f"phase 18 face step B=1, {secs:.2f} s clip: p50 {f1[0]:.2f} / {f2[0]:.2f} ms with the "
+        f"frozen extractor on K3 (f32 tables), {p1[0]:.2f} / {p2[0]:.2f} ms with the plain "
+        f"extractor (cuDNN), in turns, 20 steps each; the frozen extractor alone: K3 "
+        f"{k1:.3f} / {k2:.3f} ms, plain {e1:.3f} / {e2:.3f} ms [{card}]")
+    log(f"phase 18 face step (K3) device time by kernel: "
+        f"{idle_line(k3_step, (f1[0] + f2[0]) / 2, reps=2)} [{card}]")
+    # for the record only: TF32 on (not the port's setting)
+    cudnn = torch.backends.cudnn
+    torch.backends.cuda.matmul.allow_tf32 = cudnn.allow_tf32 = True
+    try:
+        tf_pixel = step_p50(lambda: tr.step_fn(tr.state, warm, gen), 5)
+        tf_face = step_p50(k3_step, 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = cudnn.allow_tf32 = False
+    log(f"phase 18 with TF32 on, for the record: body-pixel step (warm) p50 {tf_pixel[0]:.2f} ms, "
+        f"face step (K3) p50 {tf_face[0]:.2f} ms [{card}]")
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1431,6 +1817,16 @@ def main() -> int:
     log("launches on the inference paths: " + "; ".join(
         f"{p}: " + ", ".join(f"{k} {c.get(k, 0)}" for k in KERNELS[:3]) for p, c in paths.items()))
 
+    # ---- phases 16-18: training stages 2 and 3 (K4 on cache misses, K3 frozen) ----
+    pixel = phase16(dev, tmp, os.path.join(tmp, "run_a", "ckpt-0.pt"))
+    face = phase17(dev, tmp)
+    phase18(pixel, face, card)
+    path_launches["wav2vec_extractor"] += face["launches"]
+    k4_launches = train["launches"] + pixel["launches"]
+    log(f"launches in training: nearest_code {train['launches']} (stage 1) + "
+        f"{pixel['launches']} (stage 2, cache misses); wav2vec_extractor {face['launches']} "
+        f"(stage 3, whole clips)")
+
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs
     t1 = ar_decode.pack_decode_tables(prior_case(1, 41, dev)[0], torch.bfloat16)
@@ -1463,7 +1859,7 @@ def main() -> int:
          None),
         # f32 sums, so the f32 peak; no single PyTorch call computes K4 (phase 12 times
         # the two-call argmin(addmm) yardstick)
-        ("nearest_code", f"N={N4}", nearest_code, train["launches"], err_k4, (k4_ms, k4_plain),
+        ("nearest_code", f"N={N4}", nearest_code, k4_launches, err_k4, (k4_ms, k4_plain),
          bound(k4_bytes, 2.0 * (N4 + 1) * K4 * D4, F32_FLOP_S), None),
     ]
     for name, shape, _, n, _, (ms, plain_ms), (bms, by), _ in rows:

@@ -146,8 +146,7 @@ def convert_face(variables: dict) -> dict:
         w = a.reshape(-1, a.shape[-1]) if proj == "out" else a.reshape(a.shape[0], -1)
         return {name + "weight": w.T}
 
-    return _convert(variables, _FACE, skip=("audio_encoder.masked_spec_embed",),
-                    special=special)
+    return _convert(variables, _FACE, special=special)
 
 
 def _vq_state(state) -> VQState:
@@ -175,6 +174,57 @@ def from_jax_body_vq_state(state) -> dict:
         out["exp_avg"][part] = convert_vqvae({"params": adam.mu[part]})
         out["exp_avg_sq"][part] = convert_vqvae({"params": adam.nu[part]})
     return out
+
+
+def _find(tree, field: str):
+    """The first node of an optax state (nested tuples, named tuples and
+    dicts) that has `field`."""
+    if hasattr(tree, field):
+        return tree
+    children = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, (tuple, list)) else ())
+    for child in children:
+        found = _find(child, field)
+        if found is not None:
+            return found
+    return None
+
+
+def from_jax_pixel_state(state) -> dict:
+    """A JAX `train.steps.PixelState` (numpy leaves) -> the port's stage-2
+    state, for `train.steps.PixelState.load_converted`.
+
+    Returns {"prior": GatedPixelCNN state dict, "audio": AudioEncoder state
+    dict (params + BatchNorm statistics), "exp_avg", "exp_avg_sq":
+    {"prior", "audio": state dicts of the Adam moments}, "adam_step":
+    optax's count, "nonfinite_count", "step": ints}."""
+    adam = _find(state.opt_state["inner"], "mu")
+    out = {"prior": convert_pixelcnn({"params": state.params["prior"]}),
+           "audio": convert_audio_encoder({"params": state.params["audio"],
+                                           "batch_stats": state.batch_stats["audio"]}),
+           "adam_step": int(np.asarray(adam.count)),
+           "nonfinite_count": int(np.asarray(state.opt_state["nonfinite_count"])),
+           "step": int(np.asarray(state.step))}
+    for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        out[key] = {"prior": convert_pixelcnn({"params": tree["prior"]}),
+                    "audio": convert_audio_encoder({"params": tree["audio"]})}
+    return out
+
+
+def from_jax_face_state(state) -> dict:
+    """A JAX `train.steps.FaceState` (numpy leaves) -> the port's stage-3
+    state, for `train.steps.FaceState.load_converted`.
+
+    Returns {"face": FaceGenerator state dict, "trace": state dict of the
+    SGD momentum of the trained partition (the frozen extractor has none),
+    "nonfinite_count", "step": ints}."""
+    trace = dict(_find(state.opt_state["inner"], "trace").trace)
+    trace["audio_encoder"] = {k: v for k, v in trace["audio_encoder"].items()
+                              if k != "feature_extractor"}
+    return {"face": convert_face({"params": state.params}),
+            "trace": convert_face({"params": trace}),
+            "nonfinite_count": int(np.asarray(state.opt_state["nonfinite_count"])),
+            "step": int(np.asarray(state.step))}
 
 
 def from_jax(face_vars: dict, body_vars: dict) -> dict:
@@ -283,6 +333,18 @@ def _weight_norm(sd: dict, prefix: str) -> torch.Tensor:
     return (g * v / v.square().sum(dim=(0, 1), keepdim=True).sqrt()).float()
 
 
+#: the face state dict's SpecAugment vector (Wav2Vec2Encoder.masked_spec_embed)
+MASKED_SPEC_EMBED = "audio_encoder.masked_spec_embed"
+
+
+def masked_spec_embed_default(face_sd: dict) -> torch.Tensor:
+    """The vector a face state dict without one gets: zeros, as
+    talkshow_tpu/convert/wav2vec.py:63-65 gives a checkpoint that lacks it
+    (inference never reads it)."""
+    bias = face_sd["audio_encoder.feature_projection.projection.bias"]
+    return torch.zeros_like(bias)
+
+
 def reference_face(ckpt: dict) -> dict:
     """Reference face checkpoint ({'generator': {'generator': flat
     s2g_face.Generator state dict, 'generator_optim': ..}, 'epoch', ..}, or
@@ -294,9 +356,11 @@ def reference_face(ckpt: dict) -> dict:
     pos = "audio_encoder.encoder.pos_conv_embed.conv"
     out = {}
     for k, v in sd.items():
-        if k == "audio_encoder.masked_spec_embed" or k.startswith(pos + ".") and k != pos + ".bias":
+        if k.startswith(pos + ".") and k != pos + ".bias":
             continue
         out[_rename(k, _FACE_REF)] = v
+    if MASKED_SPEC_EMBED not in out:
+        out[MASKED_SPEC_EMBED] = masked_spec_embed_default(out)
     if pos + ".weight" in sd:
         out[pos + ".weight"] = sd[pos + ".weight"]
     else:

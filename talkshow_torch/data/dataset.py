@@ -1,15 +1,17 @@
 """SHOW-dataset windowing and pose normalisation, host-side, numpy only.
 
-Copies of talkshow_tpu/data/dataset.py:34-49,158-190,265-318: `Clip`,
-`ShowDataset.train_windows` / `batches` / `whole_clips`,
+Copies of talkshow_tpu/data/dataset.py:34-49,158-318: `Clip`,
+`ShowDataset.train_windows` / `batches` / `face_batches` / `whole_clips`,
 `synthetic_dataset`, `compute_norm_stats`, `normalize_poses` and
-`denormalize_poses`.  For the same seed the windows and batches equal the
-JAX package's bit for bit (tests/test_torch_train.py).  Loading the real
-SHOW layout (`ShowDataset.from_root`) waits until that dataset is in the
-repository (ROADMAP.md).
+`denormalize_poses`; and `synthetic_face_dataset`, the raw-waveform clips
+that scripts/train.py:79-99 makes for the face stage.  For the same seed
+the windows and batches equal the JAX package's bit for bit
+(tests/test_torch_train.py, tests/test_torch_train_face.py).  Loading the
+real SHOW layout (`ShowDataset.from_root`) waits until that dataset is in
+the repository (ROADMAP.md).
 
 Arrays are channels-last: poses (T, 165), expression (T, 100), aud_feat
-(T, 64).
+(T, 64), or (N, 1) raw 16 kHz samples for the face stage.
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ class Clip:
     audio_path: str = ""
 
 
+#: training windows start every STRIDE frames, each moved by 0 or JITTER
+#: frames per epoch (mesh_dataset.py:240-252,337-340)
+STRIDE, JITTER = 6, 3
+
+
 @dataclass
 class ShowDataset:
     clips: list = field(default_factory=list)
@@ -43,8 +50,8 @@ class ShowDataset:
         L = self.generate_length + self.pre_length
         for ci, clip in enumerate(self.clips):
             T = min(clip.poses.shape[0], clip.aud_feat.shape[0])
-            for start in range(0, T - L, 6):
-                s = start + rng.choice([0, 3])
+            for start in range(0, T - L, STRIDE):
+                s = start + rng.choice([0, JITTER])
                 if s + L > clip.poses.shape[0]:
                     s = start
                 aud = clip.aud_feat[s:s + L]
@@ -61,6 +68,24 @@ class ShowDataset:
                     "window_key": np.asarray([ci, s], np.int64),
                 }
 
+    def window_keys(self) -> list:
+        """Every (clip, start) `train_windows` can give, in any epoch: each
+        stride slot at offset 0, and at JITTER where the window fits."""
+        L = self.generate_length + self.pre_length
+        keys = []
+        for ci, clip in enumerate(self.clips):
+            T = min(clip.poses.shape[0], clip.aud_feat.shape[0])
+            for start in range(0, T - L, STRIDE):
+                keys.append((ci, start))
+                if start + JITTER + L <= clip.poses.shape[0]:
+                    keys.append((ci, start + JITTER))
+        return keys
+
+    def window_poses(self, key) -> np.ndarray:
+        """(L, 165) poses of the training window key = (clip, start)."""
+        ci, s = key
+        return self.clips[ci].poses[s:s + self.generate_length + self.pre_length]
+
     def batches(self, batch_size: int, rng: np.random.Generator, shuffle: bool = True):
         """Stacked numpy batches of train windows (drop ragged tail)."""
         samples = list(self.train_windows(rng))
@@ -68,6 +93,62 @@ class ShowDataset:
         for i in range(0, len(samples) - batch_size + 1, batch_size):
             group = [samples[j] for j in order[i:i + batch_size]]
             yield {k: np.stack([g[k] for g in group]) for k in group[0]}
+
+    def face_batches(self, num_classes: int = 4, bucket_frames: int = 0, batch_size: int = 1):
+        """Whole-clip batches for face training (raw 16 kHz clips, aud_feat
+        (N, 1)): {'waveform' (B, N), 'id_onehot' (B, C), 'gt' (B, T, 265)}.
+        Without bucket_frames, one clip a batch.  With it, frame counts
+        (and the audio's length) round up to a multiple of bucket_frames,
+        clips of one bucket are grouped into batches of up to batch_size,
+        padded with zeros, and the batches carry 'valid_samples' and
+        'valid_frames' (B,) int32."""
+        def onehot_for(clip):
+            onehot = np.zeros((num_classes,), np.float32)
+            onehot[SPEAKER_ID[clip.speaker] - 20] = 1.0
+            return onehot
+
+        for clip in self.clips:
+            if clip.aud_feat.shape[-1] != 1:
+                raise ValueError("face_batches needs raw-waveform clips (aud_feat (N, 1))")
+
+        if not bucket_frames:
+            for clip in self.clips:
+                gt = np.concatenate([clip.poses, clip.expression], axis=-1)[None]
+                yield {"waveform": clip.aud_feat.reshape(1, -1),
+                       "id_onehot": onehot_for(clip)[None],
+                       "gt": gt.astype(np.float32)}
+            return
+
+        # samples per frame rounded up, so padded buffers always fit; the
+        # bucket also covers the audio's own length
+        spf = -(-16000 // 30)
+        buckets: dict[int, list] = {}
+        for clip in self.clips:
+            t = clip.poses.shape[0]
+            t_aud = -(-clip.aud_feat.shape[0] // spf)
+            tb = -(-max(t, t_aud) // bucket_frames) * bucket_frames
+            buckets.setdefault(tb, []).append(clip)
+        for tb in sorted(buckets):
+            group = buckets[tb]
+            nb = tb * spf
+            for i in range(0, len(group), batch_size):
+                chunk = group[i:i + batch_size]
+                B = len(chunk)
+                wav = np.zeros((B, nb), np.float32)
+                gt = np.zeros((B, tb, chunk[0].poses.shape[1] + chunk[0].expression.shape[1]),
+                              np.float32)
+                vs = np.zeros((B,), np.int32)
+                vf = np.zeros((B,), np.int32)
+                ids = np.zeros((B, num_classes), np.float32)
+                for j, clip in enumerate(chunk):
+                    n = min(clip.aud_feat.shape[0], nb)
+                    t = clip.poses.shape[0]
+                    wav[j, :n] = clip.aud_feat.reshape(-1)[:n]
+                    gt[j, :t] = np.concatenate([clip.poses, clip.expression], axis=-1)
+                    vs[j], vf[j] = n, t
+                    ids[j] = onehot_for(clip)
+                yield {"waveform": wav, "id_onehot": ids, "gt": gt,
+                       "valid_samples": vs, "valid_frames": vf}
 
     def whole_clips(self):
         """Eval mode: full clips (mesh_dataset.py:246-248)."""
@@ -97,6 +178,24 @@ def synthetic_dataset(num_clips: int = 4, frames: int = 240, seed: int = 0,
             betas=np.zeros(300, np.float32),
         ))
     return ShowDataset(clips)
+
+
+def synthetic_face_dataset(num_clips: int = 4, frames: int = 240, bucketed: bool = False,
+                           seed: int = 0) -> ShowDataset:
+    """`synthetic_dataset` with raw-waveform audio for the face stage, as
+    scripts/train.py:79-99 makes it: without bucketing every clip is cut
+    to the shortest one's frames (one program shape for whole clips); with
+    it clip i loses 7 i frames (lengths a bucket must absorb).  The audio
+    is frames * 16000 // 30 standard-normal samples from
+    np.random.default_rng(0)."""
+    ds = synthetic_dataset(num_clips=num_clips, frames=frames, seed=seed)
+    rng0 = np.random.default_rng(0)
+    tmin = min(c.poses.shape[0] for c in ds.clips)
+    for i, c in enumerate(ds.clips):
+        t = c.poses.shape[0] - 7 * i if bucketed else tmin
+        c.poses, c.expression = c.poses[:t], c.expression[:t]
+        c.aud_feat = rng0.standard_normal((t * 16000 // 30, 1)).astype(np.float32)
+    return ds
 
 
 def compute_norm_stats(dataset: ShowDataset) -> tuple[np.ndarray, np.ndarray]:

@@ -1,9 +1,13 @@
 """Face generator: speech -> jaw pose (3) + expression (100)
-(port of talkshow_tpu/models/face.py:24-114, inference path).
+(port of talkshow_tpu/models/face.py:24-114).
 
 raw 16 kHz waveform -> wav2vec 2.0 (50 Hz -> 30 fps mid-stack) -> Linear
 768->256 -> identity-conditioned conv middle -> jaw and expression conv
 heads.  Output (B, T, 103) = [jaw3 | exp100] at 30 fps.
+
+`forward` is the plain inference stage; `train_forward` is the face step's
+forward from the frozen extractor's features, with SpecAugment's spans and
+the middle's dropout (rate 0.1, JAX :34) given as masks.
 """
 from __future__ import annotations
 
@@ -13,6 +17,17 @@ import torch.nn as nn
 from talkshow_torch.kernels import counts
 from talkshow_torch.models.layers import CNR1d, SeqTranslator1D, length_mask
 from talkshow_torch.models.wav2vec import Wav2Vec2Config, Wav2Vec2Encoder
+
+
+#: train-mode dropout rate at the conv middle's entry (talkshow_tpu/models/face.py:34)
+FACE_DROPOUT = 0.1
+
+
+def draw_drop_keep(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Bool keep mask of the middle's dropout, each element True with
+    probability 1 - FACE_DROPOUT, drawn on the generator's device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (u < 1.0 - FACE_DROPOUT).to(device)
 
 
 class FaceAudioMiddle(nn.Module):
@@ -26,7 +41,12 @@ class FaceAudioMiddle(nn.Module):
         self.first_net = SeqTranslator1D(in_dim + 64, out_dim, min_layers_num=3,
                                          residual=True)
 
-    def forward(self, x, id_onehot, frame_mask=None):
+    def forward(self, x, id_onehot, frame_mask=None, drop_keep=None):
+        """drop_keep (B, T, in_dim) bool: the train-mode dropout of x, kept
+        elements scaled by 1 / (1 - FACE_DROPOUT), as flax's Dropout."""
+        if drop_keep is not None:
+            x = torch.where(drop_keep, x / (1.0 - FACE_DROPOUT), torch.zeros((), dtype=x.dtype,
+                                                                             device=x.device))
         idf = id_onehot[:, None, :].float().expand(x.shape[0], x.shape[1], -1)
         idf = self.id_mlp(idf.transpose(1, 2)).transpose(1, 2)
         return self.first_net(torch.cat([x, idf], dim=-1), frame_mask)
@@ -79,12 +99,23 @@ class FaceGenerator(nn.Module):
         hidden = self.audio_encoder(waveform, time_steps, valid_samples, valid_frames)
         return self.from_features(hidden, id_onehot, valid_frames)
 
-    def from_features(self, hidden, id_onehot, valid_frames=None):
+    def from_features(self, hidden, id_onehot, valid_frames=None, drop_keep=None):
         """Heads on precomputed wav2vec features (B, T, hidden); with
         valid_frames, padded frames are zeroed at every conv's entry through
-        the middle and the heads."""
+        the middle and the heads; drop_keep as FaceAudioMiddle's."""
         frame_mask = None
         if valid_frames is not None:
             frame_mask = length_mask(valid_frames.to(hidden.device), hidden.shape[1])
-        feature = self.audio_middle(self.audio_feature_map(hidden), id_onehot, frame_mask)
+        feature = self.audio_middle(self.audio_feature_map(hidden), id_onehot, frame_mask,
+                                    drop_keep)
         return self.heads(feature, frame_mask)
+
+    def train_forward(self, feats, id_onehot, time_steps: int, valid_samples=None,
+                      valid_frames=None, spec_starts=None, drop_keep=None):
+        """The face step's forward (JAX `__call__` with train and
+        freeze_extractor): `feats` (B, T50, C) are the frozen extractor's
+        features of the waveform; spec_starts / drop_keep: SpecAugment's
+        spans and the middle's dropout (None: that part is off)."""
+        hidden = self.audio_encoder(None, time_steps, valid_samples, valid_frames, feats=feats,
+                                    spec_starts=spec_starts)
+        return self.from_features(hidden, id_onehot, valid_frames, drop_keep)

@@ -156,9 +156,13 @@ class SeqTranslator1D(nn.Module):
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init from `generator`, in parameter-name order: xavier-uniform
     matrices and conv kernels, normal(1) embeddings, zero biases, unit norm
-    scales.  Running statistics keep their defaults (mean 0, var 1)."""
+    scales.  Running statistics keep their defaults (mean 0, var 1), and
+    wav2vec's `masked_spec_embed` its own init (drawn from no generator
+    here, so adding it moved no other weight)."""
     for name, p in module.named_parameters():
         owner, _, leaf = name.rpartition(".")
+        if leaf == "masked_spec_embed":
+            continue
         if isinstance(module.get_submodule(owner), nn.Embedding):
             p.copy_(torch.randn(p.shape, generator=generator))
         elif p.dim() >= 2:

@@ -2,10 +2,12 @@
 (port of talkshow_tpu/models/pixelcnn.py:36-368).
 
 The token grid is (H = T/4, W = 2 = [body, hand]).  `GatedPixelCNN.forward`
-is the teacher-forced full-grid forward.  `sample_tokens` is the cached
-O(H) row-step sampler: the vertical stack is row-causal, so each layer's
-new row needs a one- or two-row cache, and the horizontal stack is
-re-evaluated once per column.  It is the plain PyTorch version of the
+is the teacher-forced full-grid forward; given `aud_keep` it is the train
+forward with the per-row dropout of the audio embedding (rate 0.1, JAX
+:166,202-208), which `draw_aud_keep` draws from a generator.
+`sample_tokens` is the cached O(H) row-step sampler: the vertical stack
+is row-causal, so each layer's new row needs a one- or two-row cache, and
+the horizontal stack is re-evaluated once per column.  It is the plain PyTorch version of the
 CUDA decode kernel (`talkshow_torch/kernels/ar_decode.py`), which the
 wrapper uses for CPU tensors and which chip_smoke.py holds the kernel
 against on the card.
@@ -73,6 +75,18 @@ class GatedMaskedLayer(nn.Module):
         return gate(h_vert + cls), self.horiz(h_vert, x_h, cls)
 
 
+#: train-mode dropout rate of the audio embedding (talkshow_tpu/models/pixelcnn.py:166)
+AUD_DROPOUT = 0.1
+
+
+def draw_aud_keep(batch: int, rows: int, generator: torch.Generator,
+                  device) -> torch.Tensor:
+    """(batch, rows) bool keep mask of the audio dropout, each True with
+    probability 1 - AUD_DROPOUT, drawn on the generator's device."""
+    u = torch.rand((batch, rows), generator=generator, device=generator.device)
+    return (u < 1.0 - AUD_DROPOUT).to(device)
+
+
 class GatedPixelCNN(nn.Module):
     """tokens (B, H, W) int -> logits (B, H, W, input_dim)."""
 
@@ -94,11 +108,19 @@ class GatedPixelCNN(nn.Module):
     def head(self, x: torch.Tensor) -> torch.Tensor:
         return self.out_logits(F.relu(self.out_hidden(x)))
 
-    def forward(self, tokens, label, audio):
-        """Teacher-forced forward. audio: (B, H, audio_channels)."""
+    def forward(self, tokens, label, audio, aud_keep=None):
+        """Teacher-forced forward. audio: (B, H, audio_channels).
+
+        aud_keep (B, H) bool selects the train forward: the audio embedding
+        of row h of example b is kept, scaled by 1 / (1 - AUD_DROPOUT), or
+        zeroed, the same value over both columns and every channel, as
+        JAX multiplies it by `aud_dropout(ones)`."""
         x = self.embedding(tokens)                      # (B, H, W, dim)
         x_v, x_h = x, x
-        aud_e = self.embedding_aud(audio)[:, :, None, :].expand_as(x)
+        aud_e = self.embedding_aud(audio)
+        if aud_keep is not None:
+            aud_e = aud_e * (aud_keep.to(aud_e.dtype) / (1.0 - AUD_DROPOUT))[..., None]
+        aud_e = aud_e[:, :, None, :].expand_as(x)
         for i, layer in enumerate(self.layers):
             if i == 1:
                 x_v = self.fusion_v(torch.cat([x_v, aud_e], dim=-1))

@@ -13,8 +13,15 @@ batches padded to a length bucket: masked GroupNorm statistics, per-example
 interpolation, zeroed padded frames before the positional conv and masked
 attention keys keep every real frame equal to the unpadded program's.
 `mid_stack` and `pre_layers` are the split points the fused face stage
-(models/wav2vec_fused.py) hands over at.  SpecAugment and the frozen
-extractor wait for the training slice (ROADMAP.md).
+(models/wav2vec_fused.py) hands over at.
+
+Training (the face step, train/steps.py) hands `pre_layers` / `forward`
+the frozen extractor's features (`feats`, computed under no_grad, so the
+extractor's backward never runs, as JAX's `freeze_extractor` stops the
+gradient at its output) and, in stochastic mode, `spec_starts`: the
+SpecAugment spans (JAX :192-211), whose frames are replaced by the learned
+`masked_spec_embed` after the projection and before the padded frames are
+zeroed.  `draw_spec_starts` draws them from a generator.
 """
 from __future__ import annotations
 
@@ -73,6 +80,33 @@ class _ConvLayer(nn.Module):
         self.conv = nn.Conv1d(cin, cout, k, s, bias=False)
         self.layer_norm = (ChannelGroupNorm(cout, norm_eps)
                            if norm_eps is not None else None)
+
+
+#: SpecAugment's time masking (talkshow_tpu/models/wav2vec.py:190-191)
+MASK_TIME_PROB, MASK_TIME_LENGTH = 0.05, 10
+
+
+def spec_mask_count(frames: int) -> int:
+    """Spans a clip of `frames` frames gets: max(int(0.05 T / 10), 2)."""
+    return max(int(MASK_TIME_PROB * frames / MASK_TIME_LENGTH), 2)
+
+
+def draw_spec_starts(batch: int, frames: int, generator: torch.Generator,
+                     device) -> torch.Tensor:
+    """(batch, spec_mask_count(frames)) span starts, uniform on
+    [0, max(frames - 10, 1)), drawn on the generator's device."""
+    return torch.randint(0, max(frames - MASK_TIME_LENGTH, 1),
+                         (batch, spec_mask_count(frames)), generator=generator,
+                         device=generator.device).to(device)
+
+
+def spec_augment(x: torch.Tensor, starts: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Frames of (B, T, C) x inside any span [start, start + 10) of its
+    example's starts (B, num_masks) become `embed` (C,)."""
+    pos = torch.arange(x.shape[1], device=x.device)[None, None, :]
+    s = starts.to(x.device)[..., None]
+    mask = ((pos >= s) & (pos < s + MASK_TIME_LENGTH)).any(dim=1)       # (B, T)
+    return torch.where(mask[..., None], embed.to(x.dtype), x)
 
 
 def conv_valid_length(num_samples, cfg: Wav2Vec2Config):
@@ -204,7 +238,12 @@ class Encoder(nn.Module):
 
 class Wav2Vec2Encoder(nn.Module):
     """forward(waveform (B, T_samples), frame_num) -> (B, frame_num, hidden),
-    with the reference's mid-stack 50 Hz -> 30 fps interpolation."""
+    with the reference's mid-stack 50 Hz -> 30 fps interpolation.
+
+    `masked_spec_embed` (hidden,) is the learned SpecAugment vector (HF's
+    name); inference never reads it.  It starts uniform on [0, 1), as
+    flax's `uniform(scale=1.0)`, from a fixed seed (init_weights_ leaves it
+    be, so the other weights draw what they drew before it existed)."""
 
     def __init__(self, cfg: Wav2Vec2Config | None = None):
         super().__init__()
@@ -212,6 +251,8 @@ class Wav2Vec2Encoder(nn.Module):
         self.feature_extractor = FeatureExtractor(self.cfg)
         self.feature_projection = FeatureProjection(self.cfg)
         self.encoder = Encoder(self.cfg)
+        self.masked_spec_embed = nn.Parameter(
+            torch.rand(self.cfg.hidden_size, generator=torch.Generator().manual_seed(0)))
 
     def _pos_and_norm(self, x):
         return self.encoder.layer_norm(x + self.encoder.pos_conv_embed(x))
@@ -221,27 +262,43 @@ class Wav2Vec2Encoder(nn.Module):
         (interpolation, projection, positional conv, LayerNorm); unmasked."""
         return self._pos_and_norm(self.feature_projection(linear_interpolate(feats, frame_num)))
 
-    def pre_layers(self, waveform: torch.Tensor, frame_num: int,
-                   valid_samples=None, valid_frames=None) -> torch.Tensor:
-        """Everything before the transformer layers (inference only)."""
-        if valid_samples is None:
-            return self.mid_stack(self.feature_extractor(waveform), frame_num)
-        valid_samples = valid_samples.to(waveform.device)
-        valid_frames = valid_frames.to(waveform.device)
-        feats = self.feature_extractor(waveform, valid_samples)      # (B, T50, C)
-        in_valid = conv_valid_length(valid_samples, self.cfg)
-        feats = feats * length_mask(in_valid, feats.shape[1], feats.dtype)
-        feats = masked_linear_interpolate(feats, frame_num, in_valid, valid_frames)
-        # zero padded frames so the positional conv's reach into the pad
-        # sees the zeros the unpadded program's SAME padding has
-        x = self.feature_projection(feats) * length_mask(valid_frames, frame_num, feats.dtype)
+    def pre_layers(self, waveform: torch.Tensor | None, frame_num: int,
+                   valid_samples=None, valid_frames=None, *,
+                   feats: torch.Tensor | None = None,
+                   spec_starts: torch.Tensor | None = None) -> torch.Tensor:
+        """Everything before the transformer layers.  `feats`: the
+        extractor's output, computed by the caller (the waveform is then
+        not read); `spec_starts` (B, num_masks): SpecAugment's spans."""
+        masked = valid_samples is not None
+        if feats is None:
+            feats = self.feature_extractor(
+                waveform, valid_samples.to(waveform.device) if masked else None)
+        if masked:
+            dev = feats.device
+            valid_samples, valid_frames = valid_samples.to(dev), valid_frames.to(dev)
+            in_valid = conv_valid_length(valid_samples, self.cfg)
+            feats = feats * length_mask(in_valid, feats.shape[1], feats.dtype)
+            feats = masked_linear_interpolate(feats, frame_num, in_valid, valid_frames)
+        else:
+            feats = linear_interpolate(feats, frame_num)
+        x = self.feature_projection(feats)
+        if spec_starts is not None:
+            x = spec_augment(x, spec_starts, self.masked_spec_embed)
+        if masked:
+            # zero padded frames so the positional conv's reach into the pad
+            # sees the zeros the unpadded program's SAME padding has
+            x = x * length_mask(valid_frames, frame_num, feats.dtype)
         return self._pos_and_norm(x)
 
-    def forward(self, waveform: torch.Tensor, frame_num: int,
-                valid_samples=None, valid_frames=None) -> torch.Tensor:
+    def forward(self, waveform: torch.Tensor | None, frame_num: int,
+                valid_samples=None, valid_frames=None, *,
+                feats: torch.Tensor | None = None,
+                spec_starts: torch.Tensor | None = None) -> torch.Tensor:
         """valid_samples / valid_frames (B,) int tensors select the
-        length-masked path (see the module docstring)."""
-        x = self.pre_layers(waveform, frame_num, valid_samples, valid_frames)
+        length-masked path (see the module docstring); `feats` and
+        `spec_starts` as in `pre_layers`."""
+        x = self.pre_layers(waveform, frame_num, valid_samples, valid_frames, feats=feats,
+                            spec_starts=spec_starts)
         key_valid = None
         if valid_frames is not None:
             key_valid = (torch.arange(x.shape[1], device=x.device)[None]

@@ -63,6 +63,21 @@ def extractor_fused(encoder, waveform: torch.Tensor, *, tables: dict | None = No
 
 
 @torch.no_grad()
+def frozen_features(encoder, waveform: torch.Tensor, valid_samples=None, *,
+                    tables: dict) -> torch.Tensor:
+    """The face step's frozen conv extractor: waveform (B, N) -> features
+    (B, T50, C) f32 that carry no autograd history.  Unmasked (whole
+    clips): K3 on `tables` (`k3.pack_extractor_tables(..., float32)`,
+    packed once per weight load) for a CUDA tensor, its plain version for a
+    CPU one.  Masked (valid_samples given): the plain masked extractor, as
+    in JAX and in serving, counted as ``counts["extractor_plain"]``."""
+    if valid_samples is None:
+        return extractor_fused(encoder, waveform, tables=tables)
+    counts["extractor_plain"] += 1
+    return encoder.feature_extractor(waveform, valid_samples.to(waveform.device))
+
+
+@torch.no_grad()
 def face_apply_fused(face_model, waveform: torch.Tensor, id_onehot: torch.Tensor,
                      time_steps: int, valid_samples=None, valid_frames=None, *,
                      tables: dict | None = None,

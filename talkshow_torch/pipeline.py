@@ -340,9 +340,15 @@ def save_pipeline(pipe: Pipeline, path: str) -> None:
 def load_pipeline(path: str, template: Pipeline | None = None,
                   device="cuda") -> Pipeline:
     """Restore a file written by `save_pipeline` into `template` (in place;
-    default a full-size `Pipeline.create(0, device)`) and return it."""
+    default a full-size `Pipeline.create(0, device)`) and return it.  A file
+    written before the face stage carried wav2vec's SpecAugment vector
+    (`masked_spec_embed`, read only in training) gets the one
+    `convert.reference_face` gives a checkpoint without it: zeros."""
     pipe = template if template is not None else Pipeline.create(0, device)
     weights = torch.load(path, map_location=pipe.device, weights_only=True)
     for k in _VQ_STATES:
         weights[k] = VQState(**weights[k])
+    face = weights["face"]
+    if convert.MASKED_SPEC_EMBED not in face:
+        face[convert.MASKED_SPEC_EMBED] = convert.masked_spec_embed_default(face)
     return pipe.load_converted(weights)

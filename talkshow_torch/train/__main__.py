@@ -1,16 +1,30 @@
-"""Train a stage of the port (mirror of scripts/train.py for s2g_body_vq).
+"""Train a stage of the port (mirror of scripts/train.py).
 
     python -m talkshow_torch.train --config_file config/body_vq.json \
         --synthetic --epochs 1 --run_dir experiments/body-vq [--device cpu]
+    python -m talkshow_torch.train --config_file config/body_pixel.json \
+        --synthetic --vq_ckpt experiments/body-vq/ckpt-0.pt [--no_token_cache]
+    python -m talkshow_torch.train --config_file config/face.json \
+        --synthetic [--face_bucket 32 --face_batch_size 2]
 
 Runs on the card unless `--device cpu` is given, with TF32 off (f32 sums,
-as the JAX package computes on the CPU) and deterministic cuDNN.  The
-synthetic dataset holds at least SYNTHETIC_STEPS batches per epoch at the
-config's batch size and window, and the VQ-VAEs have the config's
-`vq_num_hiddens` (1024), as scripts/train.py builds them.  The stage comes
-from the config's Model.model_name; only stage 1, s2g_body_vq, is ported: any other
-stage raises and names the ROADMAP.md item that ports it.  Only synthetic
-data is supported until the SHOW dataset loader is ported.
+as the JAX package computes on the CPU) and deterministic cuDNN.  The stage
+comes from the config's Model.model_name:
+
+- s2g_body_vq: the VQ-VAEs at the config's `vq_num_hiddens` (1024), as
+  scripts/train.py builds them;
+- s2g_body_pixel: the prior (`pixelcnn_dim`, `pixelcnn_layers`,
+  `num_speakers`) and a 256-wide audio encoder on the token grids of the
+  stage-1 VQs of `--vq_ckpt` (a `ckpt-*.pt` of this trainer's s2g_body_vq
+  run) or Model.vq_path, cached per window unless `--no_token_cache`;
+- s2g_face: the face generator (wav2vec 2.0 base) on whole clips at batch
+  1, or `--face_bucket` frames' length buckets of `--face_batch_size`.
+
+The window stages' synthetic dataset holds at least SYNTHETIC_STEPS
+batches per epoch at the config's batch size and window; the face stage's
+is the four raw-waveform clips of about 8 s that scripts/train.py makes.
+Any other stage raises and names the ROADMAP.md item that ports it.  Only
+synthetic data is supported until the SHOW dataset loader is ported.
 """
 from __future__ import annotations
 
@@ -20,15 +34,17 @@ import logging
 import torch
 
 from talkshow_torch.config import Config
-from talkshow_torch.data.dataset import synthetic_dataset
-from talkshow_torch.models.vqvae import VQVAE
+from talkshow_torch.data.dataset import synthetic_dataset, synthetic_face_dataset
+from talkshow_torch.models.face import FaceGenerator
+from talkshow_torch.models.pixelcnn import GatedPixelCNN
+from talkshow_torch.models.vqvae import VQVAE, AudioEncoder
 from talkshow_torch.ops.pose import BODY_DIM, HAND_DIM
-from talkshow_torch.train.steps import make_body_vq_step
+from talkshow_torch.ops.vq import VQState
+from talkshow_torch.train.steps import (make_body_pixel_step, make_body_vq_step,
+                                        make_face_step, make_token_encoder)
 from talkshow_torch.train.trainer import Trainer
 
 NOT_PORTED = {
-    "s2g_body_pixel": "ROADMAP.md Queue 1 item 3 (the body-pixel step)",
-    "s2g_face": "ROADMAP.md Queue 1 item 4 (the face step)",
     "s2g_body_ae": "ROADMAP.md Queue 1 item 7 (the body-AE step)",
     "s2g_LS3DCG": "ROADMAP.md Queue 1 item 7 (the LS3DCG step)",
 }
@@ -57,7 +73,70 @@ def parse_args(argv=None):
                    help="use a synthetic dataset (the only data source ported yet)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--vq_ckpt", default=None,
+                   help="s2g_body_pixel: the stage-1 checkpoint (ckpt-*.pt of an s2g_body_vq "
+                        "run); default Model.vq_path")
+    p.add_argument("--no_token_cache", action="store_true",
+                   help="s2g_body_pixel: encode every batch's tokens in the step instead of "
+                        "caching them per window (the same numbers)")
+    p.add_argument("--face_bucket", type=int, default=0,
+                   help="s2g_face: round clip lengths up to multiples of this many frames "
+                        "and batch clips of one bucket")
+    p.add_argument("--face_batch_size", type=int, default=1)
     return p.parse_args(argv)
+
+
+def frozen_vqs(cfg: Config, path: str) -> tuple:
+    """(vq_body, vq_hand, {'body', 'hand': VQState}) from a stage-1
+    checkpoint of this trainer, at the config's widths, on the host."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)["state"]
+    vqs = []
+    for part, width in (("body", BODY_DIM), ("hand", HAND_DIM)):
+        vq = VQVAE(width, cfg.model.vq_embedding_dim, cfg.model.vq_num_hiddens)
+        vq.load_state_dict(sd["models"][part])
+        vqs.append(vq.eval())
+    return (*vqs, {k: VQState(**s) for k, s in sd["vq"].items()})
+
+
+def build_stage(cfg: Config, args) -> dict:
+    """The stage's dataset, state and step, and how the trainer feeds it:
+    keyword arguments of Trainer."""
+    name = cfg.model.model_name
+    lr = cfg.train.generator_learning_rate
+    if name == "s2g_body_vq":
+        vq_body = VQVAE(BODY_DIM, cfg.model.vq_embedding_dim, cfg.model.vq_num_hiddens)
+        vq_hand = VQVAE(HAND_DIM, cfg.model.vq_embedding_dim, cfg.model.vq_num_hiddens)
+        init_state, step = make_body_vq_step(vq_body, vq_hand, lr, code_num=cfg.model.code_num)
+        return dict(dataset=synthetic_for(cfg), init_state_fn=init_state, step_fn=step,
+                    batch_keys=("poses",))
+    if name == "s2g_body_pixel":
+        path = args.vq_ckpt or cfg.model.vq_path
+        if not path:
+            raise SystemExit("s2g_body_pixel needs the stage-1 VQs: pass --vq_ckpt (a ckpt-*.pt "
+                             "of an s2g_body_vq run) or set Model.vq_path")
+        if not cfg.model.bh_model:
+            raise SystemExit("the bh_model=false prior is not ported yet: ROADMAP.md Queue 1 "
+                             "item 9")
+        vq_body, vq_hand, states = frozen_vqs(cfg, path)
+        prior = GatedPixelCNN(input_dim=cfg.model.code_num, dim=cfg.model.pixelcnn_dim,
+                              n_layers=cfg.model.pixelcnn_layers,
+                              n_classes=cfg.model.num_speakers)
+        init_state, step = make_body_pixel_step(prior, AudioEncoder(num_hiddens=256), vq_body,
+                                                vq_hand, states, lr,
+                                                cfg.train.max_gradient_norm)
+        encoder = None if args.no_token_cache else make_token_encoder(vq_body, vq_hand, states)
+        return dict(dataset=synthetic_for(cfg), init_state_fn=init_state, step_fn=step,
+                    batch_keys=("poses", "aud_feat", "speaker"), needs_rng=True,
+                    token_encoder=encoder)
+    if name == "s2g_face":
+        # the JAX CLI's face step runs at make_face_step's default lr, 1e-3
+        init_state, step = make_face_step(FaceGenerator(),
+                                          max_grad_norm=cfg.train.max_gradient_norm)
+        ds = synthetic_face_dataset(num_clips=4, frames=240, bucketed=bool(args.face_bucket))
+        return dict(dataset=ds, init_state_fn=init_state, step_fn=step, needs_rng=True,
+                    batch_mode="face_clips", face_bucket_frames=args.face_bucket,
+                    face_batch_size=args.face_batch_size)
+    raise SystemExit(f"unknown stage {name}")
 
 
 def main(argv=None) -> Trainer:
@@ -82,15 +161,10 @@ def main(argv=None) -> Trainer:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
 
-    ds = synthetic_for(cfg)
-    print(f"dataset: {len(ds.clips)} clips")
-    vq_body = VQVAE(BODY_DIM, cfg.model.vq_embedding_dim, cfg.model.vq_num_hiddens)
-    vq_hand = VQVAE(HAND_DIM, cfg.model.vq_embedding_dim, cfg.model.vq_num_hiddens)
-    init_state, step = make_body_vq_step(vq_body, vq_hand, cfg.train.generator_learning_rate,
-                                         code_num=cfg.model.code_num)
+    stage = build_stage(cfg, args)
+    print(f"dataset: {len(stage['dataset'].clips)} clips")
     run_dir = args.run_dir or f"experiments/{cfg.log.name}"
-    trainer = Trainer(cfg, ds, init_state, step, run_dir=run_dir, device=device,
-                      batch_keys=("poses",)).setup()
+    trainer = Trainer(cfg, run_dir=run_dir, device=device, **stage).setup()
     if args.resume:
         trainer.resume(args.resume)
     trainer.train(epochs=args.epochs)

@@ -7,22 +7,45 @@ non-finite skip.  `make_token_encoder` (steps.py:121-142) is the frozen-VQ
 encode that feeds prior training.  On the card each VQ-VAE forward runs K4
 once (`ops/vq.nearest_code`).
 
+Stage 2 (`make_body_pixel_step`, steps.py:145-235): the PixelCNN prior and
+the audio encoder (batch-statistics BatchNorm) on the token grids of the
+frozen stage-1 VQs (K4 twice on the card, unless the batch brings cached
+`tokens`); f32 cross-entropy over the codebook logits; clip-by-global-norm
+then Adam, with the non-finite skip.
+
+Stage 3 (`make_face_step`, steps.py:244-320): the face generator with its
+wav2vec conv extractor frozen: the extractor runs under no_grad (K3 with
+f32 tables on the card for whole clips; the plain masked extractor for
+bucketed batches), the rest trains with clip-by-global-norm then SGD with
+momentum; L1 on the first 6 channels + MSE on the last 100, over real
+frames only for bucketed batches.
+
+The stochastic steps take a `torch.Generator` for their dropout and
+SpecAugment draws; a batch may instead carry the masks (`aud_keep`;
+`spec_starts`, `drop_keep`), which is how the tests hand in JAX's own.
+
 Unlike the JAX package, where the state is an immutable pytree, the state
 here holds the modules (parameters and BatchNorm statistics) and the
 optimizer, and a step updates them in place.  The 6-D pose variant
-(`rep6d`) and the other stages wait (ROADMAP.md).
+(`rep6d`) and the body-AE and LS3DCG stages wait (ROADMAP.md).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
+from talkshow_torch.kernels.wav2vec_extractor import pack_extractor_tables
+from talkshow_torch.models.face import FaceGenerator, draw_drop_keep
 from talkshow_torch.models.layers import FlaxBatchNorm1d, init_weights_
-from talkshow_torch.models.vqvae import VQVAE
+from talkshow_torch.models.pixelcnn import GatedPixelCNN, draw_aud_keep
+from talkshow_torch.models.vqvae import VQVAE, AudioEncoder
+from talkshow_torch.models.wav2vec import draw_spec_starts
+from talkshow_torch.models.wav2vec_fused import frozen_features
 from talkshow_torch.ops import vq as vq_ops
 from talkshow_torch.ops.pose import BODY_DIM, C_INDEX_3D, FULL_POSE_DIM, HAND_DIM
-from talkshow_torch.train.optim import SkipNonfiniteAdam
+from talkshow_torch.train.optim import SkipNonfiniteAdam, SkipNonfiniteSGD, global_norm
 
 PARTS = (("body", slice(0, BODY_DIM)), ("hand", slice(BODY_DIM, BODY_DIM + HAND_DIM)))
 
@@ -65,20 +88,28 @@ class BodyVQState:
         parameters, statistics, codebooks, Adam moments and counts as the
         JAX state."""
         dev = next(self.models["body"].parameters()).device
-        adam = self.optimizer.adam
         for part, model in self.models.items():
             model.load_state_dict(weights[f"vq_{part}"])
             self.vq[part] = weights[f"vq_{part}_state"].to(dev)
-            if weights["adam_step"] == 0:
-                continue
-            for name, p in model.named_parameters():
-                adam.state[p] = {
-                    "step": torch.tensor(float(weights["adam_step"])),
-                    "exp_avg": weights["exp_avg"][part][name].to(dev).clone(),
-                    "exp_avg_sq": weights["exp_avg_sq"][part][name].to(dev).clone()}
-        self.optimizer.nonfinite_count = weights["nonfinite_count"]
+        _load_adam(self.optimizer, {f"vq_{k}": m for k, m in self.models.items()}, weights)
         self.step = weights["step"]
         return self
+
+
+def _load_adam(optimizer: SkipNonfiniteAdam, models: dict, weights: dict) -> None:
+    """Adam's moments, step count and the skip count from a converted JAX
+    state: weights["exp_avg"][part] / ["exp_avg_sq"][part] are state dicts
+    of the moments of models[key] (key "vq_<part>" or "<part>")."""
+    optimizer.nonfinite_count = weights["nonfinite_count"]
+    if weights["adam_step"] == 0:   # fresh: torch makes its moments lazily
+        return
+    for key, model in models.items():
+        part = key.removeprefix("vq_")
+        for name, p in model.named_parameters():
+            optimizer.adam.state[p] = {
+                "step": torch.tensor(float(weights["adam_step"])),
+                "exp_avg": weights["exp_avg"][part][name].to(p.device).clone(),
+                "exp_avg_sq": weights["exp_avg_sq"][part][name].to(p.device).clone()}
 
 
 def _norm_buffers(models) -> list:
@@ -151,3 +182,209 @@ def make_token_encoder(vq_body: VQVAE, vq_hand: VQVAE, frozen_vq_states: dict):
         return torch.stack([tb, th], dim=-1)
 
     return encode
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: the PixelCNN prior and the audio encoder (VQs frozen)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PixelState:
+    """Stage-2 train state: {'prior': GatedPixelCNN, 'audio': AudioEncoder}
+    (parameters and the audio encoder's BatchNorm statistics), the
+    optimizer and the step."""
+    models: dict
+    optimizer: SkipNonfiniteAdam
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"models": {k: m.state_dict() for k, m in self.models.items()},
+                "optimizer": self.optimizer.state_dict(), "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for k, m in self.models.items():
+            m.load_state_dict(sd["models"][k])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step = int(sd["step"])
+
+    @torch.no_grad()
+    def load_converted(self, weights: dict) -> "PixelState":
+        """Load `convert.from_jax_pixel_state`'s output in place."""
+        for k, m in self.models.items():
+            m.load_state_dict(weights[k])
+        _load_adam(self.optimizer, self.models, weights)
+        self.step = weights["step"]
+        return self
+
+
+def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body: VQVAE,
+                         vq_hand: VQVAE, frozen_vq_states: dict,
+                         learning_rate: float = 1e-4, max_grad_norm: float = 5.0):
+    """-> (init_state(generator, device), step(state, batch, generator)).
+
+    vq_body / vq_hand carry the frozen stage-1 weights and frozen_vq_states
+    their {'body', 'hand'} VQStates; init_state moves them to the device.
+    batch: 'aud_feat' (B, T, 64), 'speaker' (B,) and either 'tokens' (B,
+    T/4, 2) (the trainer's cache; the frozen encode is skipped, which gives
+    the same tokens) or 'poses' (B, T, 165 or 129 conv channels); optional
+    'aud_keep' (B, T/4) bool, the audio dropout's keep mask, else drawn from
+    `generator`.  Metrics: ce_loss and grad (the gradients' global norm
+    before the clip; 0-dim tensors), nonfinite_skips (int)."""
+    models = {"prior": prior, "audio": audio_enc}
+    encode = make_token_encoder(vq_body, vq_hand, frozen_vq_states)
+
+    def init_state(generator: torch.Generator, device="cuda") -> PixelState:
+        for m in models.values():
+            init_weights_(m, generator).to(device)
+        vq_body.to(device)
+        vq_hand.to(device)
+        frozen_vq_states.update({k: s.to(device) for k, s in frozen_vq_states.items()})
+        params = [p for m in models.values() for p in m.parameters()]
+        return PixelState(models, SkipNonfiniteAdam(params, learning_rate, max_grad_norm))
+
+    def step(state: PixelState, batch, generator: torch.Generator | None = None):
+        tokens = batch.get("tokens")
+        if tokens is None:
+            tokens = encode(batch["poses"])
+        tokens = tokens.long()
+        B, H = tokens.shape[:2]
+        keep = batch.get("aud_keep")
+        if keep is None:
+            if generator is None:
+                raise ValueError("the body-pixel step draws its audio dropout from a "
+                                 "generator: pass one, or batch['aud_keep']")
+            keep = draw_aud_keep(B, H, generator, tokens.device)
+        buffers = _norm_buffers([state.models["audio"]])
+        saved = [b.clone() for b in buffers]
+        opt = state.optimizer
+        opt.zero_grad()
+        feat = state.models["audio"].train()(batch["aud_feat"])
+        logits = state.models["prior"].train()(tokens, batch["speaker"].long(), feat, keep)
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(), tokens.reshape(-1))
+        ce.backward()
+        norm = global_norm(opt.grads())
+        if not opt.step(norm):
+            with torch.no_grad():
+                for b, s in zip(buffers, saved):
+                    b.copy_(s)
+        state.step += 1
+        return state, {"ce_loss": ce.detach(), "grad": norm.detach(),
+                       "nonfinite_skips": opt.nonfinite_count}
+
+    return init_state, step
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: the face generator (SGD, wav2vec conv extractor frozen)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FaceState:
+    """Stage-3 train state: the face generator (its conv extractor frozen:
+    requires_grad off, no optimizer state), the optimizer of the rest and
+    the step.  `tables`: K3's f32 tables of the frozen extractor, packed on
+    first use after each weight load."""
+    face: FaceGenerator
+    optimizer: SkipNonfiniteSGD
+    step: int = 0
+    _tables: dict | None = None
+
+    @property
+    def tables(self) -> dict:
+        if self._tables is None:
+            self._tables = pack_extractor_tables(self.face.audio_encoder.feature_extractor,
+                                                 torch.float32)
+        return self._tables
+
+    def state_dict(self) -> dict:
+        return {"face": self.face.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.face.load_state_dict(sd["face"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step = int(sd["step"])
+        self._tables = None
+
+    @torch.no_grad()
+    def load_converted(self, weights: dict) -> "FaceState":
+        """Load `convert.from_jax_face_state`'s output in place: the same
+        parameters, SGD momentum and counts as the JAX state."""
+        self.face.load_state_dict(weights["face"])
+        sgd = self.optimizer.inner
+        for name, p in self.face.named_parameters():
+            if p.requires_grad:
+                sgd.state[p] = {"momentum_buffer": weights["trace"][name].to(p.device).clone()}
+        self.optimizer.nonfinite_count = weights["nonfinite_count"]
+        self.step = weights["step"]
+        self._tables = None
+        return self
+
+
+def face_losses(pred: torch.Tensor, gt: torch.Tensor, valid_frames=None):
+    """(L1 of the first 6 channels, MSE of the last 100), means over every
+    frame, or over real frames only when valid_frames (B,) is given
+    (steps.py:287-297)."""
+    d6, d100 = pred[..., :6] - gt[..., :6], pred[..., -100:] - gt[..., -100:]
+    if valid_frames is None:
+        return d6.abs().mean(), (d100 * d100).mean()
+    m = (torch.arange(gt.shape[1], device=gt.device)[None, :, None]
+         < valid_frames.to(gt.device)[:, None, None]).to(pred.dtype)
+    n = m.sum()
+    return (d6.abs() * m).sum() / (n * 6), (d100 * d100 * m).sum() / (n * 100)
+
+
+def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: float = 0.9,
+                   max_grad_norm: float = 5.0, stochastic: bool = True):
+    """-> (init_state(generator, device), step(state, batch, generator)).
+
+    batch: 'waveform' (B, N), 'id_onehot' (B, classes), 'gt' (B, T, >= 106);
+    optional 'valid_samples' / 'valid_frames' (B,) for length-bucketed
+    batches; in stochastic mode optional 'spec_starts' (B, num_masks) and
+    'drop_keep' (B, T, 256) bool, else drawn from `generator`.
+    stochastic=False turns dropout and SpecAugment off, as in JAX.  Metrics:
+    MSELoss (the L1 term, the reference's name), exp_loss, loss, grad (the
+    global norm before the clip; 0-dim tensors), nonfinite_skips (int)."""
+
+    def init_state(generator: torch.Generator, device="cuda") -> FaceState:
+        init_weights_(face, generator)
+        enc = face.audio_encoder
+        with torch.no_grad():
+            enc.masked_spec_embed.copy_(torch.rand(enc.masked_spec_embed.shape,
+                                                   generator=generator))
+        enc.feature_extractor.requires_grad_(False)
+        face.to(device)
+        params = [p for p in face.parameters() if p.requires_grad]
+        return FaceState(face, SkipNonfiniteSGD(params, learning_rate, momentum, max_grad_norm))
+
+    def step(state: FaceState, batch, generator: torch.Generator | None = None):
+        gt = batch["gt"]
+        B, T = gt.shape[:2]
+        vs, vf = batch.get("valid_samples"), batch.get("valid_frames")
+        spec = keep = None
+        if stochastic:
+            spec, keep = batch.get("spec_starts"), batch.get("drop_keep")
+            if generator is None and (spec is None or keep is None):
+                raise ValueError("the stochastic face step draws SpecAugment and dropout from "
+                                 "a generator: pass one, or batch['spec_starts'] and "
+                                 "batch['drop_keep']")
+            if spec is None:
+                spec = draw_spec_starts(B, T, generator, gt.device)
+            if keep is None:
+                keep = draw_drop_keep((B, T, face.audio_feature_map.out_features), generator,
+                                      gt.device)
+        model = state.face.train()
+        feats = frozen_features(model.audio_encoder, batch["waveform"], vs, tables=state.tables)
+        opt = state.optimizer
+        opt.zero_grad()
+        pred = model.train_forward(feats, batch["id_onehot"], T, vs, vf, spec, keep)
+        l1, mse = face_losses(pred, gt, vf)
+        loss = l1 + mse
+        loss.backward()
+        norm = global_norm(opt.grads())
+        opt.step(norm)
+        state.step += 1
+        return state, {"MSELoss": l1.detach(), "exp_loss": mse.detach(), "loss": loss.detach(),
+                       "grad": norm.detach(), "nonfinite_skips": opt.nonfinite_count}
+
+    return init_state, step

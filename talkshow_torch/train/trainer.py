@@ -1,5 +1,5 @@
 """Training runtime: epoch loop, logging, checkpoint/resume (port of
-talkshow_tpu/train/trainer.py:67-275, window batches).
+talkshow_tpu/train/trainer.py:67-275).
 
 The Trainer drives one stage's step over a `ShowDataset`, logs a running
 loss dict every `print_every` steps, writes `history.json`, and checkpoints
@@ -7,14 +7,31 @@ the whole train state (module state dicts under the reference's names, VQ
 states, optimizer, step, epoch) with `torch.save` every `save_every`
 epochs, so a resumed run continues with the optimizer's moments.
 
+Batches are the dataset's training windows (`batch_mode="windows"`) or,
+for the face stage, whole clips (`"face_clips"`: batch 1, or length
+buckets of `face_bucket_frames` grouped by `face_batch_size`).  A step that
+`needs_rng` gets a torch.Generator on the trainer's device seeded from
+(train.seed, global step), so that a resumed run draws what the
+uninterrupted one would.  With a `token_encoder` (the frozen stage-1
+encode), token grids are cached per training window (`window_key`: clip,
+start): a batch whose windows are all cached brings its `tokens` and no
+poses; a miss is encoded on the device, the step reads the device tokens,
+and their host copies are taken at the next print or the epoch's end, off
+the step's path (JAX's `drain_cache`).  Unlike JAX's, the first epoch
+ends by encoding every window the dataset can give that is not cached yet
+(`fill_cache`, batches of the step's size): a batch hits only when all of
+its windows are cached, and with 128 windows that each keep their epoch-1
+jitter offset with probability 1/2, JAX's cache misses every batch of
+every later epoch.  The cache is not checkpointed; a resumed run refills
+it.
+
 Each epoch draws its window jitter and order from
 np.random.default_rng(seed + epoch) (the JAX trainer draws from one
 generator per `train()` call; the first epoch is the same), so a run
 resumed at an epoch boundary sees the batches an uninterrupted run sees.
 On the card such a run equals an uninterrupted one bit for bit when cuDNN
 runs deterministic algorithms, as `python -m talkshow_torch.train` sets
-it to.  The frozen-token cache and the face stage's
-whole-clip batches wait for their slices (ROADMAP.md).
+it to.
 """
 from __future__ import annotations
 
@@ -62,12 +79,19 @@ def prefetch_iter(iterable, depth: int = 2):
         yield item
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of global step `step`'s generator in a run seeded `seed`."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+
+
 @dataclass
 class Trainer:
-    """Drives `step_fn(state, batch) -> (state, metrics)` over the dataset's
-    window batches.  `init_state_fn(generator, device)` makes the state,
-    which has `state_dict` / `load_state_dict`.  `batch_keys`: the batch
-    entries the step reads (None: all); the rest never go to the device."""
+    """Drives `step_fn(state, batch[, generator]) -> (state, metrics)` over
+    the dataset's batches (`batch_mode` "windows" or "face_clips").
+    `init_state_fn(generator, device)` makes the state, which has
+    `state_dict` / `load_state_dict`.  `batch_keys`: the batch entries the
+    step reads (None: all); the rest never go to the device.
+    `token_encoder`: poses (device) -> token grids, cached per window."""
     config: Config
     dataset: ShowDataset
     init_state_fn: Callable
@@ -79,6 +103,12 @@ class Trainer:
     global_step: int = 0
     history: list = field(default_factory=list)
     batch_keys: tuple | None = None
+    needs_rng: bool = False
+    batch_mode: str = "windows"
+    face_bucket_frames: int = 0
+    face_batch_size: int = 1
+    token_encoder: Callable | None = None
+    _token_cache: dict = field(default_factory=dict)
 
     def setup(self) -> "Trainer":
         self.device = torch.device(self.device)
@@ -106,22 +136,82 @@ class Trainer:
             batch = dict(batch, poses=normalize_poses(batch["poses"], self._norm_stats))
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
+    def batch_iter(self, epoch: int):
+        """The epoch's batches (numpy dicts)."""
+        if self.batch_mode == "face_clips":
+            return self.dataset.face_batches(bucket_frames=self.face_bucket_frames,
+                                             batch_size=self.face_batch_size)
+        if self.batch_mode != "windows":
+            raise ValueError(f"batch_mode is 'windows' or 'face_clips', not {self.batch_mode!r}")
+        np_rng = np.random.default_rng(self.config.train.seed + epoch)
+        return self.dataset.batches(self.config.train.batch_size, np_rng)
+
+    def device_batch(self, batch: dict, pending_cache: list) -> dict:
+        """A numpy batch -> the step's device batch: the entries it reads,
+        and with a token encoder its `tokens` in place of the poses, from
+        the cache or encoded here (the keys and device tokens are appended
+        to pending_cache for `drain_cache`)."""
+        wkey = batch.get("window_key")
+        batch = {k: v for k, v in batch.items()
+                 if k != "window_key" and isinstance(v, np.ndarray)
+                 and (self.batch_keys is None or k in self.batch_keys)}
+        if self.token_encoder is None or wkey is None:
+            return self.put_batch(batch)
+        keys = [tuple(map(int, k)) for k in wkey]
+        if all(k in self._token_cache for k in keys):
+            batch.pop("poses", None)
+            out = self.put_batch(batch)
+            out["tokens"] = torch.as_tensor(np.stack([self._token_cache[k] for k in keys]),
+                                            device=self.device)
+            return out
+        out = self.put_batch(batch)
+        out["tokens"] = self.token_encoder(out.pop("poses"))
+        pending_cache.append((keys, out["tokens"]))
+        return out
+
+    def drain_cache(self, pending_cache: list) -> None:
+        """Host copies of the tokens encoded since the last drain into the
+        cache (one read each, at print time or the epoch's end)."""
+        for keys, tokens in pending_cache:
+            for k, t in zip(keys, tokens.cpu().numpy()):
+                self._token_cache[k] = t
+        pending_cache.clear()
+
+    def fill_cache(self) -> int:
+        """Encode every window of the dataset that is not cached, in batches
+        of train.batch_size windows (the last one padded by repeating its
+        last window, so that every encode has the step's shape); returns
+        the number of encode calls."""
+        keys = [k for k in self.dataset.window_keys() if k not in self._token_cache]
+        B = self.config.train.batch_size
+        for i in range(0, len(keys), B):
+            chunk = keys[i:i + B]
+            chunk += chunk[-1:] * (B - len(chunk))
+            poses = np.stack([self.dataset.window_poses(k) for k in chunk])
+            tokens = self.token_encoder(self.put_batch({"poses": poses})["poses"])
+            self.drain_cache([(chunk, tokens)])
+        return -(-len(keys) // B)
+
+    def step_generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            step_seed(self.config.train.seed, self.global_step))
+
     def train(self, epochs: int | None = None):
         epochs = epochs if epochs is not None else self.config.train.epochs
         print_every = self.config.log.print_every
         save_every = self.config.log.save_every
         for epoch in range(self.epoch, epochs):
-            np_rng = np.random.default_rng(self.config.train.seed + epoch)
             running: dict[str, float] = {}
             pending: dict[str, list] = {}
+            pending_cache: list = []
             count = 0
             t0 = time.time()
-            batch_iter = self.dataset.batches(self.config.train.batch_size, np_rng)
-            for batch in prefetch_iter(batch_iter, depth=2):
-                batch = {k: v for k, v in batch.items()
-                         if k != "window_key" and isinstance(v, np.ndarray)
-                         and (self.batch_keys is None or k in self.batch_keys)}
-                self.state, metrics = self.step_fn(self.state, self.put_batch(batch))
+            for batch in prefetch_iter(self.batch_iter(epoch), depth=2):
+                batch = self.device_batch(batch, pending_cache)
+                if self.needs_rng:
+                    self.state, metrics = self.step_fn(self.state, batch, self.step_generator())
+                else:
+                    self.state, metrics = self.step_fn(self.state, batch)
                 self.global_step += 1
                 count += 1
                 for k, v in metrics.items():
@@ -131,7 +221,11 @@ class Trainer:
                     avg = {k: v / count for k, v in running.items()}
                     log.info(f"epoch {epoch} step {self.global_step} "
                              + " ".join(f"{k}={v:.4f}" for k, v in avg.items()))
+                    self.drain_cache(pending_cache)
             self.epoch = epoch + 1
+            self.drain_cache(pending_cache)
+            if self.token_encoder is not None:
+                self.fill_cache()
             self._collapse(running, pending)
             avg = {k: v / count if count else 0.0 for k, v in running.items()}
             avg["epoch_seconds"] = time.time() - t0

@@ -423,6 +423,47 @@ def test_served_flush_on_the_card(cuda, monkeypatch):
         np.testing.assert_allclose(g, c, atol=1e-3)
 
 
+@pytest.mark.cuda
+def test_face_step_runs_k3_under_no_grad(cuda):
+    """The face step's frozen extractor on the card (toy widths): one K3
+    launch a whole-clip step on f32 tables, the plain extractor never, no
+    autograd through it (no .grad on its parameters, which stay as they
+    were); the step equals the same step on the CPU (stochastic=False):
+    losses within 1e-4 relative, parameters within 1e-5 of max|p|."""
+    from talkshow_torch.models.face import FaceGenerator
+    from talkshow_torch.train.steps import make_face_step
+    cfg = Wav2Vec2Config(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+                         conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2),
+                         num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+    gen = torch.Generator().manual_seed(5)
+    ids = torch.zeros((1, 4))
+    ids[0, 1] = 1.0
+    batch = {"waveform": torch.randn((1, 16000), generator=gen), "id_onehot": ids,
+             "gt": 0.3 * torch.randn((1, 30, 265), generator=gen)}
+    out = {}
+    for dev in ("cpu", cuda):
+        init, step = make_face_step(FaceGenerator(cfg), stochastic=False)
+        state = init(torch.Generator().manual_seed(0), dev)
+        before = {k: v.clone() for k, v in
+                  state.face.audio_encoder.feature_extractor.state_dict().items()}
+        counts.clear()
+        state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        out[str(dev)] = (dict(counts), m, state)
+        ext = state.face.audio_encoder.feature_extractor
+        assert all(p.grad is None and not p.requires_grad for p in ext.parameters())
+        assert all(torch.equal(v, before[k]) for k, v in ext.state_dict().items())
+    seen, mg, sg = out["cuda"]
+    assert seen.get("wav2vec_extractor") == 1 and not seen.get("extractor_plain")
+    assert sg.tables["w0"].dtype == torch.float32
+    _, mc, sc = out["cpu"]
+    for k in ("loss", "MSELoss", "exp_loss", "grad"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * abs(float(mc[k])), k
+    pc, pg = sc.face.state_dict(), sg.face.state_dict()
+    top = max(v.abs().max().item() for v in pc.values())
+    assert max((pg[k].cpu() - v).abs().max().item() for k, v in pc.items()) <= 1e-5 * top
+
+
 def test_kernels_raise_on_cpu_tensors():
     enc, x, wave = _w2v_case("tiny", "cpu")
     with pytest.raises(ValueError):
