@@ -155,9 +155,46 @@ Phases (one line each; any failure raises and the script exits non-zero):
              clip with the frozen extractor on K3 and on the plain extractor
              in turns, and its device-idle share; both steps with TF32 on,
              for the record; each beside the card
+ 19 train-ae  main() for s2g_body_ae at full width (the AE of 1024 hidden over
+             the 129 conv channels, batch 128, window 88) on the synthetic
+             dataset, one epoch of >= 10 steps: every logged loss finite, no
+             kernel launched (the AE has no quantizer); ckpt-0 + one step
+             bit-equal to the uninterrupted run; one step from one state on
+             CUDA against the CPU (B = 8, TF32 off): losses within 1e-4
+             relative; every gradient within 2e-2 of max|g| of an f64 CPU
+             reference, as phase 11's encoder: the AE's decoder reads the
+             encoder's output, so all of its gradients lie behind three
+             levels of batch-statistics BatchNorm (phase 11's 1e-3 is for VQ
+             decoders, which read codebook rows equal on both devices);
+             BatchNorm statistics within 1e-4, parameters within 2 lr and
+             >= 99 % within 1e-2 lr; the step's p50
+ 20 eval     a synthetic SHOW test split (4 clips of 10 s, pkl + 16 kHz wav)
+             through ShowDataset.from_root on the card (MFCC and raw), a
+             synthetic SMPL-X rig of the official size (10 475 vertices, 55
+             joints, 300 + 100 coefficients) through load_smplx_npz; the
+             trained stages of phases 11, 16 and 19 through the eval CLI's
+             loaders; eval_vq_capacity (K4 twice a clip, the plain search
+             never), eval_body at 2 samples (K1 once a clip, the plain sampler
+             never; LVD over the rig's joints, beat consistency from the
+             clips' onsets) and eval_face on the raw clips (K3 and K2 once a
+             clip, the plain face stage never; face-vertex LVD over all
+             vertices): every metric finite; FGD on the card (f32 eigh)
+             within 1e-3 relative of frechet_distance_np (f64) on the same
+             features; `python -m talkshow_torch.eval body` (its main(), on
+             the card by default) on the tree with the checkpoints: K1 once a
+             clip; one 2 s clip on the card (f32 decode and face tables)
+             against the CPU on the same weights and noise: tokens equal,
+             l2, lvd, jaw_l1, exp_mse and face_lvd within 1e-4 relative (the
+             same f32 math in another order: the face frames agree within
+             1e-5, phase 8, on metrics of O(0.1-1))
+ 21 times    each runner's ms per clip and its parts (decode, AE extract, LBS,
+             onset times, FGD, bootstrap; the VQ round trip; the face stage,
+             LBS over the vertices), each beside the card
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
-continuity, the serve flush and the stream, summed, and K3 in phase 17;
-K4: phases 11 and 16), the nvidia-smi line, and the result line.
+continuity, the serve flush, the stream and the eval path (eval_body and
+the eval CLI for K1, eval_face for K2 and K3), summed, and K3 in phase 17;
+K4: phases 11, 16 and eval_vq_capacity), the nvidia-smi line, and the
+result line.
 """
 from __future__ import annotations
 
@@ -1675,6 +1712,402 @@ def phase18(pixel: dict, face: dict, card: str) -> None:
         f"face step (K3) p50 {tf_face[0]:.2f} ms [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: the body AE and the evaluation path
+# ---------------------------------------------------------------------------
+
+#: the eval path: clips of a synthetic SHOW test split, samples a clip, the
+#: SMPL-X rig's size (the official mesh: 10 475 vertices, 55 joints, 300
+#: betas + 100 expression), frames of the card-against-CPU clip (2 s)
+EVAL = dict(clips=4, seconds=10.0, samples=2, verts=10475, ref_frames=60)
+SPEAKERS = ["oliver", "chemistry", "seth", "conan"]
+
+
+def phase19(dev, tmp: str, card: str) -> dict:
+    """The body AE (the FGD net) through `python -m talkshow_torch.train`'s
+    entry point at full width; resume; one step CUDA against CPU; the
+    step's p50.  Returns its checkpoint."""
+    import copy
+
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.vqvae import AE
+    from talkshow_torch.ops.pose import CONV_DIM
+    from talkshow_torch.train.__main__ import main as train_main
+    from talkshow_torch.train.steps import conv_channels, make_body_ae_step, recon_losses
+    cfg = os.path.join(tmp, "body_ae.json")
+    write_stage_config(cfg, "s2g_body_ae", 1)
+    run_a, run_b = os.path.join(tmp, "ae_a"), os.path.join(tmp, "ae_b")
+    argv = ["--config_file", cfg, "--synthetic", "--epochs", "1", "--device", str(dev)]
+    counts.clear()
+    t0 = time.time()
+    trainer = train_main(argv + ["--run_dir", run_a])
+    torch.cuda.synchronize()
+    seen, steps, t_epoch = dict(counts), trainer.global_step, time.time() - t0
+    width = trainer.state.model.encoder.pre_vq_conv.in_channels
+    logged = logged_values(run_a)
+    ckpt = os.path.join(run_a, "ckpt-0.pt")
+    if (steps < 10 or width != TRAIN["num_hiddens"] or any(seen.get(k) for k in KERNELS)
+            or not logged or not all(math.isfinite(v) for v in logged)
+            or not os.path.isfile(ckpt)):
+        raise AssertionError(f"phase 19: {steps} steps, width {width}, counts {seen}, logged "
+                             f"{logged[:12]}, checkpoint {os.path.isfile(ckpt)}")
+    log(f"phase 19 train-ae: python -m talkshow_torch.train s2g_body_ae, batch {TRAIN['batch']}, "
+        f"window {TRAIN['window']}, num_hiddens {TRAIN['num_hiddens']}: {steps} steps in "
+        f"{t_epoch:.1f} s (first cuDNN calls included); {len(logged)} logged values all finite; "
+        f"no kernel launched (the AE has no quantizer); {os.path.basename(ckpt)} written")
+
+    # resume + one step == the uninterrupted run's next step
+    resumed = train_main(argv + ["--run_dir", run_b, "--resume", ckpt])
+    batch = next(trainer.dataset.batches(TRAIN["batch"], np.random.default_rng(99)))
+    batch = trainer.put_batch({"poses": batch["poses"]})
+    _, m_a = trainer.step_fn(trainer.state, batch)
+    _, m_b = resumed.step_fn(resumed.state, resumed.put_batch({"poses": batch["poses"].cpu()}))
+    if not (all(float(m_a[k]) == float(m_b[k]) for k in m_a)
+            and states_equal(trainer.state.state_dict(), resumed.state.state_dict())):
+        raise AssertionError("phase 19: resume + one step differs from the uninterrupted run")
+    log(f"phase 19 resume: ckpt-0 + one step equals the uninterrupted run's next step bit for "
+        f"bit (parameters, BatchNorm statistics, Adam moments; {len(m_a)} metrics)")
+    del resumed
+
+    # one step from one state, CUDA against CPU (B = 8, full width, TF32 off)
+    lr = 1e-4
+
+    def fresh(device):
+        init, step = make_body_ae_step(AE(CONV_DIM, TRAIN["dim"], TRAIN["num_hiddens"]), lr)
+        return init(torch.Generator().manual_seed(19), device), step
+
+    (s_cpu, step_cpu), (s_gpu, step_gpu) = fresh("cpu"), fresh(dev)
+    poses8 = batch["poses"][:8].cpu()
+    conv8 = conv_channels(poses8).double()
+    # an f64 reference on the CPU.  Every gradient of the AE lies behind the
+    # encoder's three levels of batch-statistics BatchNorm (1024 channels at
+    # 176 positions), the decoder's too, since it reads the encoder's output
+    # (phase 11's VQ decoders read codebook rows, equal on both devices):
+    # so all of them carry phase 11's encoder rounding, ~1e-2 of max|g| on
+    # either device, and are held to the f64 reference as its encoder is
+    m64 = copy.deepcopy(s_cpu.model).double().train()
+    sum(recon_losses(m64(conv8), conv8)).backward()
+    g64 = {k: p.grad for k, p in m64.named_parameters()}
+    del m64
+    _, mc = step_cpu(s_cpu, {"poses": poses8})
+    _, mg = step_gpu(s_gpu, {"poses": poses8.to(dev)})
+    rel = max(abs(float(mg[k]) - float(mc[k])) / max(abs(float(mc[k])), 1e-12)
+              for k in ("rec_loss", "velocity_loss"))
+    gmax = max(g.abs().max().item() for g in g64.values())
+    pg = dict(s_gpu.model.named_parameters())
+    errs = {(half, side): 0.0 for half in ("encoder", "decoder") for side in ("gpu", "cpu")}
+    dec_err = p_err = 0.0
+    within = total = 0
+    for k, p in s_cpu.model.named_parameters():
+        gc, gg, gr = p.grad.double(), pg[k].grad.cpu().double(), g64[k]
+        half = k.split(".")[0]
+        errs[half, "gpu"] = max(errs[half, "gpu"], (gg - gr).abs().max().item() / gmax)
+        errs[half, "cpu"] = max(errs[half, "cpu"], (gc - gr).abs().max().item() / gmax)
+        if half == "decoder":
+            dec_err = max(dec_err, (gg - gc).abs().max().item() / gmax)
+        d = (pg[k].detach().cpu() - p.detach()).abs()
+        p_err = max(p_err, d.max().item())
+        within += int((d <= 1e-2 * lr).sum())
+        total += d.numel()
+    bc, bg = s_cpu.model.state_dict(), s_gpu.model.state_dict()
+    stat_err = max((bg[k].cpu() - v).abs().max().item() for k, v in bc.items()
+                   if k.endswith(("running_mean", "running_var")))
+    share = within / total
+    g_gpu = max(errs["encoder", "gpu"], errs["decoder", "gpu"])
+    if not (rel <= 1e-4 and g_gpu <= 2e-2 and stat_err <= 1e-4
+            and p_err <= 2 * lr * (1 + 1e-3) and share >= 0.99):
+        raise AssertionError(f"phase 19 CUDA vs CPU: losses rel {rel}, gradients vs f64 {errs}, "
+                             f"statistics {stat_err}, params {p_err}, share within 1e-2 lr "
+                             f"{share}")
+    log(f"phase 19 CUDA vs CPU, one step from one state (B=8, T={TRAIN['window']}, full width, "
+        f"TF32 off): losses within {rel:.2e} relative <= 1e-4; gradients vs an f64 CPU "
+        f"reference within {errs['encoder', 'gpu']:.2e} (encoder) and "
+        f"{errs['decoder', 'gpu']:.2e} (decoder) of max|g| <= 2e-2, all behind batch-statistics "
+        f"BatchNorm (the CPU's f32: {errs['encoder', 'cpu']:.2e} and "
+        f"{errs['decoder', 'cpu']:.2e}); decoder gradients CUDA vs CPU {dec_err:.2e} "
+        f"(reported); BatchNorm statistics within {stat_err:.2e} <= 1e-4; parameters within "
+        f"{p_err:.2e} <= 2 lr = {2 * lr:g}, {share:.4%} of them within 1e-2 lr >= 99 %")
+    del s_cpu, s_gpu
+
+    p50, lo, hi = step_p50(lambda: trainer.step_fn(trainer.state, batch))
+    log(f"phase 19 body-AE step B={TRAIN['batch']} T={TRAIN['window']}: p50 {p50:.2f} ms (min "
+        f"{lo:.2f}, max {hi:.2f}) over 10 steps, {TRAIN['batch'] / p50 * 1e3:.1f} windows/s "
+        f"[{card}]")
+    return dict(ckpt=ckpt, p50=p50)
+
+
+def write_show_tree(root: str, clips: int, seconds: float) -> None:
+    """A synthetic SHOW test split: `clips` clips of `seconds`, each a
+    `<clip>.pkl` of SMPL-X parameters (the reference's keys; hands as 45
+    PCA coefficients of which the loader keeps 12) and a 16 kHz `<clip>.wav`."""
+    import pickle
+    frames = int(round(seconds * 30))
+    for i in range(clips):
+        rng = np.random.default_rng(100 + i)
+        d = os.path.join(root, SPEAKERS[i % 4], f"video{i}", "test", f"clip{i}")
+        os.makedirs(d)
+        data = {"jaw_pose": 0.1 * rng.standard_normal((frames, 3)),
+                "leye_pose": 0.1 * rng.standard_normal((frames, 3)),
+                "reye_pose": 0.1 * rng.standard_normal((frames, 3)),
+                "global_orient": 0.1 * rng.standard_normal((frames, 3)),
+                "body_pose_axis": 0.2 * rng.standard_normal((frames, 63)),
+                "left_hand_pose": 0.5 * rng.standard_normal((frames, 45)),
+                "right_hand_pose": 0.5 * rng.standard_normal((frames, 45)),
+                "expression": 0.5 * rng.standard_normal((frames, 100)),
+                "betas": 0.5 * rng.standard_normal((1, 300))}
+        with open(os.path.join(d, f"clip{i}.pkl"), "wb") as f:
+            pickle.dump(data, f)
+        write_wav(os.path.join(d, f"clip{i}.wav"), seconds, 200 + i)
+
+
+def metric_values(res) -> list:
+    """Every number of a runner's result (lists, CIs, per-clip values)."""
+    if isinstance(res, dict):
+        return [v for x in res.values() for v in metric_values(x)]
+    if isinstance(res, (list, tuple)):
+        return [v for x in res for v in metric_values(x)]
+    return [float(res)]
+
+
+def rel_err(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def phase20(dev, tmp: str, ckpts: dict) -> dict:
+    """The eval path at full width on the card: a synthetic SHOW tree
+    through `ShowDataset.from_root`, a synthetic SMPL-X rig of the official
+    size through `load_smplx_npz`, the three runners on the trained stages
+    (phases 11, 16, 19), the eval CLI, FGD against an f64 reference, and one
+    2 s clip against the CPU.  Returns what phase 21 times and the launches."""
+    import contextlib
+    import copy
+    import io
+
+    from talkshow_torch.data.dataset import Clip, ShowDataset
+    from talkshow_torch.eval import runners
+    from talkshow_torch.eval.__main__ import (ae_weights, main as eval_main, pixel_weights,
+                                              vq_weights)
+    from talkshow_torch.eval.fgd import FGDEvaluator, frechet_distance_np
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.pixelcnn import gumbel_noise
+    from talkshow_torch.models.vqvae import AE
+    from talkshow_torch.ops.pose import CONV_DIM
+    from talkshow_torch.ops.smplx_lbs import build_synthetic_smplx_arrays, load_smplx_npz
+    from talkshow_torch.pipeline import Pipeline
+    n = EVAL["clips"]
+    root = os.path.join(tmp, "show")
+    write_show_tree(root, n, EVAL["seconds"])
+    t0 = time.time()
+    ds = ShowDataset.from_root(root, SPEAKERS, "test", device=dev)
+    ds_raw = ShowDataset.from_root(root, SPEAKERS, "test", feat="raw", device=dev)
+    t_load = time.time() - t0
+    frames = int(round(EVAL["seconds"] * 30))
+    shapes = {(c.poses.shape, c.aud_feat.shape[1], r.aud_feat.shape) for c, r in
+              zip(ds.clips, ds_raw.clips)}
+    if len(ds.clips) != n or len(ds_raw.clips) != n or shapes != {
+            ((frames, 165), 64, (int(16000 * EVAL["seconds"]), 1))}:
+        raise AssertionError(f"phase 20 from_root: {len(ds.clips)} / {len(ds_raw.clips)} clips, "
+                             f"shapes {shapes}")
+    npz = os.path.join(tmp, "smplx_synthetic.npz")
+    arrays = build_synthetic_smplx_arrays(num_verts=EVAL["verts"])
+    np.savez(npz, **{k: v.astype(np.float32) if v.dtype == np.float64 else v
+                     for k, v in arrays.items()})
+    rig = load_smplx_npz(npz, device=dev)
+    sizes = (rig.v_template.shape[0], len(rig.parents), rig.shapedirs.shape[-1])
+    if sizes != (EVAL["verts"], 55, 400):
+        raise AssertionError(f"phase 20 rig: {sizes}")
+    log(f"phase 20 data: ShowDataset.from_root on a synthetic SHOW tree of {n} clips of "
+        f"{EVAL['seconds']:.0f} s (pkl + 16 kHz wav), MFCC and raw features on the card, in "
+        f"{t_load:.1f} s; SMPL-X rig through load_smplx_npz: {sizes[0]} vertices, {sizes[1]} "
+        f"joints, {sizes[2]} shape + expression directions")
+
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    weights = vq_weights(load(ckpts["vq"]))
+    weights.update(pixel_weights(load(ckpts["pixel"])))
+    pipe = Pipeline.create(seed=0, device=dev).load_converted(weights)
+    ae = AE(CONV_DIM)
+    ae.load_state_dict(ae_weights(load(ckpts["ae"])))
+    ae.to(dev)
+    states = {"body": pipe.body.vq_body_state, "hand": pipe.body.vq_hand_state}
+
+    counts.clear()
+    vq = runners.eval_vq_capacity(pipe.body.vq_body, pipe.body.vq_hand, states, ds)
+    torch.cuda.synchronize()
+    c_vq = dict(counts)
+    ev = FGDEvaluator(ae)
+    counts.clear()
+    body = runners.eval_body(pipe, ae, ds, num_samples=EVAL["samples"], smplx_model=rig,
+                             evaluator=ev)
+    torch.cuda.synchronize()
+    c_body = dict(counts)
+    counts.clear()
+    face = runners.eval_face(pipe.face_model, ds_raw, rig)
+    torch.cuda.synchronize()
+    c_face = dict(counts)
+    values = metric_values([vq, body, face])
+    if not (c_vq.get("nearest_code") == 2 * n and not c_vq.get("nearest_code_plain")
+            and c_body.get("ar_decode") == n and not c_body.get("sample_tokens_plain")
+            and c_face.get("wav2vec_extractor") == n and c_face.get("wav2vec_layers") == n
+            and not c_face.get("face_plain") and not c_face.get("extractor_plain")
+            and all(math.isfinite(v) for v in values)
+            and {"lvd", "bc", "fgd_ci"} <= body.keys() and "face_lvd" in face):
+        raise AssertionError(f"phase 20 runners: counts vq {c_vq}, body {c_body}, face {c_face}; "
+                             f"keys {sorted(body)} {sorted(face)}; finite "
+                             f"{all(math.isfinite(v) for v in values)}")
+    gen, real = np.vstack(ev.gen_feats), np.vstack(ev.real_feats)
+    fgd64 = frechet_distance_np(gen.astype(np.float64), real.astype(np.float64))
+    fgd_rel = rel_err(body["fgd"], fgd64)
+    if not fgd_rel <= 1e-3:
+        raise AssertionError(f"phase 20 FGD: card (f32) {body['fgd']} vs f64 {fgd64}")
+    log(f"phase 20 eval_vq_capacity: capacity_l1 {vq['capacity_l1']:.6f} over {vq['num_clips']} "
+        f"clips; nearest_code launches {c_vq['nearest_code']} = 2 x {n}, plain 0")
+    log(f"phase 20 eval_body (S={EVAL['samples']}, bf16 decode tables): fgd {body['fgd']:.4f} "
+        f"(CI {body['fgd_ci']['p2_5']:.4f}-{body['fgd_ci']['p97_5']:.4f}), feat_mae "
+        f"{body['feat_mae']:.4f}, l2 {body['l2']:.4f}, diversity {body['diversity']:.4f}, lvd "
+        f"{body['lvd']:.4f}, bc {body['bc']:.4f}; ar_decode launches {c_body['ar_decode']} = 1 "
+        f"a clip, plain sampler 0; FGD on the card (f32 eigh) within {fgd_rel:.2e} relative of "
+        f"frechet_distance_np (f64) on the same {gen.shape[0]} + {real.shape[0]} features "
+        f"<= 1e-3")
+    log(f"phase 20 eval_face (f32 tables): jaw_l1 {face['jaw_l1']:.5f}, exp_mse "
+        f"{face['exp_mse']:.5f}, face_lvd {face['face_lvd']:.5f} over {EVAL['verts']} "
+        f"vertices; wav2vec_extractor {c_face['wav2vec_extractor']}, wav2vec_layers "
+        f"{c_face['wav2vec_layers']} launches = 1 a clip each, plain face stage 0; "
+        f"{len(values)} metric values all finite")
+
+    # the eval CLI on the card by default (no --device), the same checkpoints
+    out = io.StringIO()
+    counts.clear()
+    with contextlib.redirect_stdout(out):
+        cli = eval_main(["body", "--data_root", root, "--vq_ckpt", ckpts["vq"], "--body_ckpt",
+                         ckpts["pixel"], "--ae_ckpt", ckpts["ae"], "--smplx_npz", npz])
+    torch.cuda.synchronize()
+    c_cli = dict(counts)
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    if not (c_cli.get("ar_decode") == n and not c_cli.get("sample_tokens_plain")
+            and printed["num_clips"] == n and all(math.isfinite(v) for v in metric_values(cli))):
+        raise AssertionError(f"phase 20 CLI: counts {c_cli}, result {printed.get('num_clips')}")
+    log(f"phase 20 eval CLI: python -m talkshow_torch.eval body (its main(), no --device) on the "
+        f"tree with the phase 11 / 16 / 19 checkpoints and the rig: ar_decode launches "
+        f"{c_cli['ar_decode']}, plain sampler 0; fgd {cli['fgd']:.4f}, l2 {cli['l2']:.4f}, lvd "
+        f"{cli['lvd']:.4f} (the runner above: max relative difference "
+        f"{max(rel_err(cli[k], body[k]) for k in ('fgd', 'l2', 'lvd')):.2e}, reported)")
+
+    # one 2 s clip, card (f32 tables) against the CPU on the same weights and noise
+    T = EVAL["ref_frames"]
+    c0, r0 = ds.clips[0], ds_raw.clips[0]
+    short = ShowDataset([Clip(c0.speaker, c0.poses[:T], c0.expression[:T], c0.aud_feat[:T],
+                              c0.betas)])
+    short_raw = ShowDataset([Clip(r0.speaker, r0.poses[:T], r0.expression[:T],
+                                  r0.aud_feat[:T * 16000 // 30], r0.betas)])
+    ref = Pipeline.create(seed=0, device="cpu").load_converted(weights)
+    ae_cpu = copy.deepcopy(ae).cpu()
+    rig_cpu = load_smplx_npz(npz, device="cpu")
+    noise = gumbel_noise((T // 4, 2, EVAL["samples"], PIXEL["codes"]),
+                         torch.Generator().manual_seed(20), "cpu")
+    p32 = pipe.with_face_dtype(torch.float32)
+    p32.table_dtype = torch.float32
+    tokens = []
+    decode = runners.generate_conv_poses
+
+    def spy(*a, **k):
+        res = decode(*a, **k)
+        tokens.append(res[1].cpu())
+        return res
+
+    runners.generate_conv_poses = spy
+    try:
+        rb_gpu = runners.eval_body(p32, ae, short, EVAL["samples"], smplx_model=rig,
+                                   noise=lambda ci: noise)
+        rb_cpu = runners.eval_body(ref, ae_cpu, short, EVAL["samples"], smplx_model=rig_cpu,
+                                   noise=lambda ci: noise)
+    finally:
+        runners.generate_conv_poses = decode
+    rf_gpu = runners.eval_face(pipe.face_model, short_raw, rig)
+    rf_cpu = runners.eval_face(ref.face_model, short_raw, rig_cpu)
+    errs = {k: rel_err(rb_gpu[k], rb_cpu[k]) for k in ("l2", "lvd")}
+    errs.update({k: rel_err(rf_gpu[k], rf_cpu[k]) for k in ("jaw_l1", "exp_mse", "face_lvd")})
+    if not (len(tokens) == 2 and torch.equal(tokens[0], tokens[1])
+            and max(errs.values()) <= 1e-4):
+        raise AssertionError(f"phase 20 CUDA vs CPU: tokens equal "
+                             f"{len(tokens) == 2 and torch.equal(tokens[0], tokens[1])}, "
+                             f"relative errors {errs}")
+    log(f"phase 20 CUDA vs CPU, one {T / 30:.0f} s clip (f32 decode and face tables, shared "
+        f"noise): tokens equal ({tuple(tokens[0].shape)}); relative differences "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " <= 1e-4; diversity "
+        f"{rel_err(rb_gpu['diversity'], rb_cpu['diversity']):.2e}, fgd "
+        f"{rel_err(rb_gpu['fgd'], rb_cpu['fgd']):.2e} (reported)")
+    del ref, p32, ae_cpu, rig_cpu
+    launches = {"ar_decode": c_body["ar_decode"] + c_cli["ar_decode"],
+                "nearest_code": c_vq["nearest_code"],
+                "wav2vec_layers": c_face["wav2vec_layers"],
+                "wav2vec_extractor": c_face["wav2vec_extractor"]}
+    return dict(pipe=pipe, ae=ae, ev=ev, ds=ds, ds_raw=ds_raw, rig=rig, states=states,
+                launches=launches)
+
+
+def phase21(p20: dict, card: str) -> None:
+    """Each runner's ms per clip and its parts, beside the card."""
+    from talkshow_torch.eval import runners
+    from talkshow_torch.models.body import generate_conv_poses
+    from talkshow_torch.models.wav2vec_fused import face_apply_fused, pack_face_tables
+    from talkshow_torch.ops import pose as pose_ops
+    from talkshow_torch.ops.audio import onset_times
+    from talkshow_torch.ops.smplx_lbs import smplx_forward_talkshow
+    pipe, ae, ev, ds, ds_raw, rig = (p20[k] for k in ("pipe", "ae", "ev", "ds", "ds_raw", "rig"))
+    n, S, dev = len(ds.clips), EVAL["samples"], pipe.device
+    vq_b, vq_h, states = pipe.body.vq_body, pipe.body.vq_hand, p20["states"]
+    totals = {
+        "eval_vq_capacity": cuda_ms(lambda: runners.eval_vq_capacity(vq_b, vq_h, states, ds)),
+        "eval_body": cuda_ms(lambda: runners.eval_body(pipe, ae, ds, S, smplx_model=rig)),
+        "eval_face": cuda_ms(lambda: runners.eval_face(pipe.face_model, ds_raw, rig)),
+    }
+    clip, raw = ds.clips[0], ds_raw.clips[0]
+    T = clip.poses.shape[0] - clip.poses.shape[0] % 4
+    conv = torch.as_tensor(runners._conv_channels(clip.poses[:T]), device=dev)[None]
+    feat = torch.as_tensor(clip.aud_feat[:T], device=dev)[None].expand(S, -1, -1).contiguous()
+    ids = torch.zeros(S, dtype=torch.long, device=dev)
+    gen = torch.Generator().manual_seed(21)
+    betas = torch.as_tensor(clip.betas, device=dev)
+    full = pose_ops.part2full(torch.as_tensor(np.concatenate(
+        [clip.poses[:T, :3], runners._conv_channels(clip.poses[:T]), clip.expression[:T]], -1),
+        device=dev))
+    full_face = torch.as_tensor(np.concatenate([raw.poses, raw.expression], -1), device=dev)
+    wav = torch.as_tensor(raw.aud_feat.reshape(1, -1), device=dev)
+    onehot = torch.zeros((1, 4), device=dev)
+    tables = pack_face_tables(pipe.face_model, torch.float32)
+    with torch.no_grad():
+        pred = generate_conv_poses(pipe.body, feat, ids, generator=gen,
+                                   tables=pipe._decode_tables)[0]
+        parts = {
+            "eval_vq_capacity": {"VQ round trip (K4 x 2)": cuda_ms(lambda: (
+                vq_b(conv[..., :39], states["body"]), vq_h(conv[..., 39:], states["hand"])), 3)},
+            "eval_body": {
+                f"decode S={S} (audio encoder, K1, VQ decoders)": cuda_ms(
+                    lambda: generate_conv_poses(pipe.body, feat, ids, generator=gen,
+                                                tables=pipe._decode_tables), 3),
+                "AE extract (real + generated)": cuda_ms(
+                    lambda: (ev.extract(conv), ev.extract(pred)), 3),
+                "LBS joints (real + generated)": cuda_ms(lambda: [smplx_forward_talkshow(
+                    rig, betas, full, return_verts=False) for _ in range(2)], 3),
+                "onset times": cuda_ms(lambda: onset_times(clip.audio_path, device=dev), 3),
+                f"FGD over {n} clips / {n}": cuda_ms(ev.get_scores, 3) / n,
+                f"bootstrap CI (200 draws, host f64) / {n}": cuda_ms(ev.bootstrap_fgd) / n,
+            },
+            "eval_face": {
+                "face stage (K3 + K2, f32 tables)": cuda_ms(lambda: face_apply_fused(
+                    pipe.face_model, wav, onehot, raw.poses.shape[0], tables=tables), 3),
+                f"LBS vertices x 2 (V={EVAL['verts']})": cuda_ms(lambda: [
+                    smplx_forward_talkshow(rig, betas, full_face) for _ in range(2)], 3),
+            },
+        }
+    for name, total in totals.items():
+        log(f"phase 21 {name}: {total / n:.2f} ms per {EVAL['seconds']:.0f} s clip ({n} clips, "
+            f"{total:.1f} ms a call); parts per clip: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts[name].items()) + f" ms [{card}]")
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1826,6 +2259,19 @@ def main() -> int:
     log(f"launches in training: nearest_code {train['launches']} (stage 1) + "
         f"{pixel['launches']} (stage 2, cache misses); wav2vec_extractor {face['launches']} "
         f"(stage 3, whole clips)")
+
+    # ---- phases 19-21: the body AE and the evaluation path (K1-K4) ------------------
+    ae_run = phase19(dev, tmp, card)
+    evals = phase20(dev, tmp, {"vq": os.path.join(tmp, "run_a", "ckpt-0.pt"),
+                               "pixel": os.path.join(tmp, "pixel_a", "ckpt-1.pt"),
+                               "ae": ae_run["ckpt"]})
+    phase21(evals, card)
+    for k, v in evals["launches"].items():
+        path_launches[k] += v
+    k4_launches += evals["launches"]["nearest_code"]
+    log("launches on the eval path (the runners and the eval CLI): " + ", ".join(
+        f"{k} {v}" for k, v in evals["launches"].items()))
+    del evals
 
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs

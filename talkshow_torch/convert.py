@@ -1,10 +1,11 @@
 """Weights of the JAX package, and the reference's .pth checkpoints ->
 state dicts of the port.
 
-`from_jax(face_vars, body_vars)` takes the flax variable trees of a
-talkshow_tpu Pipeline as numpy arrays (the caller runs
-``jax.tree.map(np.asarray, tree)``; this module imports no JAX) and returns
-the port's state dicts and VQStates, ready for `Pipeline.load_converted`.
+`from_jax(face_vars, body_vars[, ae_vars])` takes the flax variable trees
+of a talkshow_tpu Pipeline (and of the body AE, the FGD feature net) as
+numpy arrays (the caller runs ``jax.tree.map(np.asarray, tree)``; this
+module imports no JAX) and returns the port's state dicts and VQStates,
+ready for `Pipeline.load_converted` (and `AE.load_state_dict`).
 
 It inverts the torch -> flax layout mapping of
 talkshow_tpu/convert/talkshow.py:107-296 and convert/wav2vec.py:
@@ -17,9 +18,10 @@ talkshow_tpu/convert/talkshow.py:107-296 and convert/wav2vec.py:
 
 The second half reads the reference TalkSHOW trainer's checkpoints (a
 torch-layout copy of what talkshow_tpu/convert/talkshow.py:27-304 reads):
-`reference_face`, `reference_body_vq` and `reference_body_pixel` take the
-loaded `.pth` object and return the port's state dicts, which
-`Pipeline.from_torch_checkpoints` loads strictly.  The port keeps the
+`reference_face`, `reference_body_vq`, `reference_body_pixel` and
+`reference_body_ae` take the loaded `.pth` object and return the port's
+state dicts, which `Pipeline.from_torch_checkpoints` (and `AE`) load
+strictly.  The port keeps the
 reference's parameter names, so most keys pass unchanged; what differs is
 DataParallel's `module.` prefixes, the Trainer nesting, the face heads'
 names, the weight-normed positional conv, the PixelCNN's 1x1 convs (the
@@ -98,6 +100,12 @@ def convert_vqvae(variables: dict) -> dict:
     """flax VQVAE variables -> port VQVAE state dict (encoder and decoder).
     Also maps an Adam moment tree shaped like the params: pass it as
     {"params": tree}."""
+    return _convert(variables, _CONV_STACK)
+
+
+def convert_ae(variables: dict) -> dict:
+    """flax AE variables -> port AE state dict (the VQVAE's names, no
+    quantizer).  Also maps an Adam moment tree: pass {"params": tree}."""
     return _convert(variables, _CONV_STACK)
 
 
@@ -227,15 +235,32 @@ def from_jax_face_state(state) -> dict:
             "step": int(np.asarray(state.step))}
 
 
-def from_jax(face_vars: dict, body_vars: dict) -> dict:
+def from_jax_body_ae_state(state) -> dict:
+    """A JAX `train.steps.BodyAEState` (numpy leaves) -> the port's body-AE
+    state, for `train.steps.BodyAEState.load_converted`.
+
+    Returns {"ae": AE state dict (params + BatchNorm statistics),
+    "exp_avg", "exp_avg_sq": {"ae": state dicts of the Adam moments},
+    "adam_step": optax's count, "nonfinite_count", "step": ints}."""
+    adam = _find(state.opt_state["inner"], "mu")
+    return {"ae": convert_ae({"params": state.params, "batch_stats": state.batch_stats}),
+            "exp_avg": {"ae": convert_ae({"params": adam.mu})},
+            "exp_avg_sq": {"ae": convert_ae({"params": adam.nu})},
+            "adam_step": int(np.asarray(adam.count)),
+            "nonfinite_count": int(np.asarray(state.opt_state["nonfinite_count"])),
+            "step": int(np.asarray(state.step))}
+
+
+def from_jax(face_vars: dict, body_vars: dict, ae_vars: dict | None = None) -> dict:
     """Flax trees (numpy leaves) -> the port's weights.
 
     face_vars: the JAX Pipeline's `face_vars`; body_vars: a dict with the
     JAX BodyModels fields vq_body_vars, vq_hand_vars, vq_body_state,
     vq_hand_state, audio_enc_vars and prior_vars (the JAX Pipeline's
-    `_body_arrays`).  Returns {"face", "vq_body", "vq_hand", "audio_enc",
-    "prior": state dicts, "vq_body_state", "vq_hand_state": VQState}."""
-    return {
+    `_body_arrays`); ae_vars: the variables of a JAX `AE` (optional).
+    Returns {"face", "vq_body", "vq_hand", "audio_enc", "prior"[, "ae"]:
+    state dicts, "vq_body_state", "vq_hand_state": VQState}."""
+    out = {
         "face": convert_face(face_vars),
         "vq_body": convert_vqvae(body_vars["vq_body_vars"]),
         "vq_hand": convert_vqvae(body_vars["vq_hand_vars"]),
@@ -244,6 +269,9 @@ def from_jax(face_vars: dict, body_vars: dict) -> dict:
         "vq_body_state": _vq_state(body_vars["vq_body_state"]),
         "vq_hand_state": _vq_state(body_vars["vq_hand_state"]),
     }
+    if ae_vars is not None:
+        out["ae"] = convert_ae(ae_vars)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +343,23 @@ def reference_body_pixel(ckpt: dict) -> dict:
     gen = _wrapper(ckpt, "audioencoder")
     return {"prior": reference_pixelcnn(gen["generator"]),
             "audio_enc": _float(strip_module_prefix(gen["audioencoder"]))}
+
+
+#: the reference AE decoder's parameters that its forward never reads
+#: (vqvae_1d.py:135-139)
+_AE_DEAD = ("decoder.frame_enc.", "decoder.gru_sl.")
+
+
+def reference_body_ae(ckpt: dict) -> dict:
+    """The reference FGD feature extractor (nets/body_ae.py; the Trainer
+    file {'generator': {'g': AE state dict, 'g_optim', ..}}, the wrapper
+    state, or the bare state dict) -> the port's AE state dict, without
+    the decoder's dead frame_enc / gru_sl parameters."""
+    sd = ckpt.get("generator", ckpt)
+    if "g" in sd:
+        sd = sd["g"]
+    sd = strip_module_prefix(sd)
+    return _float({k: v for k, v in sd.items() if not k.startswith(_AE_DEAD)})
 
 
 _FACE_REF = [(r"^decoder\.0\.", "heads.jaw_cnr."), (r"^decoder\.1\.", "heads.exp_cnr."),

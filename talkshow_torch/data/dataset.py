@@ -1,25 +1,39 @@
-"""SHOW-dataset windowing and pose normalisation, host-side, numpy only.
+"""SHOW-dataset loading, windowing and pose normalisation, host-side.
 
-Copies of talkshow_tpu/data/dataset.py:34-49,158-318: `Clip`,
-`ShowDataset.train_windows` / `batches` / `face_batches` / `whole_clips`,
-`synthetic_dataset`, `compute_norm_stats`, `normalize_poses` and
-`denormalize_poses`; and `synthetic_face_dataset`, the raw-waveform clips
-that scripts/train.py:79-99 makes for the face stage.  For the same seed
-the windows and batches equal the JAX package's bit for bit
-(tests/test_torch_train.py, tests/test_torch_train_face.py).  Loading the
-real SHOW layout (`ShowDataset.from_root`) waits until that dataset is in
-the repository (ROADMAP.md).
+Copies of talkshow_tpu/data/dataset.py:34-318: `Clip`,
+`ShowDataset.from_root` / `load_clip` / `train_windows` / `batches` /
+`face_batches` / `whole_clips`, `synthetic_dataset`, `compute_norm_stats`,
+`normalize_poses` and `denormalize_poses`; and `synthetic_face_dataset`,
+the raw-waveform clips that scripts/train.py:79-99 makes for the face
+stage.  For the same seed the windows and batches equal the JAX package's
+bit for bit (tests/test_torch_train.py, tests/test_torch_train_face.py).
+
+`from_root` walks `data_root/<speaker>/<video>/<split>/<clip>/` for a
+`<clip>.pkl` (SMPL-X parameters) and a `<clip>.wav`, as the JAX loader:
+99-D packed pose -> hand PCA expanded -> 165-D (-> 330-D 6-D with
+`convert_to_6d`), expression, betas, and the audio feature, computed once
+per clip: the MFCC of `ops/audio.get_mfcc` on `device` (the JAX loader's
+native C++ featurizer is not ported) or the raw 16 kHz waveform.  The
+preprocessed split may be pickled to `cache_pkl`, keyed by the JAX
+loader's signature of the clip tree and the featurization; a cache the
+JAX package wrote (its `Clip` class) reads as stale and is rebuilt.
 
 Arrays are channels-last: poses (T, 165), expression (T, 100), aud_feat
 (T, 64), or (N, 1) raw 16 kHz samples for the face stage.
 """
 from __future__ import annotations
 
+import hashlib
+import os
+import pickle
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
-from talkshow_torch.ops.pose import SPEAKER_ID
+from talkshow_torch.ops import audio as audio_ops
+from talkshow_torch.ops.pose import SPEAKER_ID, axis_angle_poses_to_6d, hand_pca_to_full
 
 
 @dataclass
@@ -43,6 +57,93 @@ class ShowDataset:
     generate_length: int = 88
     pre_length: int = 0
     seed: int = 0
+
+    @classmethod
+    def from_root(cls, data_root: str, speakers, split: str = "train", feat: str = "mfcc",
+                  cache_pkl: str | None = None, generate_length: int = 88, fps: int = 30,
+                  audio_sr: int = 22000, limit: int | None = None,
+                  convert_to_6d: bool = False, device="cuda") -> "ShowDataset":
+        """Walk the SHOW layout and preprocess every clip of `split` (eight
+        threads).  The pickle cache is keyed by a signature of the clip tree
+        found and the featurization, so a grown split or another feature
+        rebuilds it."""
+        jobs = []
+        for speaker in speakers:
+            sp_dir = os.path.join(data_root, speaker)
+            if not os.path.isdir(sp_dir):
+                continue
+            for vid in sorted(os.listdir(sp_dir)):
+                split_dir = os.path.join(sp_dir, vid, split)
+                if not os.path.isdir(split_dir):
+                    continue
+                for clip_name in sorted(os.listdir(split_dir)):
+                    cdir = os.path.join(split_dir, clip_name)
+                    pkls = [f for f in os.listdir(cdir) if f.endswith(".pkl")]
+                    wavs = [f for f in os.listdir(cdir) if f.endswith(".wav")]
+                    if pkls and wavs:
+                        jobs.append((speaker, os.path.join(cdir, pkls[0]),
+                                     os.path.join(cdir, wavs[0])))
+        if limit:
+            jobs = jobs[:limit]
+
+        sig = hashlib.sha1(repr((sorted(j[1] for j in jobs), feat, fps, audio_sr,
+                                 convert_to_6d)).encode()).hexdigest()
+        if cache_pkl and os.path.isfile(cache_pkl):
+            cached = _load_cache(cache_pkl)
+            if isinstance(cached, dict) and cached.get("sig") == sig:
+                return cls(cached["clips"], generate_length)
+            print(f"[dataset] cache {cache_pkl} is stale (tree/featurization changed, or "
+                  "not written by this package) — rebuilding")
+
+        with ThreadPoolExecutor(max_workers=min(8, max(1, len(jobs)))) as ex:
+            clips = list(ex.map(
+                lambda j: cls.load_clip(j[1], j[2], j[0], feat=feat, fps=fps,
+                                        audio_sr=audio_sr, convert_to_6d=convert_to_6d,
+                                        device=device), jobs))
+        clips = [c for c in clips if c is not None]
+        if cache_pkl:
+            with open(cache_pkl, "wb") as f:
+                pickle.dump({"sig": sig, "clips": clips}, f)
+        return cls(clips, generate_length)
+
+    @staticmethod
+    def load_clip(pkl_path: str, wav_path: str, speaker: str, feat: str = "mfcc",
+                  fps: int = 30, audio_sr: int = 22000, convert_to_6d: bool = False,
+                  device="cuda") -> Clip | None:
+        """One clip's pkl + wav -> Clip (mesh_dataset._load_them_all
+        :166-222), or None when the pkl lacks a key or holds a non-finite
+        or mis-sized pose."""
+        with open(pkl_path, "rb") as f:
+            data = pickle.load(f)
+        try:
+            jaw = np.asarray(data["jaw_pose"])
+            leye = np.asarray(data["leye_pose"])
+            reye = np.asarray(data["reye_pose"])
+            orient = np.asarray(data["global_orient"]).squeeze()
+            body = np.asarray(data["body_pose_axis"])
+            lh = np.asarray(data["left_hand_pose"])
+            rh = np.asarray(data["right_hand_pose"])
+            expression = np.asarray(data["expression"])
+            betas = np.asarray(data["betas"]).reshape(-1)
+        except KeyError:
+            return None
+        packed = np.concatenate([jaw, leye, reye, orient.reshape(len(jaw), 3),
+                                 body, lh[:, :12], rh[:, :12]], axis=1)
+        if packed.shape[1] != 99 or not np.isfinite(packed).all():
+            return None
+        poses = hand_pca_to_full(packed).astype(np.float32)
+        if convert_to_6d:
+            poses = axis_angle_poses_to_6d(torch.as_tensor(poses, device=device)).cpu().numpy()
+        if feat == "mfcc":
+            with torch.no_grad():
+                aud = audio_ops.get_mfcc(wav_path, sr=audio_sr, fps=fps,
+                                         device=device).cpu().numpy()
+        elif feat == "raw":
+            aud = audio_ops.get_raw_16k(wav_path)
+        else:
+            raise ValueError(feat)
+        return Clip(speaker, poses, expression.astype(np.float32),
+                    np.asarray(aud, np.float32), betas.astype(np.float32), wav_path)
 
     def train_windows(self, rng: np.random.Generator):
         """Yield per-window samples: stride-6 start indices with the
@@ -161,6 +262,26 @@ class ShowDataset:
                 "betas": clip.betas,
                 "audio_path": clip.audio_path,
             }
+
+
+class _CacheUnpickler(pickle.Unpickler):
+    """Reads this package's classes and numpy's only: a cache another
+    package wrote (the JAX loader pickles its own `Clip`) is refused before
+    anything of that package is imported."""
+    ALLOWED = ("talkshow_torch", "numpy")
+
+    def find_class(self, module, name):
+        if module.split(".")[0] not in self.ALLOWED:
+            raise pickle.UnpicklingError(f"{module}.{name} is not a class of this cache")
+        return super().find_class(module, name)
+
+
+def _load_cache(path: str):
+    with open(path, "rb") as f:
+        try:
+            return _CacheUnpickler(f).load()
+        except pickle.UnpicklingError:
+            return None
 
 
 def synthetic_dataset(num_clips: int = 4, frames: int = 240, seed: int = 0,

@@ -1,10 +1,13 @@
-"""1-D conv VQ-VAE for body/hand motion tokens and the MFCC audio encoder
-(port of talkshow_tpu/models/vqvae.py:28-107,131-150).
+"""1-D conv VQ-VAE for body/hand motion tokens, the plain body
+autoencoder and the MFCC audio encoder (port of
+talkshow_tpu/models/vqvae.py:28-150).
 
 Inference needs only the decode half: tokens -> codebook lookup -> Decoder
 (T/4 -> T).  Training (stage 1) runs the whole VQ-VAE: Encoder (T -> T/4)
 -> EMA quantizer (`ops/vq.quantize_train`, K4 on the card) -> Decoder; the
-prior's token encode runs Encoder -> `ops/vq.quantize`.
+prior's token encode and the VQ capacity eval run Encoder ->
+`ops/vq.quantize`.  `AE` is the same trunk without the quantizer: the FGD
+feature net (nets/body_ae.py), trained by `train.steps.make_body_ae_step`.
 """
 from __future__ import annotations
 
@@ -99,6 +102,26 @@ class VQVAE(nn.Module):
                        vq_state: vq_ops.VQState) -> torch.Tensor:
         """(B, W) int tokens -> (B, W*4, C) poses."""
         return self.decoder(vq_ops.lookup(vq_state, indices))
+
+
+class AE(nn.Module):
+    """Plain autoencoder over the conv channels, the FGD feature net
+    (vqvae_1d.py:211-235, nets/body_ae.py): poses (B, T, in_dim) -> encode
+    (B, T/4, embedding_dim) -> decode (B, T, in_dim).  The module's mode
+    selects batch-statistics BatchNorm, as the JAX `train` flag does.
+    Registered as VQVAE (decoder first), so `init_weights_` draws alike."""
+
+    def __init__(self, in_dim: int, embedding_dim: int = 64,
+                 num_hiddens: int = 1024, num_residual_layers: int = 2):
+        super().__init__()
+        self.decoder = Decoder(in_dim, embedding_dim, num_hiddens, num_residual_layers)
+        self.encoder = Encoder(in_dim, embedding_dim, num_hiddens, num_residual_layers)
+
+    def forward(self, poses: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.encoder(poses))
+
+    def encode(self, poses: torch.Tensor) -> torch.Tensor:
+        return self.encoder(poses)
 
 
 class AudioEncoder(nn.Module):

@@ -1,12 +1,17 @@
-"""Audio front end: wav loading, sinc resampling and MFCC, in PyTorch.
+"""Audio front end: wav loading, sinc resampling, MFCC and onset times, in
+PyTorch.
 
-Port of talkshow_tpu/ops/audio.py:39-257.  The numpy tables (polyphase
+Port of talkshow_tpu/ops/audio.py:39-354.  The numpy tables (polyphase
 resampling kernel, periodic Hann window, HTK mel filterbank, orthonormal
 DCT-II) are copied, not imported, and tests/test_torch_ops.py holds them
 equal to the originals.  Everything after `load_wav` runs on the device of
 the waveform tensor: framing is `unfold` over a reflect-padded signal, the
 power spectrum is `torch.fft.rfft`, and the mel projection and DCT are
 matmuls.
+
+`onset_times` (the beat-consistency metric's audio beats) computes its
+power spectrogram on the device and its slaney mel projection, spectral
+flux and peak picking on the host in numpy, as the JAX module does.
 
 `mfcc` takes a waveform (T,) or a batch (N, T); the amplitude_to_db floor
 (`max - top_db`) is taken over each clip on its own, as the reference
@@ -206,3 +211,91 @@ def get_mfcc_sepa(audio_fn: str, sr: int = 16000, fps: int = 30,
     a = mfcc(x[: sr * 2], sr, fps=fps)
     b = mfcc(x[sr * 2:], sr, fps=fps)
     return torch.cat([a, b], dim=0), a.shape[0]
+
+
+def get_raw_16k(audio_fn: str) -> np.ndarray:
+    """wav path -> the raw 16 kHz waveform (N, 1) float32, the 'faceformer'
+    feature (utils.py:196-198); resampled on the host when the file is at
+    another rate."""
+    x, sr0 = load_wav(audio_fn)
+    if sr0 != 16000:
+        x = resample(torch.as_tensor(x), sr0, 16000).numpy()
+    return x.reshape(-1, 1)
+
+
+def onset_times(audio_fn: str, sr: int = 16000, device: torch.device | str = "cuda") -> np.ndarray:
+    """Spectral-flux onset detection in seconds (librosa.onset.onset_detect,
+    units='time'), the audio beats of beat consistency (utils.py:202): mel
+    spectrogram (n_fft 2048, hop 512, 128 slaney mels) -> dB with an 80 dB
+    floor -> positive first difference averaged over bands -> librosa's
+    default peak picking.  The spectrogram runs on `device`."""
+    x, sr0 = load_wav(audio_fn)
+    xt = torch.as_tensor(x, device=device)
+    if sr0 != sr:
+        xt = resample(xt, sr0, sr)
+    hop = 512
+    power = power_spectrogram(xt, 2048, hop).cpu().numpy()
+    mel = power @ _slaney_mel_fb(sr, 2048, 128)
+    S = 10.0 * np.log10(np.maximum(mel, 1e-10))
+    S = np.maximum(S, S.max() - 80.0)
+    flux = np.maximum(0.0, S[1:] - S[:-1]).mean(axis=1)
+    env = np.concatenate([[0.0], flux])
+    return _peak_pick(env, sr=sr, hop=hop) * hop / sr
+
+
+@lru_cache(maxsize=4)
+def _slaney_mel_fb(sr: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """Slaney-scale, area-normalised mel filterbank (librosa's default),
+    (n_freqs, n_mels) float32."""
+    n_freqs = n_fft // 2 + 1
+    all_freqs = np.linspace(0.0, sr / 2.0, n_freqs)
+
+    def hz_to_mel(f):
+        f = np.asarray(f, dtype=np.float64)
+        mel = 3.0 * f / 200.0
+        log_region = f >= 1000.0
+        return np.where(log_region,
+                        15.0 + np.log(np.maximum(f, 1e-12) / 1000.0) / (np.log(6.4) / 27.0), mel)
+
+    def mel_to_hz(m):
+        m = np.asarray(m, dtype=np.float64)
+        f = 200.0 * m / 3.0
+        log_region = m >= 15.0
+        return np.where(log_region, 1000.0 * np.exp((np.log(6.4) / 27.0) * (m - 15.0)), f)
+
+    m_pts = np.linspace(hz_to_mel(0.0), hz_to_mel(sr / 2.0), n_mels + 2)
+    f_pts = mel_to_hz(m_pts)
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    fb = np.maximum(0.0, np.minimum(down, up))
+    enorm = 2.0 / (f_pts[2: n_mels + 2] - f_pts[:n_mels])
+    return (fb * enorm[None, :]).astype(np.float32)
+
+
+def _peak_pick(env: np.ndarray, sr: int, hop: int) -> np.ndarray:
+    """librosa.util.peak_pick with onset_detect's default windows:
+    pre_max 0.03 s, post_max 1 frame, pre_avg 0.10 s, post_avg 0.10 s + 1
+    frame, wait 0.03 s, delta 0.07."""
+    pre_max = int(0.03 * sr // hop)
+    post_max = int(0.00 * sr // hop) + 1
+    pre_avg = int(0.10 * sr // hop)
+    post_avg = int(0.10 * sr // hop) + 1
+    wait = int(0.03 * sr // hop)
+    delta = 0.07
+    n = len(env)
+    peaks = []
+    last = -1 - wait
+    for i in range(n):
+        lo_m, hi_m = max(0, i - pre_max), min(n, i + post_max)
+        if env[i] != env[lo_m:hi_m].max():
+            continue
+        lo_a, hi_a = max(0, i - pre_avg), min(n, i + post_avg)
+        if env[i] < env[lo_a:hi_a].mean() + delta:
+            continue
+        if i - last <= wait:
+            continue
+        last = i
+        peaks.append(i)
+    return np.asarray(peaks, dtype=np.int64)

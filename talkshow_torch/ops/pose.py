@@ -1,17 +1,31 @@
-"""SMPL-X pose-vector layout constants and `part2full`.
+"""SMPL-X pose-vector layout, channel masks and composition helpers
+(port of talkshow_tpu/ops/pose.py).
 
-Copied from talkshow_tpu/ops/pose.py:40-89,149-175 (numpy tables, held
-equal to the originals by tests/test_torch_ops.py).  One frame of the
+The numpy tables are copied from talkshow_tpu/ops/pose.py:40-89 and held
+equal to the originals by tests/test_torch_ops.py.  One frame of the
 canonical layout is 165 axis-angle channels + 100 expression = 265; the
-body models work on the 129 "conversational" channels `C_INDEX_3D`, and
-`part2full` re-inserts a canned lower body into [jaw | conv129 | exp100].
-The reference's channel asymmetry (mask drops joints 11,12; part2full
-re-inserts at joints 9,10) is reproduced as-is, see the JAX module.
+body models work on the 129 "conversational" channels `C_INDEX_3D` (258
+for the 6-D layout, `C_INDEX_6D`), and `part2full` re-inserts a canned
+lower body into [jaw | conv129 | exp100].  The reference's channel
+asymmetry (mask drops joints 11,12; part2full re-inserts at joints 9,10)
+is reproduced as-is, see the JAX module.
+
+The raw dataset stores each hand as 12 PCA coefficients; `hand_pca_to_full`
+expands them with the MANO components of `assets/hand_component.json`, the
+port's own copy of the JAX package's asset (found there, or in the
+directory that TALKSHOW_ASSETS names).  The tensor helpers run on the
+device and dtype of their input.
 """
 from __future__ import annotations
 
+import json
+import os
+from functools import lru_cache
+
 import numpy as np
 import torch
+
+from talkshow_torch.ops import rotation
 
 FULL_POSE_DIM = 165
 EXPRESSION_DIM = 100
@@ -80,3 +94,126 @@ def part2full(pred: torch.Tensor, stand: bool = False) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+# ---------------------------------------------------------------------------
+# hand PCA expansion (host side, numpy)
+# ---------------------------------------------------------------------------
+
+def _default_asset_dirs():
+    env = os.environ.get("TALKSHOW_ASSETS")
+    dirs = [env] if env else []
+    dirs += [os.path.join(os.path.dirname(__file__), "..", "assets")]
+    return [d for d in dirs if d and os.path.isdir(d)]
+
+
+@lru_cache(maxsize=1)
+def load_hand_components(path: str | None = None):
+    """MANO hand PCA components (`hand_component.json`) -> (left, right),
+    each (45, 45) float64: row i is the i-th component over the 45
+    axis-angle hand channels."""
+    if path is None:
+        for d in _default_asset_dirs():
+            cand = os.path.join(d, "hand_component.json")
+            if os.path.isfile(cand):
+                path = cand
+                break
+    if path is None:
+        raise FileNotFoundError("hand_component.json not found; set TALKSHOW_ASSETS or pass a path")
+    with open(path) as f:
+        comp = json.load(f)
+    return np.asarray(comp["left"]), np.asarray(comp["right"])
+
+
+def hand_pca_to_full(packed99: np.ndarray, components=None) -> np.ndarray:
+    """The packed 99-D pose [jaw, eyes, orient, body63, lpca12, rpca12]
+    (T, 99) -> the 165-D layout, with the first 12 PCA components
+    (mesh_dataset.py:22-26)."""
+    if components is None:
+        components = load_hand_components()
+    left_c, right_c = components
+    left = packed99[:, 75:87] @ left_c[:12, :]
+    right = packed99[:, 87:99] @ right_c[:12, :]
+    return np.concatenate([packed99[:, :75], left, right], axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# channel extraction and recomposition (tensors)
+# ---------------------------------------------------------------------------
+
+def full_to_conv(poses: torch.Tensor, rep6d: bool = False) -> torch.Tensor:
+    """The conversational channels of (..., 165) poses [or (..., 330) 6-D]."""
+    idx = C_INDEX_6D if rep6d else C_INDEX_3D
+    return poses[..., torch.as_tensor(idx, device=poses.device)]
+
+
+def _lower(lp: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    lp = torch.as_tensor(lp, dtype=like.dtype, device=like.device)
+    return lp.expand(like.shape[:-1] + (33,))
+
+
+def poses2pred(full: torch.Tensor, stand: bool = False) -> torch.Tensor:
+    """The lower-body channels of a FULL (..., 265) pose replaced by the
+    canned pose (lower_body.py:117-133)."""
+    lp = _lower(LOWER_POSE_STAND if stand else LOWER_POSE, full)
+    return torch.cat([full[..., 0:3], lp[..., 0:15], full[..., 18:21], lp[..., 15:21],
+                      full[..., 27:30], lp[..., 21:27], full[..., 36:39], lp[..., 27:33],
+                      full[..., 45:]], dim=-1)
+
+
+def _first_frame(gt: torch.Tensor, like: torch.Tensor, s: int, e: int) -> torch.Tensor:
+    return gt[0:1, s:e].expand(like.shape[:-1] + (e - s,))
+
+
+def pred2poses(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Predicted channels blended with the first GT frame's lower body
+    (lower_body.py:90-101)."""
+    rep = lambda s, e: _first_frame(gt, pred, s, e)
+    return torch.cat([pred[..., 0:3], rep(3, 18), pred[..., 3:6], rep(21, 27),
+                      pred[..., 6:9], rep(30, 36), pred[..., 9:12], rep(39, 45),
+                      pred[..., 12:]], dim=-1)
+
+
+def poses2poses(full: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """The lower-body channels of a FULL pose replaced by the first GT
+    frame's (lower_body.py:104-116)."""
+    rep = lambda s, e: _first_frame(gt, full, s, e)
+    return torch.cat([full[..., 0:3], rep(3, 18), full[..., 18:21], rep(21, 27),
+                      full[..., 27:30], rep(30, 36), full[..., 36:39], rep(39, 45),
+                      full[..., 45:]], dim=-1)
+
+
+def split_jaw_body_exp(face_out: torch.Tensor):
+    """Face-generator output (..., 103) -> (jaw (..., 3), expression (..., 100))."""
+    return face_out[..., :3], face_out[..., 3:]
+
+
+# ---------------------------------------------------------------------------
+# rotation representations of the pose vector
+# ---------------------------------------------------------------------------
+
+def axis_angle_poses_to_6d(poses165: torch.Tensor) -> torch.Tensor:
+    """(T, 165) axis-angle -> (T, 330) 6-D (mesh_dataset.py:187-191)."""
+    aa = poses165.reshape(poses165.shape[0], 55, 3)
+    return rotation.axis_angle_to_rotation_6d(aa).reshape(poses165.shape[0], 330)
+
+
+def pose6d_to_axis_angle(poses330: torch.Tensor) -> torch.Tensor:
+    """(T, 330) 6-D -> (T, 165) axis-angle (scripts/demo.py:216-219)."""
+    d6 = poses330.reshape(poses330.shape[0], -1, 6)
+    return rotation.rotation_6d_to_axis_angle(d6).reshape(poses330.shape[0], -1)
+
+
+def pose5d_to_axis_angle(poses: torch.Tensor, expression: bool = True) -> torch.Tensor:
+    """The legacy '5d' layout (axis3 + sin + cos per joint) -> axis-angle,
+    the eval-time to3d (data_utils/get_j.py:4-17).  Input (T, 275[+100])."""
+    exp = None
+    if expression:
+        exp = poses[:, -100:]
+        poses = poses[:, :-100]
+    p = poses.reshape(poses.shape[0], -1, 5)
+    angle = torch.atan2(p[:, :, 3], p[:, :, 4])
+    aa = (p[:, :, :3] * angle[..., None]).reshape(poses.shape[0], -1)
+    if exp is not None:
+        aa = torch.cat([aa, exp], dim=-1)
+    return aa

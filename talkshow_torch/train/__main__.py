@@ -18,13 +18,18 @@ comes from the config's Model.model_name:
   stage-1 VQs of `--vq_ckpt` (a `ckpt-*.pt` of this trainer's s2g_body_vq
   run) or Model.vq_path, cached per window unless `--no_token_cache`;
 - s2g_face: the face generator (wav2vec 2.0 base) on whole clips at batch
-  1, or `--face_bucket` frames' length buckets of `--face_batch_size`.
+  1, or `--face_bucket` frames' length buckets of `--face_batch_size`;
+- s2g_body_ae: the body AE, the FGD feature net (`AE(in_dim=129,
+  num_hiddens=vq_num_hiddens)`, as scripts/train.py:172-178), on the
+  windows' poses at the generator learning rate.
 
 The window stages' synthetic dataset holds at least SYNTHETIC_STEPS
 batches per epoch at the config's batch size and window; the face stage's
 is the four raw-waveform clips of about 8 s that scripts/train.py makes.
 Any other stage raises and names the ROADMAP.md item that ports it.  Only
-synthetic data is supported until the SHOW dataset loader is ported.
+synthetic data is wired in: the SHOW loader (`ShowDataset.from_root`) is
+ported and the eval CLI reads it, but training on it waits with the 6-D
+pose variant (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -37,15 +42,15 @@ from talkshow_torch.config import Config
 from talkshow_torch.data.dataset import synthetic_dataset, synthetic_face_dataset
 from talkshow_torch.models.face import FaceGenerator
 from talkshow_torch.models.pixelcnn import GatedPixelCNN
-from talkshow_torch.models.vqvae import VQVAE, AudioEncoder
-from talkshow_torch.ops.pose import BODY_DIM, HAND_DIM
+from talkshow_torch.models.vqvae import AE, VQVAE, AudioEncoder
+from talkshow_torch.ops.pose import BODY_DIM, CONV_DIM, HAND_DIM
 from talkshow_torch.ops.vq import VQState
-from talkshow_torch.train.steps import (make_body_pixel_step, make_body_vq_step,
-                                        make_face_step, make_token_encoder)
+from talkshow_torch.train.steps import (make_body_ae_step, make_body_pixel_step,
+                                        make_body_vq_step, make_face_step,
+                                        make_token_encoder)
 from talkshow_torch.train.trainer import Trainer
 
 NOT_PORTED = {
-    "s2g_body_ae": "ROADMAP.md Queue 1 item 7 (the body-AE step)",
     "s2g_LS3DCG": "ROADMAP.md Queue 1 item 7 (the LS3DCG step)",
 }
 #: least batches per epoch of the synthetic dataset, whatever the batch size
@@ -70,7 +75,7 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--resume", default=None, help="checkpoint file to resume")
     p.add_argument("--synthetic", action="store_true",
-                   help="use a synthetic dataset (the only data source ported yet)")
+                   help="use a synthetic dataset (the only data source wired in yet)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--vq_ckpt", default=None,
@@ -136,6 +141,11 @@ def build_stage(cfg: Config, args) -> dict:
         return dict(dataset=ds, init_state_fn=init_state, step_fn=step, needs_rng=True,
                     batch_mode="face_clips", face_bucket_frames=args.face_bucket,
                     face_batch_size=args.face_batch_size)
+    if name == "s2g_body_ae":
+        ae = AE(CONV_DIM, num_hiddens=cfg.model.vq_num_hiddens)
+        init_state, step = make_body_ae_step(ae, lr)
+        return dict(dataset=synthetic_for(cfg), init_state_fn=init_state, step_fn=step,
+                    batch_keys=("poses",))
     raise SystemExit(f"unknown stage {name}")
 
 
@@ -150,8 +160,8 @@ def main(argv=None) -> Trainer:
     if cfg.data.pose.convert_to_6d:
         raise SystemExit("the 6-D pose variant is not ported yet: ROADMAP.md Queue 1 item 7")
     if not args.synthetic:
-        raise SystemExit("loading the SHOW dataset is not ported yet (ROADMAP.md Queue 1 "
-                         "item 7); pass --synthetic")
+        raise SystemExit("training on the SHOW dataset is not wired into this CLI yet "
+                         "(ROADMAP.md Queue 1 item 7); pass --synthetic")
     device = torch.device(args.device)
     if device.type == "cuda":
         # f32 sums, and deterministic cuDNN algorithms, so that a resumed

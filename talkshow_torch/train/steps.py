@@ -20,6 +20,10 @@ bucketed batches), the rest trains with clip-by-global-norm then SGD with
 momentum; L1 on the first 6 channels + MSE on the last 100, over real
 frames only for bucketed batches.
 
+The body AE (`make_body_ae_step`, steps.py:406-444), the FGD feature net:
+the plain autoencoder over the 129 conv channels, L1 reconstruction + L1
+velocity, Adam with the non-finite skip; no quantizer, so no kernel.
+
 The stochastic steps take a `torch.Generator` for their dropout and
 SpecAugment draws; a batch may instead carry the masks (`aud_keep`;
 `spec_starts`, `drop_keep`), which is how the tests hand in JAX's own.
@@ -27,7 +31,7 @@ SpecAugment draws; a batch may instead carry the masks (`aud_keep`;
 Unlike the JAX package, where the state is an immutable pytree, the state
 here holds the modules (parameters and BatchNorm statistics) and the
 optimizer, and a step updates them in place.  The 6-D pose variant
-(`rep6d`) and the body-AE and LS3DCG stages wait (ROADMAP.md).
+(`rep6d`) and the LS3DCG stage wait (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from talkshow_torch.kernels.wav2vec_extractor import pack_extractor_tables
 from talkshow_torch.models.face import FaceGenerator, draw_drop_keep
 from talkshow_torch.models.layers import FlaxBatchNorm1d, init_weights_
 from talkshow_torch.models.pixelcnn import GatedPixelCNN, draw_aud_keep
-from talkshow_torch.models.vqvae import VQVAE, AudioEncoder
+from talkshow_torch.models.vqvae import AE, VQVAE, AudioEncoder
 from talkshow_torch.models.wav2vec import draw_spec_starts
 from talkshow_torch.models.wav2vec_fused import frozen_features
 from talkshow_torch.ops import vq as vq_ops
@@ -117,13 +121,20 @@ def _norm_buffers(models) -> list:
             for b in (mod.running_mean, mod.running_var)]
 
 
+def recon_losses(recon: torch.Tensor, gt: torch.Tensor):
+    """(L1 reconstruction, L1 velocity) of (B, T, C) poses (steps.py:78-81,
+    :425-428)."""
+    rec = torch.mean(torch.abs(recon - gt))
+    vel = torch.mean(torch.abs((recon[:, 1:] - recon[:, :-1]) - (gt[:, 1:] - gt[:, :-1])))
+    return rec, vel
+
+
 def part_losses(model: VQVAE, vq_state: vq_ops.VQState, gt: torch.Tensor):
     """One part's forward (steps.py:70-90) through a model in train mode:
     -> (rec, vel, commit, new VQState); the step's loss is rec + vel + commit
     summed over parts."""
     recon, commit, new_state, _ = model(gt, vq_state)
-    rec = torch.mean(torch.abs(recon - gt))
-    vel = torch.mean(torch.abs((recon[:, 1:] - recon[:, :-1]) - (gt[:, 1:] - gt[:, :-1])))
+    rec, vel = recon_losses(recon, gt)
     return rec, vel, commit, new_state
 
 
@@ -182,6 +193,67 @@ def make_token_encoder(vq_body: VQVAE, vq_hand: VQVAE, frozen_vq_states: dict):
         return torch.stack([tb, th], dim=-1)
 
     return encode
+
+
+# ---------------------------------------------------------------------------
+# The body AE (the FGD feature net; nets/body_ae.py)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class BodyAEState:
+    """Body-AE train state: the AE (parameters and BatchNorm statistics),
+    the optimizer and the step."""
+    model: AE
+    optimizer: SkipNonfiniteAdam
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step = int(sd["step"])
+
+    @torch.no_grad()
+    def load_converted(self, weights: dict) -> "BodyAEState":
+        """Load `convert.from_jax_body_ae_state`'s output in place."""
+        self.model.load_state_dict(weights["ae"])
+        _load_adam(self.optimizer, {"ae": self.model}, weights)
+        self.step = weights["step"]
+        return self
+
+
+def make_body_ae_step(ae: AE, learning_rate: float = 1e-4):
+    """-> (init_state(generator, device), step(state, batch)).
+
+    batch: {'poses': (B, T, 165) or the 129 conv channels}.  Loss: L1
+    reconstruction + L1 velocity (body_ae.py:112-140); Adam with the
+    non-finite skip, which also keeps the BatchNorm statistics of a skipped
+    step, as JAX's tree_select.  Metrics: rec_loss, velocity_loss (0-dim
+    tensors), nonfinite_skips (int)."""
+
+    def init_state(generator: torch.Generator, device="cuda") -> BodyAEState:
+        init_weights_(ae, generator).to(device)
+        return BodyAEState(ae, SkipNonfiniteAdam(ae.parameters(), learning_rate))
+
+    def step(state: BodyAEState, batch) -> tuple[BodyAEState, dict]:
+        gt = conv_channels(batch["poses"])
+        buffers = _norm_buffers([state.model])
+        saved = [b.clone() for b in buffers]
+        state.optimizer.zero_grad()
+        rec, vel = recon_losses(state.model.train()(gt), gt)
+        (rec + vel).backward()
+        if not state.optimizer.step():
+            with torch.no_grad():
+                for b, s in zip(buffers, saved):
+                    b.copy_(s)
+        state.step += 1
+        return state, {"rec_loss": rec.detach(), "velocity_loss": vel.detach(),
+                       "nonfinite_skips": state.optimizer.nonfinite_count}
+
+    return init_state, step
 
 
 # ---------------------------------------------------------------------------

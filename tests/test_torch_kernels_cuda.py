@@ -464,6 +464,71 @@ def test_face_step_runs_k3_under_no_grad(cuda):
     assert max((pg[k].cpu() - v).abs().max().item() for k, v in pc.items()) <= 1e-5 * top
 
 
+@pytest.mark.cuda
+def test_eval_body_decodes_on_k1_at_two_samples(cuda, monkeypatch):
+    """eval/runners.eval_body at full width (prior 256 x 15 over 2048 codes,
+    VQ-VAEs of 1024 hidden) on one 10 s clip: K1 once at B = 2, H = 75 on
+    f32 tables, never the plain sampler; its tokens equal the plain
+    sampler's on the card under the same noise."""
+    from talkshow_torch.data.dataset import synthetic_dataset
+    from talkshow_torch.eval import runners
+    from talkshow_torch.models.vqvae import AE
+    from talkshow_torch.pipeline import Pipeline
+    pipe = Pipeline.create(2, cuda)
+    pipe.table_dtype = torch.float32
+    body = pipe.body
+    ae = init_weights_(AE(129, 64, 64), torch.Generator().manual_seed(3)).to(cuda)
+    ds = synthetic_dataset(num_clips=1, frames=300)
+    ds.clips[0].poses = ds.clips[0].poses[:300]
+    ds.clips[0].aud_feat = ds.clips[0].aud_feat[:300]
+    noise = -torch.log(-torch.log(torch.rand((75, 2, 2, 2048), generator=torch.Generator()
+                                             .manual_seed(4)).clamp_min(1e-30)))
+    seen = []
+    real = runners.generate_conv_poses
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        seen.append((a[1], a[2], out[1]))
+        return out
+
+    monkeypatch.setattr(runners, "generate_conv_poses", spy)
+    counts.clear()
+    res = runners.eval_body(pipe, ae, ds, num_samples=2, noise=lambda ci: noise)
+    torch.cuda.synchronize()
+    assert counts["ar_decode"] == 1 and not counts["sample_tokens_plain"]
+    assert np.isfinite(res["fgd"]) and np.isfinite(res["l2"])
+    feat, ids, tok = seen[0]
+    assert tok.shape == (2, 75, 2)
+    with torch.no_grad():
+        want = sample_tokens(body.prior, ids, body.audio_enc(feat), noise=noise.to(cuda))
+    assert torch.equal(tok, want)
+
+
+@pytest.mark.cuda
+def test_eval_vq_capacity_searches_on_k4_at_75_rows(cuda):
+    """eval/runners.eval_vq_capacity at full width (1024 hidden, 2048 x 64
+    codebooks) on one 10 s clip: K4 twice (N = 75 per quantizer), never the
+    plain search; the capacity within 1e-4 relative of the same models on
+    the CPU (a near-tie pick can only move it by the tie's gap)."""
+    from talkshow_torch.data.dataset import synthetic_dataset
+    from talkshow_torch.eval import runners
+    from talkshow_torch.models.vqvae import VQVAE
+    gen = torch.Generator().manual_seed(5)
+    models = {k: init_weights_(VQVAE(w), gen) for k, w in (("body", 39), ("hand", 90))}
+    states = {k: vq_ops.init_vq_state(gen, 2048, 64, "cpu") for k in models}
+    ds = synthetic_dataset(num_clips=1, frames=300)
+    ds.clips[0].poses = ds.clips[0].poses[:300]
+    want = runners.eval_vq_capacity(models["body"], models["hand"], states, ds)
+    for m in models.values():
+        m.to(cuda)
+    counts.clear()
+    got = runners.eval_vq_capacity(models["body"], models["hand"],
+                                   {k: s.to(cuda) for k, s in states.items()}, ds)
+    torch.cuda.synchronize()
+    assert counts["nearest_code"] == 2 and not counts["nearest_code_plain"]
+    assert abs(got["capacity_l1"] - want["capacity_l1"]) <= 1e-4 * want["capacity_l1"]
+
+
 def test_kernels_raise_on_cpu_tensors():
     enc, x, wave = _w2v_case("tiny", "cpu")
     with pytest.raises(ValueError):
