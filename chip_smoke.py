@@ -190,11 +190,42 @@ Phases (one line each; any failure raises and the script exits non-zero):
  21 times    each runner's ms per clip and its parts (decode, AE extract, LBS,
              onset times, FGD, bootstrap; the VQ round trip; the face stage,
              LBS over the vertices), each beside the card
+ 22 train-ls3dcg  main() for s2g_LS3DCG at the stage-1 batch and window
+             (B = 128, T = 88; the LS3DCG widths are fixed, 64 ... 1024) on the
+             synthetic dataset, one epoch of >= 10 steps: logged values finite,
+             no kernel launched; ckpt-0 + one step bit-equal to the
+             uninterrupted run; one step from one state on CUDA against the CPU
+             (B = 8, TF32 off): losses within 1e-4 relative, both models'
+             gradients within 2e-2 of max|g| (phase 19's tolerance behind
+             batch-statistics BatchNorm), statistics within 1e-4, parameters
+             within 2 lr and >= 99 % within 1e-2 lr; the step's p50, windows/s
+ 23 eval-ls3dcg  eval_ls3dcg on phase 20's split with phase 19's AE (finite,
+             the CIs, no kernel) and its ms per clip; `python -m
+             talkshow_torch.eval ls3dcg` on the card by default with phase 22's
+             checkpoint; infer_on_audio on the 10 s clip: (2, 300, 265) finite, ms
+ 24 6-D      the convert_to_6d variant at full width: s2g_body_vq for one epoch
+             (VQ-VAEs over 78 / 180 channels, 330-wide poses; K4 twice a step),
+             s2g_body_pixel on its checkpoint with the 512 x 10 prior for two
+             epochs (K4 twice per missed and per fill batch, none in epoch 2),
+             eval_vq_capacity on phase 20's split converted to 6-D (K4 twice a
+             clip); generate_conv_poses through K1 at dim 512, 10 layers on the
+             10 s clip at B = 1, 2, 8: (B, 300, 258) finite, one launch, f32
+             tables: tokens equal the plain sampler's under shared noise,
+             teacher-forced logits within 1e-3; bf16 tables against the
+             bf16-rounded plain version within 1e-3 of max|logit|, >= 97 % of
+             draws equal; B = 32 raises before any launch and names the largest
+             batch that fits, and generate_conv_poses decodes it in chunks of
+             that size; K1's ms at B = 1, 8 and the largest batch, the plain
+             decode at B = 1, the bound (as the K1 row's), the timeline
+ 25 SHOW     preprocess's filter and split on phase 20's tree; the train CLI
+             without --synthetic on a synthetic SHOW train split (8 clips of 20
+             s): s2g_body_vq on MFCC windows (K4 twice a step) and s2g_face on
+             whole raw clips (K3 once a step)
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
 continuity, the serve flush, the stream and the eval path (eval_body and
-the eval CLI for K1, eval_face for K2 and K3), summed, and K3 in phase 17;
-K4: phases 11, 16 and eval_vq_capacity), the nvidia-smi line, and the
-result line.
+the eval CLI for K1, eval_face for K2 and K3), summed, K3 in phase 17 and
+phase 25, K1 at dim 512 in phase 24; K4: phases 11, 16, eval_vq_capacity,
+24 and 25), the nvidia-smi line, the total wall time and the result line.
 """
 from __future__ import annotations
 
@@ -836,8 +867,8 @@ def phase10(dev) -> float:
     return worst
 
 
-def write_stage_config(path: str, model_name: str, epochs: int) -> None:
-    cfg = {"Data": {"pose": {"generate_length": TRAIN["window"]}},
+def write_stage_config(path: str, model_name: str, epochs: int, rep6d: bool = False) -> None:
+    cfg = {"Data": {"pose": {"generate_length": TRAIN["window"], "convert_to_6d": rep6d}},
            "Model": {"model_name": model_name, "code_num": TRAIN["codes"],
                      "encoder_choice": "faceformer" if model_name == "s2g_face" else "mfcc"},
            "DataLoader": {"batch_size": TRAIN["batch"]},
@@ -1836,15 +1867,15 @@ def phase19(dev, tmp: str, card: str) -> dict:
     return dict(ckpt=ckpt, p50=p50)
 
 
-def write_show_tree(root: str, clips: int, seconds: float) -> None:
-    """A synthetic SHOW test split: `clips` clips of `seconds`, each a
+def write_show_tree(root: str, clips: int, seconds: float, split: str = "test") -> None:
+    """A synthetic SHOW split: `clips` clips of `seconds`, each a
     `<clip>.pkl` of SMPL-X parameters (the reference's keys; hands as 45
     PCA coefficients of which the loader keeps 12) and a 16 kHz `<clip>.wav`."""
     import pickle
     frames = int(round(seconds * 30))
     for i in range(clips):
         rng = np.random.default_rng(100 + i)
-        d = os.path.join(root, SPEAKERS[i % 4], f"video{i}", "test", f"clip{i}")
+        d = os.path.join(root, SPEAKERS[i % 4], f"video{i}", split, f"clip{i}")
         os.makedirs(d)
         data = {"jaw_pose": 0.1 * rng.standard_normal((frames, 3)),
                 "leye_pose": 0.1 * rng.standard_normal((frames, 3)),
@@ -2108,6 +2139,403 @@ def phase21(p20: dict, card: str) -> None:
             + ", ".join(f"{k} {v:.2f}" for k, v in parts[name].items()) + f" ms [{card}]")
 
 
+def phase22(dev, tmp: str, card: str) -> dict:
+    """The LS3DCG baseline through `python -m talkshow_torch.train`'s entry
+    point at the stage-1 batch and window on the synthetic dataset; resume;
+    one step CUDA against CPU; the step's p50.  Returns its checkpoint, its
+    generator and the p50."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.ls3dcg import LS3DCGDiscriminator, LS3DCGGenerator
+    from talkshow_torch.train.__main__ import main as train_main
+    from talkshow_torch.train.steps import make_ls3dcg_step
+    cfg = os.path.join(tmp, "ls3dcg.json")
+    write_stage_config(cfg, "s2g_LS3DCG", 1)
+    run_a, run_b = os.path.join(tmp, "ls_a"), os.path.join(tmp, "ls_b")
+    argv = ["--config_file", cfg, "--synthetic", "--epochs", "1", "--device", str(dev)]
+    counts.clear()
+    t0 = time.time()
+    trainer = train_main(argv + ["--run_dir", run_a])
+    torch.cuda.synchronize()
+    seen, steps, t_epoch = dict(counts), trainer.global_step, time.time() - t0
+    logged = logged_values(run_a)
+    ckpt = os.path.join(run_a, "ckpt-0.pt")
+    if (steps < 10 or any(seen.values()) or not logged
+            or not all(math.isfinite(v) for v in logged) or not os.path.isfile(ckpt)):
+        raise AssertionError(f"phase 22: {steps} steps, counts {seen}, logged {logged[:12]}, "
+                             f"checkpoint {os.path.isfile(ckpt)}")
+    log(f"phase 22 train-ls3dcg: python -m talkshow_torch.train s2g_LS3DCG, batch "
+        f"{TRAIN['batch']}, window {TRAIN['window']}: {steps} steps in {t_epoch:.1f} s (first "
+        f"cuDNN calls included); {len(logged)} logged values all finite; no kernel launched "
+        f"(the generator and discriminator are convolutions); {os.path.basename(ckpt)} written")
+
+    # resume + one step == the uninterrupted run's next step
+    keys = ("poses", "expression", "aud_feat")
+    resumed = train_main(argv + ["--run_dir", run_b, "--resume", ckpt])
+    raw = next(trainer.dataset.batches(TRAIN["batch"], np.random.default_rng(99)))
+    batch = trainer.put_batch({k: raw[k] for k in keys})
+    _, m_a = trainer.step_fn(trainer.state, batch)
+    _, m_b = resumed.step_fn(resumed.state, resumed.put_batch({k: raw[k] for k in keys}))
+    if not (all(float(m_a[k]) == float(m_b[k]) for k in m_a)
+            and states_equal(trainer.state.state_dict(), resumed.state.state_dict())):
+        raise AssertionError("phase 22: resume + one step differs from the uninterrupted run")
+    log(f"phase 22 resume: ckpt-0 + one step equals the uninterrupted run's next step bit for "
+        f"bit (both models' parameters, BatchNorm statistics and Adam states; {len(m_a)} "
+        f"metrics)")
+    del resumed
+
+    # one step from one state, CUDA against CPU (B = 8, TF32 off)
+    lr = 1e-4
+
+    def fresh(device):
+        init, step = make_ls3dcg_step(LS3DCGGenerator(), LS3DCGDiscriminator(), lr)
+        return init(torch.Generator().manual_seed(22), device), step
+
+    (s_cpu, step_cpu), (s_gpu, step_gpu) = fresh("cpu"), fresh(dev)
+    b8 = {k: torch.as_tensor(raw[k][:8]) for k in keys}
+    _, mc = step_cpu(s_cpu, b8)
+    _, mg = step_gpu(s_gpu, {k: v.to(dev) for k, v in b8.items()})
+    rel = max(rel_err(float(mg[k]), float(mc[k])) for k in mc if k != "nonfinite_skips")
+    g_err = grad_errors(s_cpu.models, s_gpu.models)
+    stat_err = p_err = 0.0
+    within = total = 0
+    for name, mc_model in s_cpu.models.items():
+        sg = s_gpu.models[name].state_dict()
+        for k, v in mc_model.state_dict().items():
+            d = (sg[k].cpu() - v).abs()
+            if k.endswith(("running_mean", "running_var")):
+                stat_err = max(stat_err, d.max().item())
+            elif not k.endswith("num_batches_tracked"):
+                p_err = max(p_err, d.max().item())
+                within += int((d <= 1e-2 * lr).sum())
+                total += d.numel()
+    share = within / total
+    if not (rel <= 1e-4 and max(g_err.values()) <= 2e-2 and stat_err <= 1e-4
+            and p_err <= 2 * lr * (1 + 1e-3) and share >= 0.99):
+        raise AssertionError(f"phase 22 CUDA vs CPU: losses rel {rel}, gradients {g_err}, "
+                             f"statistics {stat_err}, params {p_err}, share {share}")
+    log(f"phase 22 CUDA vs CPU, one step from one state (B=8, T={TRAIN['window']}, TF32 off): "
+        f"losses within {rel:.2e} relative <= 1e-4; gradients within "
+        + ", ".join(f"{k} {v:.2e}" for k, v in g_err.items())
+        + f" of max|g| <= 2e-2 (behind batch-statistics BatchNorm, as phase 19); BatchNorm "
+        f"statistics within {stat_err:.2e} <= 1e-4; parameters within {p_err:.2e} <= 2 lr, "
+        f"{share:.4%} within 1e-2 lr >= 99 %")
+    del s_cpu, s_gpu
+
+    p50, lo, hi = step_p50(lambda: trainer.step_fn(trainer.state, batch))
+    log(f"phase 22 LS3DCG step B={TRAIN['batch']} T={TRAIN['window']}: p50 {p50:.2f} ms (min "
+        f"{lo:.2f}, max {hi:.2f}) over 10 steps, {TRAIN['batch'] / p50 * 1e3:.1f} windows/s "
+        f"[{card}]")
+    return dict(ckpt=ckpt, gen=trainer.state.models["gen"], p50=p50)
+
+
+def phase23(p20: dict, ls: dict, tmp: str, ae_ckpt: str, wav10: str, card: str) -> None:
+    """eval_ls3dcg on phase 20's synthetic SHOW split with phase 19's AE, its
+    ms per clip; `python -m talkshow_torch.eval ls3dcg` on the card by
+    default; infer_on_audio on the 10 s clip."""
+    import contextlib
+    import io
+
+    from talkshow_torch.eval import runners
+    from talkshow_torch.eval.__main__ import main as eval_main
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.ls3dcg import infer_on_audio
+    gen, ae, ds = ls["gen"], p20["ae"], p20["ds"]
+    n = len(ds.clips)
+    counts.clear()
+    res = runners.eval_ls3dcg(gen, ae, ds)
+    torch.cuda.synchronize()
+    seen, values = dict(counts), metric_values(res)
+    if not (res["num_clips"] == n and {"fgd_ci", "body_l1_ci"} <= res.keys()
+            and all(math.isfinite(v) for v in values) and not any(seen.values())):
+        raise AssertionError(f"phase 23 eval_ls3dcg: {sorted(res)}, counts {seen}")
+    total = cuda_ms(lambda: runners.eval_ls3dcg(gen, ae, ds))
+    clip = ds.clips[0]
+    T = clip.poses.shape[0] - clip.poses.shape[0] % 8
+    feat = torch.as_tensor(clip.aud_feat[None, :T], device=next(gen.parameters()).device)
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: gen(feat), 3)
+    log(f"phase 23 eval_ls3dcg: body_l1 {res['body_l1']:.5f}, hand_l1 {res['hand_l1']:.5f}, "
+        f"jaw_l1 {res['jaw_l1']:.5f}, exp_mse {res['exp_mse']:.5f}, fgd {res['fgd']:.4f} (CI "
+        f"{res['fgd_ci']['p2_5']:.4f}-{res['fgd_ci']['p97_5']:.4f}) over {n} clips, "
+        f"{len(values)} values finite, no kernel; {total / n:.2f} ms per "
+        f"{EVAL['seconds']:.0f} s clip ({total:.1f} ms a call; the generator forward at T={T} "
+        f"{fwd:.2f} ms) [{card}]")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli = eval_main(["ls3dcg", "--data_root", os.path.join(tmp, "show"), "--ls3dcg_ckpt",
+                         ls["ckpt"], "--ae_ckpt", ae_ckpt])
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    if not (printed["num_clips"] == n and all(math.isfinite(v) for v in metric_values(cli))):
+        raise AssertionError(f"phase 23 CLI: {printed.get('num_clips')} clips")
+    log(f"phase 23 eval CLI: python -m talkshow_torch.eval ls3dcg (its main(), no --device) on "
+        f"the tree with phase 22's ckpt-0 and phase 19's AE: body_l1 {cli['body_l1']:.5f}, fgd "
+        f"{cli['fgd']:.4f} over {n} clips")
+    motion = infer_on_audio(gen, wav10, num_samples=2)
+    if motion.shape != (2, 300, 265) or not np.isfinite(motion).all():
+        raise AssertionError(f"phase 23 infer_on_audio: {motion.shape}")
+    ms = cuda_ms(lambda: infer_on_audio(gen, wav10), 3)
+    log(f"phase 23 infer_on_audio: 10 s clip -> {motion.shape}, finite, {ms:.2f} ms (MFCC, "
+        f"generator, reorder, part2full on the host) [{card}]")
+
+
+def k1_bound(tables: dict, L: int, d: int, K: int, H: int) -> tuple[float, str]:
+    """K1's bound for one decode of H rows from its tables: the MACs of both
+    columns' vertical stack, v2h, fusion_v and the chain's streams per row;
+    every table read once (column 1 reads every chain table, column 0 a
+    part of wh), the tokens written, the per-call f32 inputs read."""
+    from talkshow_torch.kernels import ar_decode
+    steps = ar_decode.chain_steps(L, d, K, 512)
+    chain_macs = sum(klen * n * urows for _, _, _, klen, n, urows in steps)
+    esize = tables["emb"].element_size()
+    chain_bytes = sum(esize * klen * n * urows for _, c, _, klen, n, urows in steps if c == 1)
+    ops = 2.0 * H * (tables["wv0"].numel() + tables["wvB"].numel() + 2 * tables["wv2h"].numel()
+                     + 2 * tables["wfv"].numel() + chain_macs)
+    nb = nbytes(*(v for k, v in tables.items() if k != "chain")) + chain_bytes \
+        + H * 2 * 4 + 4 * (L * 2 * d + 2 * H * d)
+    return bound(nb, ops)
+
+
+#: the 6-D variant (scripts/train.py:109-158): VQ-VAEs over 78 / 180
+#: channels, the prior 512 wide and 10 layers deep
+SIX_D = dict(body=78, hand=180, dim=512, layers=10)
+
+
+def phase24(dev, tmp: str, wav10: str, card: str) -> dict:
+    """The 6-D variant at full width: the s2g_body_vq CLI for one epoch (K4
+    twice a step), s2g_body_pixel on its checkpoint with the 512 x 10
+    prior for two epochs (K4 on cache misses only), eval_vq_capacity on
+    phase 20's split in 6-D, and generate_conv_poses through K1 at dim 512,
+    10 layers: tokens against the plain sampler, K1's ms and bound.
+    Returns the launches and K1's row."""
+    from talkshow_torch.data.dataset import ShowDataset
+    from talkshow_torch.eval import runners
+    from talkshow_torch.kernels import ar_decode, counts
+    from talkshow_torch.models.body import BodyModels, generate_conv_poses
+    from talkshow_torch.models.pixelcnn import gumbel_noise, sample_tokens
+    from talkshow_torch.ops.audio import get_mfcc
+    from talkshow_torch.train.__main__ import main as train_main
+    cfg1, cfg2 = os.path.join(tmp, "body_vq_6d.json"), os.path.join(tmp, "body_pixel_6d.json")
+    write_stage_config(cfg1, "s2g_body_vq", 1, rep6d=True)
+    write_stage_config(cfg2, "s2g_body_pixel", 2, rep6d=True)
+    base = ["--synthetic", "--device", str(dev), "--epochs", "1"]
+    counts.clear()
+    t0 = time.time()
+    vq = train_main(["--config_file", cfg1, "--run_dir", os.path.join(tmp, "vq6d")] + base)
+    torch.cuda.synchronize()
+    c1, s1, t1 = dict(counts), vq.global_step, time.time() - t0
+    vb, vh = vq.state.models["body"], vq.state.models["hand"]
+    widths = (vb.decoder.project.out_channels, vh.decoder.project.out_channels,
+              vq.dataset.clips[0].poses.shape[-1])
+    logged = logged_values(os.path.join(tmp, "vq6d"))
+    if (s1 < 10 or widths != (SIX_D["body"], SIX_D["hand"], 330)
+            or c1.get("nearest_code", 0) != 2 * s1 or c1.get("nearest_code_plain", 0)
+            or not all(math.isfinite(v) for v in logged)):
+        raise AssertionError(f"phase 24 6-D stage 1: {s1} steps, widths {widths}, counts {c1}")
+    log(f"phase 24 6-D s2g_body_vq: batch {TRAIN['batch']}, window {TRAIN['window']}, poses 330, "
+        f"VQ-VAEs over {widths[0]} / {widths[1]} channels at {TRAIN['num_hiddens']} hidden: {s1} "
+        f"steps in {t1:.1f} s; nearest_code launches {c1['nearest_code']} = 2 a step, plain 0; "
+        f"{len(logged)} logged values finite")
+
+    argv2 = ["--config_file", cfg2, "--run_dir", os.path.join(tmp, "pixel6d"), "--vq_ckpt",
+             os.path.join(tmp, "vq6d", "ckpt-0.pt")] + base
+    counts.clear()
+    t0 = time.time()
+    px = train_main(argv2)
+    torch.cuda.synchronize()
+    e1, s2, t2 = dict(counts), px.global_step, time.time() - t0
+    prior = px.state.models["prior"]
+    keys = px.dataset.window_keys()
+    fills = -(-(len(keys) - TRAIN["batch"] * s2) // TRAIN["batch"])
+    if ((prior.dim, prior.n_layers) != (SIX_D["dim"], SIX_D["layers"]) or s2 < 10
+            or e1.get("nearest_code", 0) != 2 * (s2 + fills) or e1.get("nearest_code_plain", 0)):
+        raise AssertionError(f"phase 24 6-D stage 2 epoch 1: prior {prior.dim} x "
+                             f"{prior.n_layers}, {s2} steps, counts {e1}, {fills} fills")
+    seen = set(px._token_cache)
+    misses = sum(not all(tuple(map(int, k)) in seen for k in b["window_key"])
+                 for b in px.batch_iter(1))
+    counts.clear()
+    t0 = time.time()
+    px.train(epochs=2)
+    torch.cuda.synchronize()
+    e2, t3 = dict(counts), time.time() - t0
+    logged = logged_values(os.path.join(tmp, "pixel6d"))
+    if (e2.get("nearest_code", 0) != 2 * misses or e2.get("nearest_code_plain", 0)
+            or not all(math.isfinite(v) for v in logged)):
+        raise AssertionError(f"phase 24 6-D stage 2 epoch 2: {misses} misses, counts {e2}")
+    log(f"phase 24 6-D s2g_body_pixel on its ckpt-0.pt: prior {prior.dim} x {prior.n_layers} "
+        f"over {prior.input_dim} codes; epoch 1 {s2} steps in {t2:.1f} s, nearest_code "
+        f"{e1['nearest_code']} = 2 x ({s2} missed batches + {fills} fill batches); epoch 2 in "
+        f"{t3:.1f} s, nearest_code {e2.get('nearest_code', 0)} = 2 x {misses} misses; plain 0; "
+        f"{len(logged)} logged values finite")
+
+    ds6 = ShowDataset.from_root(os.path.join(tmp, "show"), SPEAKERS, "test", convert_to_6d=True,
+                                device=dev)
+    counts.clear()
+    cap = runners.eval_vq_capacity(vb, vh, vq.state.vq, ds6)
+    torch.cuda.synchronize()
+    c_cap = dict(counts)
+    if (ds6.clips[0].poses.shape[-1] != 330 or c_cap.get("nearest_code") != 2 * len(ds6.clips)
+            or c_cap.get("nearest_code_plain") or not math.isfinite(cap["capacity_l1"])):
+        raise AssertionError(f"phase 24 eval_vq_capacity 6-D: {cap}, counts {c_cap}")
+    log(f"phase 24 eval_vq_capacity on the 6-D split ({len(ds6.clips)} clips of 330-wide poses): "
+        f"capacity_l1 {cap['capacity_l1']:.6f}; nearest_code launches {c_cap['nearest_code']} = "
+        f"2 a clip, plain 0")
+
+    body = BodyModels(vb.eval(), vh.eval(), vq.state.vq["body"], vq.state.vq["hand"],
+                      px.state.models["audio"].eval(), prior.eval())
+    feat10 = get_mfcc(wav10, device=dev)
+    H, K = feat10.shape[0] // 4, prior.input_dim
+    t32 = ar_decode.pack_decode_tables(prior, torch.float32)
+    t16 = ar_decode.pack_decode_tables(prior, torch.bfloat16)
+    rounded = ar_decode.round_like_tables(prior, torch.bfloat16)
+    k1_launches = 0
+    worst = 0.0
+    for S in (1, 2, 8):
+        feat = feat10[None].expand(S, -1, -1).contiguous()
+        ids = torch.arange(S, device=dev) % 4
+        noise = gumbel_noise((H, 2, S, K), torch.Generator().manual_seed(S), dev)
+        counts.clear()
+        conv, tok = generate_conv_poses(body, feat, ids, noise=noise, tables=t32)
+        torch.cuda.synchronize()
+        c = dict(counts)
+        k1_launches += c.get("ar_decode", 0)
+        with torch.no_grad():
+            audio = body.audio_enc(feat)
+            want = sample_tokens(prior, ids, audio, noise=noise)
+            _, lg = ar_decode.sample_tokens_fused(prior, ids, audio, tables=t32, noise=noise,
+                                                  prefix_tokens=want, prefix_len=H,
+                                                  return_logits=True)
+            _, lg_ref = sample_tokens(prior, ids, audio, noise=noise, prefix_tokens=want,
+                                      prefix_len=H, return_logits=True)
+            _, lg16 = ar_decode.sample_tokens_fused(prior, ids, audio, tables=t16, noise=noise,
+                                                    prefix_tokens=want, prefix_len=H,
+                                                    return_logits=True)
+            _, lg16_ref = sample_tokens(rounded, ids, audio, noise=noise, prefix_tokens=want,
+                                        prefix_len=H, return_logits=True)
+        err = (lg - lg_ref).abs().max().item()
+        worst = max(worst, err)
+        rel16 = (lg16 - lg16_ref).abs().max().item() / lg16_ref.abs().max().item()
+        g = noise.permute(2, 0, 1, 3)
+        agree = (torch.argmax(lg16 + g, -1) == torch.argmax(lg16_ref + g, -1)).float().mean().item()
+        if not (conv.shape == (S, 4 * H, 258) and torch.isfinite(conv).all()
+                and torch.equal(tok, want) and c.get("ar_decode") == 1
+                and not c.get("sample_tokens_plain") and err <= 1e-3 and rel16 <= 1e-3
+                and agree >= 0.97):
+            raise AssertionError(f"phase 24 K1 at dim 512 B={S}: shape {tuple(conv.shape)}, "
+                                 f"tokens equal {torch.equal(tok, want)}, counts {c}, f32 "
+                                 f"max|dlogit| {err}, bf16 rel {rel16}, agree {agree}")
+        log(f"phase 24 K1 6-D prior (dim {prior.dim} x {prior.n_layers}) B={S}: "
+            f"generate_conv_poses -> {tuple(conv.shape)} finite, K1 launched once (f32 tables, "
+            f"shared noise): tokens equal the plain sampler's {tok.numel()}/{tok.numel()}, "
+            f"teacher-forced max|dlogit| {err:.3e} <= 1e-3; bf16 tables vs the bf16-rounded "
+            f"plain version max|dlogit|/max|logit| {rel16:.3e} <= 1e-3, draws agree "
+            f"{agree:.4f} >= 0.97; launch: shared memory {ar_decode.last_launch['smem_bytes']} "
+            f"B/CTA, ring {ar_decode.last_launch['ring_stages']} stages")
+
+    # a batch past one launch: the wrapper raises before launching; the decode chunks
+    fits = ar_decode.model_max_batch(prior, torch.bfloat16)
+    S = 32
+    feat = feat10[None].expand(S, -1, -1).contiguous()
+    ids = torch.arange(S, device=dev) % 4
+    gen = torch.Generator().manual_seed(24)
+    with torch.no_grad():
+        audio = body.audio_enc(feat)
+    counts.clear()
+    try:
+        ar_decode.sample_tokens_fused(prior, ids, audio, tables=t16, generator=gen)
+        raise AssertionError(f"phase 24: a batch of {S} at dim 512 launched")
+    except ValueError as e:
+        if f"largest batch that fits is {fits}" not in str(e) or counts.get("ar_decode"):
+            raise
+    conv, _ = generate_conv_poses(body, feat, ids, generator=gen, tables=t16)
+    torch.cuda.synchronize()
+    chunks = counts.get("ar_decode", 0)
+    k1_launches += chunks
+    if (chunks != -(-S // fits) or conv.shape != (S, 4 * H, 258)
+            or counts.get("sample_tokens_plain")):
+        raise AssertionError(f"phase 24 B={S}: {chunks} launches, {tuple(conv.shape)}")
+    log(f"phase 24 K1 B={S} at dim 512: the wrapper raises before any launch (largest batch "
+        f"{fits}); generate_conv_poses decodes it in {chunks} launches (chunks of {fits}), no "
+        f"plain sampler")
+
+    # times, bf16 tables and Philox, as phase 5
+    ms = {}
+    for S in (1, 8, fits):
+        with torch.no_grad():
+            aud = body.audio_enc(feat10[None].expand(S, -1, -1).contiguous())
+        lab = torch.zeros(S, dtype=torch.long, device=dev)
+        ms[S] = cuda_ms(lambda: ar_decode.sample_tokens_fused(prior, lab, aud, tables=t16,
+                                                              generator=gen), 5)
+        if S == 1:
+            tl = ar_decode.decode_timeline(prior, lab, aud, t16, torch.Generator().manual_seed(1))
+            plain = cuda_ms(lambda: sample_tokens(prior, lab, aud, generator=gen))
+    steps = len(ar_decode.chain_steps(prior.n_layers, prior.dim, K, 512)) + 2
+    bms, by = k1_bound(t16, prior.n_layers, prior.dim, K, H)
+    log(f"phase 24 K1 6-D prior, H={H}, bf16 tables, Philox: B=1 {ms[1]:.3f} ms "
+        f"({ms[1] * 1e3 / H:.1f} us/row, {steps} dependent steps a row), B=8 {ms[8]:.3f} ms, "
+        f"B={fits} {ms[fits]:.3f} ms; plain decode B=1 {plain:.2f} ms; bound at B=1 {bms:.4f} ms "
+        f"({by}) = {bms / ms[1]:.2%} of K1's time [{card}]")
+    log("phase 24 K1 6-D B=1 timeline (%globaltimer, mean over rows 1-74, us): "
+        + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in tl.items()))
+    return dict(ar_decode=k1_launches, nearest_code=c1["nearest_code"] + e1["nearest_code"]
+                + e2.get("nearest_code", 0) + c_cap["nearest_code"], k1_ms=ms, k1_plain=plain,
+                k1_bound=(bms, by), k1_err=worst)
+
+
+#: the SHOW-layout train split of phase 25 (8 clips of 20 s: 5 batches of
+#: 128 windows of 88 frames)
+SHOW_TRAIN = dict(clips=8, seconds=20.0)
+
+
+def phase25(dev, tmp: str, card: str) -> dict:
+    """The SHOW layout: preprocess's filter and split on phase 20's tree;
+    the train CLI without --synthetic for s2g_body_vq (MFCC windows, K4)
+    and s2g_face (whole raw clips, K3) on a synthetic train split."""
+    from talkshow_torch.data.preprocess import preprocess
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.train.__main__ import main as train_main
+    splits = preprocess(os.path.join(tmp, "show"), SPEAKERS, os.path.join(tmp, "split.json"))
+    sizes = {k: len(v) for k, v in splits.items()}
+    n = EVAL["clips"]
+    if sizes != {"train": int(n * 0.8), "val": int(n * 0.1), "test": n - int(n * 0.8)
+                 - int(n * 0.1)}:
+        raise AssertionError(f"phase 25 preprocess: {sizes}")
+    log(f"phase 25 preprocess on phase 20's tree: {n} clips scanned, all kept (readable wav, "
+        f">= 90 frames, finite poses), split {sizes} (seed 0)")
+    root = os.path.join(tmp, "show_train")
+    write_show_tree(root, SHOW_TRAIN["clips"], SHOW_TRAIN["seconds"], split="train")
+    out = {}
+    for stage, kernel in (("s2g_body_vq", "nearest_code"), ("s2g_face", "wav2vec_extractor")):
+        cfg = os.path.join(tmp, f"{stage}_show.json")
+        write_stage_config(cfg, stage, 1)
+        run = os.path.join(tmp, f"{stage}_show")
+        counts.clear()
+        t0 = time.time()
+        tr = train_main(["--config_file", cfg, "--data_root", root, "--epochs", "1",
+                         "--run_dir", run])
+        torch.cuda.synchronize()
+        c, steps, secs = dict(counts), tr.global_step, time.time() - t0
+        logged = logged_values(run)
+        feat = tr.dataset.clips[0].aud_feat.shape[-1]
+        per = 2 if stage == "s2g_body_vq" else 1
+        if (len(tr.dataset.clips) != SHOW_TRAIN["clips"] or steps < 3 or feat != (
+                64 if per == 2 else 1) or c.get(kernel) != per * steps
+                or c.get("nearest_code_plain") or c.get("extractor_plain")
+                or not all(math.isfinite(v) for v in logged)):
+            raise AssertionError(f"phase 25 {stage}: {len(tr.dataset.clips)} clips, {steps} "
+                                 f"steps, feature width {feat}, counts {c}")
+        out[kernel] = c[kernel]
+        log(f"phase 25 {stage} on the SHOW layout (--data_root, no --synthetic): "
+            f"{SHOW_TRAIN['clips']} train clips of {SHOW_TRAIN['seconds']:.0f} s through "
+            f"from_root ({'MFCC windows' if per == 2 else 'whole raw 16 kHz clips'}), {steps} "
+            f"steps in {secs:.1f} s (loading included); {kernel} launches {c[kernel]} = {per} a "
+            f"step; {len(logged)} logged values finite [{card}]")
+    return out
+
+
+T_START = time.time()
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -2271,22 +2699,24 @@ def main() -> int:
     k4_launches += evals["launches"]["nearest_code"]
     log("launches on the eval path (the runners and the eval CLI): " + ", ".join(
         f"{k} {v}" for k, v in evals["launches"].items()))
-    del evals
+
+    # ---- phases 22-25: LS3DCG, the 6-D variant (K1 at 512 x 10, K4), the SHOW layout ----
+    ls = phase22(dev, tmp, card)
+    phase23(evals, ls, tmp, ae_run["ckpt"], wav10, card)
+    del evals, ls
+    six = phase24(dev, tmp, wav10, card)
+    show = phase25(dev, tmp, card)
+    path_launches["ar_decode"] += six["ar_decode"]
+    path_launches["wav2vec_extractor"] += show["wav2vec_extractor"]
+    k4_launches += six["nearest_code"] + show["nearest_code"]
+    log(f"launches on the new paths: ar_decode {six['ar_decode']} (6-D generate, dim 512), "
+        f"nearest_code {six['nearest_code']} (6-D stages 1-2, eval_vq_capacity) + "
+        f"{show['nearest_code']} (stage 1 on the SHOW layout), wav2vec_extractor "
+        f"{show['wav2vec_extractor']} (the face stage on the SHOW layout); LS3DCG none")
 
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs
     t1 = ar_decode.pack_decode_tables(prior_case(1, 41, dev)[0], torch.bfloat16)
-    # MACs per row: both columns of the vertical stack, v2h and fusion_v, and
-    # the chain's streams (both columns' horizontal passes and heads)
-    d, L, H = FULL["dim"], FULL["layers"], FULL["H"]
-    steps = ar_decode.chain_steps(L, d, FULL["K"], 512)
-    chain_macs = sum(klen * n * urows for _, _, _, klen, n, urows in steps)
-    # column 1 reads every chain table (column 0 reads a part of wh): bf16 bytes
-    chain_bytes = sum(2 * klen * n * urows for _, c, _, klen, n, urows in steps if c == 1)
-    k1_ops = 2.0 * H * (t1["wv0"].numel() + t1["wvB"].numel() + 2 * t1["wv2h"].numel()
-                        + 2 * t1["wfv"].numel() + chain_macs)
-    k1_bytes = nbytes(*(v for k, v in t1.items() if k != "chain")) + chain_bytes \
-        + H * 2 * 4 + 4 * (L * 2 * d + 2 * H * d)
     enc_t, ext_t = times["t16"]["enc"], times["t16"]["ext"]
     x1 = times["x1"]
     k2_bytes = nbytes(*(v for v in enc_t.values() if torch.is_tensor(v))) + 2 * nbytes(x1) + 4
@@ -2295,8 +2725,8 @@ def main() -> int:
     N4, K4, D4 = k4_x.shape[0], TRAIN["codes"], TRAIN["dim"]
     k4_bytes = nbytes(k4_x, k4_times["emb"]) + N4 * 8
     rows = [
-        ("ar_decode", "B=1", ar_decode, path_launches["ar_decode"], max_err, decode[1],
-         bound(k1_bytes, k1_ops), None),
+        ("ar_decode", "B=1", ar_decode, path_launches["ar_decode"], max(max_err, six["k1_err"]),
+         decode[1], k1_bound(t1, FULL["layers"], FULL["dim"], FULL["K"], FULL["H"]), None),
         ("wav2vec_layers", "B=1", wav2vec_layers, path_launches["wav2vec_layers"], err_k2,
          times[("K2 wav2vec_layers", 1)], bound(k2_bytes, k2_ops([300], 300, enc_t)),
          times[("library", 1)]),
@@ -2311,6 +2741,10 @@ def main() -> int:
     for name, shape, _, n, _, (ms, plain_ms), (bms, by), _ in rows:
         log(f"bound {name} {shape}: {bms:.4f} ms ({by}); kernel {ms:.4f} ms = {bms / ms:.1%} "
             f"of the bound's rate; launches on the main path {n}")
+    bms, by = six["k1_bound"]
+    log(f"bound ar_decode B=1 at the 6-D prior (dim 512 x 10): {bms:.4f} ms ({by}); kernel "
+        f"{six['k1_ms'][1]:.4f} ms = {bms / six['k1_ms'][1]:.2%} of the bound's rate")
+    log(f"total wall time {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

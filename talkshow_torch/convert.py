@@ -6,6 +6,9 @@ of a talkshow_tpu Pipeline (and of the body AE, the FGD feature net) as
 numpy arrays (the caller runs ``jax.tree.map(np.asarray, tree)``; this
 module imports no JAX) and returns the port's state dicts and VQStates,
 ready for `Pipeline.load_converted` (and `AE.load_state_dict`).
+`convert_ls3dcg` maps the LS3DCG generator's and discriminator's trees,
+and the `from_jax_*_state` functions carry a JAX train state (parameters,
+statistics, optimizer moments, counts) into the port's, stage by stage.
 
 It inverts the torch -> flax layout mapping of
 talkshow_tpu/convert/talkshow.py:107-296 and convert/wav2vec.py:
@@ -157,6 +160,13 @@ def convert_face(variables: dict) -> dict:
     return _convert(variables, _FACE, special=special)
 
 
+def convert_ls3dcg(variables: dict) -> dict:
+    """flax LS3DCGGenerator or LS3DCGDiscriminator variables (params and
+    batch_stats) -> the port's state dict of that module.  Also maps an Adam
+    moment tree shaped like the params: pass it as {"params": tree}."""
+    return _convert(variables, _CONV_STACK)
+
+
 def _vq_state(state) -> VQState:
     return VQState(*(torch.tensor(np.asarray(getattr(state, f)))
                      for f in VQState._fields))
@@ -235,6 +245,17 @@ def from_jax_face_state(state) -> dict:
             "step": int(np.asarray(state.step))}
 
 
+def _adam_of(opt_state, part: str, convert_fn) -> dict:
+    """One model's `skip_nonfinite_updates(adam)` state -> {"exp_avg",
+    "exp_avg_sq": {part: state dicts of the moments}, "adam_step",
+    "nonfinite_count"}, the layout `train.steps._load_adam` reads."""
+    adam = _find(opt_state["inner"], "mu")
+    return {"exp_avg": {part: convert_fn({"params": adam.mu})},
+            "exp_avg_sq": {part: convert_fn({"params": adam.nu})},
+            "adam_step": int(np.asarray(adam.count)),
+            "nonfinite_count": int(np.asarray(opt_state["nonfinite_count"]))}
+
+
 def from_jax_body_ae_state(state) -> dict:
     """A JAX `train.steps.BodyAEState` (numpy leaves) -> the port's body-AE
     state, for `train.steps.BodyAEState.load_converted`.
@@ -242,12 +263,22 @@ def from_jax_body_ae_state(state) -> dict:
     Returns {"ae": AE state dict (params + BatchNorm statistics),
     "exp_avg", "exp_avg_sq": {"ae": state dicts of the Adam moments},
     "adam_step": optax's count, "nonfinite_count", "step": ints}."""
-    adam = _find(state.opt_state["inner"], "mu")
     return {"ae": convert_ae({"params": state.params, "batch_stats": state.batch_stats}),
-            "exp_avg": {"ae": convert_ae({"params": adam.mu})},
-            "exp_avg_sq": {"ae": convert_ae({"params": adam.nu})},
-            "adam_step": int(np.asarray(adam.count)),
-            "nonfinite_count": int(np.asarray(state.opt_state["nonfinite_count"])),
+            **_adam_of(state.opt_state, "ae", convert_ae),
+            "step": int(np.asarray(state.step))}
+
+
+def from_jax_ls3dcg_state(state) -> dict:
+    """A JAX `train.steps.LS3DCGState` (numpy leaves) -> the port's LS3DCG
+    state, for `train.steps.LS3DCGState.load_converted`.
+
+    Returns {"gen", "disc": state dicts (params + BatchNorm statistics),
+    "adam": {"gen", "disc": each model's Adam moments, optax's count and
+    its skip count}, "step": int}."""
+    return {"gen": convert_ls3dcg({"params": state.g_params, "batch_stats": state.g_stats}),
+            "disc": convert_ls3dcg({"params": state.d_params, "batch_stats": state.d_stats}),
+            "adam": {"gen": _adam_of(state.g_opt, "gen", convert_ls3dcg),
+                     "disc": _adam_of(state.d_opt, "disc", convert_ls3dcg)},
             "step": int(np.asarray(state.step))}
 
 

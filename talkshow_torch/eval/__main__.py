@@ -6,12 +6,16 @@ test_face.py).
     python -m talkshow_torch.eval body --body_ckpt <pixel ckpt> --vq_ckpt <vq ckpt> \
         --ae_ckpt experiments/body-ae/ckpt-0.pt [--smplx_npz SMPLX_NEUTRAL_2020.npz]
     python -m talkshow_torch.eval face --face_ckpt <face ckpt> [--smplx_npz ...]
+    python -m talkshow_torch.eval ls3dcg --ls3dcg_ckpt experiments/ls3dcg/ckpt-0.pt \
+        --ae_ckpt experiments/body-ae/ckpt-0.pt
 
-Each prints one JSON line of the runner's metrics (`eval/runners.py`).
+Each prints one JSON line of the runner's metrics (`eval/runners.py`); `ls3dcg`
+mirrors the LS3DCG stage of scripts/eval_full_schedule.py:233-258.
 Runs on the card unless `--device cpu` is given, with TF32 off (f32 sums,
 as the JAX package computes on the CPU).  A checkpoint is either this
 port's own (a `ckpt-*.pt` of `python -m talkshow_torch.train`) or the
-reference trainer's `.pth`.  Without a checkpoint the stage's weights are
+reference trainer's `.pth` (LS3DCG: the port's own only; the JAX package
+reads no reference LS3DCG file either).  Without a checkpoint the stage's weights are
 random (a NOTE says so; without --ae_ckpt FGD uses a random feature net, and
 a WARNING says so).  Without --data_root, or with --synthetic, the data is
 the JAX scripts' synthetic clips; else the SHOW test split under
@@ -28,8 +32,9 @@ import torch
 
 from talkshow_torch import convert
 from talkshow_torch.data.dataset import ShowDataset, synthetic_dataset
-from talkshow_torch.eval.runners import eval_body, eval_face, eval_vq_capacity
+from talkshow_torch.eval.runners import eval_body, eval_face, eval_ls3dcg, eval_vq_capacity
 from talkshow_torch.models.layers import init_weights_
+from talkshow_torch.models.ls3dcg import LS3DCGGenerator
 from talkshow_torch.models.vqvae import AE, VQVAE
 from talkshow_torch.ops.pose import BODY_DIM, CONV_DIM, HAND_DIM
 from talkshow_torch.ops.smplx_lbs import load_smplx_npz
@@ -42,7 +47,7 @@ SPEAKERS = ["oliver", "chemistry", "seth", "conan"]
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m talkshow_torch.eval")
-    p.add_argument("runner", choices=("vq", "body", "face"))
+    p.add_argument("runner", choices=("vq", "body", "face", "ls3dcg"))
     p.add_argument("--data_root", default=None)
     p.add_argument("--speakers", nargs="+", default=SPEAKERS)
     p.add_argument("--synthetic", action="store_true")
@@ -50,6 +55,7 @@ def parse_args(argv=None):
     p.add_argument("--body_ckpt", default=None, help="s2g_body_pixel checkpoint")
     p.add_argument("--vq_ckpt", default=None, help="s2g_body_vq checkpoint")
     p.add_argument("--ae_ckpt", default=None, help="s2g_body_ae checkpoint (the FGD net)")
+    p.add_argument("--ls3dcg_ckpt", default=None, help="s2g_LS3DCG checkpoint")
     p.add_argument("--smplx_npz", default=None)
     p.add_argument("--num_samples", type=int, default=2)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -119,6 +125,18 @@ def run_vq(args) -> dict:
     return eval_vq_capacity(vq_body, vq_hand, states, dataset(args, 240, 4))
 
 
+def fgd_net(args, dev) -> AE:
+    """The FGD feature net from --ae_ckpt, else random (with a WARNING)."""
+    ae = AE(CONV_DIM)
+    if args.ae_ckpt:
+        ae.load_state_dict(ae_weights(_load(args.ae_ckpt)))
+    else:
+        print("WARNING: --ae_ckpt not given; FGD uses a RANDOM-INIT feature extractor and "
+              "is NOT comparable to the reference", file=sys.stderr)
+        init_weights_(ae, torch.Generator().manual_seed(1))
+    return ae.to(dev)
+
+
 def run_body(args) -> dict:
     dev = torch.device(args.device)
     pipe = Pipeline.create(0, dev)
@@ -129,14 +147,7 @@ def run_body(args) -> dict:
         pipe.load_converted(weights)
     else:
         print("NOTE: random weights")
-    ae = AE(CONV_DIM)
-    if args.ae_ckpt:
-        ae.load_state_dict(ae_weights(_load(args.ae_ckpt)))
-    else:
-        print("WARNING: --ae_ckpt not given; FGD uses a RANDOM-INIT feature extractor and "
-              "is NOT comparable to the reference", file=sys.stderr)
-        init_weights_(ae, torch.Generator().manual_seed(1))
-    ae.to(dev)
+    ae = fgd_net(args, dev)
     smplx_model = load_smplx_npz(args.smplx_npz, device=dev) if args.smplx_npz else None
     return eval_body(pipe, ae, dataset(args, 240, 4), num_samples=args.num_samples,
                      smplx_model=smplx_model)
@@ -160,7 +171,18 @@ def run_face(args) -> dict:
     return eval_face(pipe.face_model, ds, smplx_model)
 
 
-RUNNERS = {"vq": run_vq, "body": run_body, "face": run_face}
+def run_ls3dcg(args) -> dict:
+    dev = torch.device(args.device)
+    gen = LS3DCGGenerator()
+    if args.ls3dcg_ckpt:
+        gen.load_state_dict(_load(args.ls3dcg_ckpt)["state"]["models"]["gen"])
+    else:
+        print("NOTE: random weights (no --ls3dcg_ckpt)")
+        init_weights_(gen, torch.Generator().manual_seed(0))
+    return eval_ls3dcg(gen.to(dev), fgd_net(args, dev), dataset(args, 240, 4))
+
+
+RUNNERS = {"vq": run_vq, "body": run_body, "face": run_face, "ls3dcg": run_ls3dcg}
 
 
 def main(argv=None) -> dict:

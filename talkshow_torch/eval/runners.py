@@ -15,12 +15,14 @@ and returns the JAX runner's keys, `per_clip` lists and bootstrap CIs:
   * `eval_face`: jaw L1 + expression MSE, and with an SMPL-X model the
     face-vertex LVD (test_face.py:93-111); on the card each whole clip runs
     through `face_apply_fused` on f32 tables (K3 + K2), on the CPU through
-    the plain FaceGenerator, with a zero identity as JAX passes.
+    the plain FaceGenerator, with a zero identity as JAX passes;
+  * `eval_ls3dcg`: the LS3DCG baseline's per-part L1 / MSE and FGD of its
+    generated conv channels through the shared body AE (LS3DCG.py:365-391
+    with test_body.py's FGD harness); no kernel (the generator is convs).
 
 The plain versions of the kernels never run on the card here: a CUDA
 tensor launches its kernel or raises.  SMPL-X metrics run only when a
 loaded `SmplxModel` is passed (the licensed npz is not in the repository).
-The LS3DCG runner waits for the LS3DCG model.
 """
 from __future__ import annotations
 
@@ -33,12 +35,13 @@ from talkshow_torch.eval.fgd import FGDEvaluator
 from talkshow_torch.eval.metrics import clip_ci, diversity, lvd
 from talkshow_torch.kernels.ar_decode import pack_decode_tables
 from talkshow_torch.models.body import BodyModels, generate_conv_poses
+from talkshow_torch.models.ls3dcg import LS3DCGGenerator
 from talkshow_torch.models.vqvae import AE, VQVAE
 from talkshow_torch.models.wav2vec_fused import face_apply_fused, pack_face_tables
 from talkshow_torch.ops import audio as audio_ops
 from talkshow_torch.ops import pose as pose_ops
 from talkshow_torch.ops import smplx_lbs
-from talkshow_torch.ops.pose import C_INDEX_3D, C_INDEX_6D
+from talkshow_torch.ops.pose import BODY_DIM, C_INDEX_3D, C_INDEX_6D
 
 
 def _conv_channels(poses: np.ndarray) -> np.ndarray:
@@ -153,6 +156,47 @@ def eval_body(body, ae: AE, dataset, num_samples: int = 2, seed: int = 0,
             out["lvd_ci"] = clip_ci(lvd_vals)
         if fgd_eval.audio_beats:
             out["bc"] = fgd_eval.get_bc_score()
+    return out
+
+
+@torch.no_grad()
+def eval_ls3dcg(gen: LS3DCGGenerator, ae: AE, dataset) -> dict:
+    """LS3DCG baseline metrics over whole clips (talkshow_tpu/eval/runners.py:
+    123-165): each clip trimmed to a multiple of 8 aligned frames (the
+    generator pools three times), the generator in eval mode; jaw L1,
+    expression MSE, body and hand L1 against the GT conv channels, FGD and
+    feature MAE of the generated conv channels (`FGDEvaluator` over `ae`),
+    and at 2 clips or more the FGD bootstrap and body_l1's CI.  Raises when
+    no clip has 8 aligned frames."""
+    dev = _device(gen)
+    gen.eval()
+    fgd_eval = FGDEvaluator(ae)
+    jaw_l1, exp_mse, body_l1, hand_l1 = [], [], [], []
+    for clip in dataset.whole_clips():
+        aud, poses, exp = clip["aud_feat"], clip["poses"], clip["expression"]
+        t = min(poses.shape[0], aud.shape[0])
+        t -= t % 8
+        if t == 0:
+            continue
+        pred = gen(torch.as_tensor(aud[None, :t], dtype=torch.float32, device=dev))
+        pred_np = pred[0].cpu().numpy()
+        conv_gt = _conv_channels(poses[:t])
+        jaw_l1.append(float(np.mean(np.abs(pred_np[:, :3] - poses[:t, :3]))))
+        exp_mse.append(float(np.mean((pred_np[:, 3:103] - exp[:t, :100]) ** 2)))
+        body_l1.append(float(np.mean(np.abs(pred_np[:, 103:142] - conv_gt[:, :BODY_DIM]))))
+        hand_l1.append(float(np.mean(np.abs(pred_np[:, 142:] - conv_gt[:, BODY_DIM:]))))
+        fgd_eval.push_samples(pred[:, :, 103:], conv_gt[None])
+    if not jaw_l1:
+        raise ValueError("eval_ls3dcg: no usable clips — every clip had <8 aligned audio/pose "
+                         "frames (generator pools /8 along time)")
+    fgd, feat_mae = fgd_eval.get_scores()
+    out = {"jaw_l1": float(np.mean(jaw_l1)), "exp_mse": float(np.mean(exp_mse)),
+           "body_l1": float(np.mean(body_l1)), "hand_l1": float(np.mean(hand_l1)),
+           "fgd": fgd, "feat_mae": feat_mae, "num_clips": len(jaw_l1),
+           "per_clip": {"jaw_l1": jaw_l1, "body_l1": body_l1, "hand_l1": hand_l1}}
+    if len(jaw_l1) >= 2:
+        out["fgd_ci"] = fgd_eval.bootstrap_fgd(return_draws=True)
+        out["body_l1_ci"] = clip_ci(body_l1)
     return out
 
 

@@ -15,7 +15,11 @@ products run on the tensor cores (the kernel picks this from B).
 `sample_tokens_fused` takes the arguments of the plain sampler
 `talkshow_torch.models.pixelcnn.sample_tokens` (its plain PyTorch version).
 A CPU tensor runs that plain version; a CUDA tensor launches the kernel or
-raises — there is no fallback.  Each launch adds one to
+raises — there is no fallback.  A batch whose chain buffers would leave the
+weight ring fewer than 4 stages of shared memory (past 23 samples at the
+6-D prior's dim 512, `launch_plan` / `max_batch`, a transcription of the
+kernel's carve) raises before the launch and names the largest batch that
+fits.  Each launch adds one to
 ``talkshow_torch.kernels.counts["ar_decode"]`` and records its shape in
 `last_launch`.
 
@@ -34,7 +38,9 @@ import torch
 from talkshow_torch.kernels import TABLE_DTYPES, check, counts
 from talkshow_torch.models.pixelcnn import GatedPixelCNN, sample_tokens
 
-#: largest sample batch one launch takes (models/body.py chunks above it)
+#: most sample batch rows one launch takes (the argmax's lanes); at a given
+#: shape the chain's shared memory may hold fewer (`max_batch`), and
+#: models/body.py chunks above that
 MAX_BATCH = 32
 SOURCE = "talkshow_torch/csrc/ar_decode.cu"
 REPLACES = "talkshow_tpu/models/pixelcnn_pallas.py:363"
@@ -115,6 +121,90 @@ def chain_parts(L: int, d: int, K: int, hid: int, esize: int):
             off += nu * urows * klen
     chunk = CHUNK_BYTES // esize
     return parts, -(-off // chunk) * chunk
+
+
+#: shared memory a CTA may take on sm_90, the ring's most stages and the
+#: warps of a CTA (csrc/ar_decode.cu kSmemCap, kMaxStages, kWarps)
+SMEM_CAP = 227 * 1024
+MAX_STAGES = 32
+_WARPS = 16
+
+
+def chain_smem_bytes(B: int, L: int, d: int, hid: int, K: int, nparts: int,
+                     cls_smem: bool, nst: int) -> int:
+    """The chain CTA's shared memory in bytes: the carve of `chain_smem` in
+    csrc/ar_decode.cu, field by field, in its order and alignments."""
+    o = 0
+
+    def take(nbytes: int, align: int) -> None:
+        nonlocal o
+        o = -(-o // align) * align + nbytes
+
+    C = CLUSTER
+    n_own, h_own = d // C, hid // C
+    take(B * (max(2 * d, hid) + 4) * 4, 16)                   # x, the step's input
+    take((L + 1) * B * n_own * 4, 16)                         # hist0
+    for _ in range(3):                                        # xh1, gs, tmp
+        take(B * n_own * 4, 16)
+    take(B * h_own * 4, 16)                                   # head hidden
+    take(B * (K // C) * 4, 16)                                # gumbel noise
+    take(MAX_BATCH * 4, 16)                                   # cval
+    take(MAX_BATCH * 4, 16)                                   # cidx
+    take(_WARPS * 32 * 4, 16)                                 # wval
+    take(_WARPS * 32 * 4, 16)                                 # widx
+    take(3 * MAX_BATCH * 2 * 4, 16)                           # tokens of rows r-2 .. r
+    take(nparts * 32, 16)                                     # part descriptors
+    take((3 * L * n_own + h_own + K // C) * 4, 16)            # biases
+    take(L * B * 2 * n_own * 4 if cls_smem else 0, 16)        # cls
+    take(L * B * 2 * n_own * 4 if cls_smem else 0, 16)        # column 1's v2h
+    take(MAX_STAGES * 8, 8)                                   # mbarriers
+    take(nst * CHUNK_BYTES, 128)                              # the ring
+    return o
+
+
+def launch_plan(B: int, L: int, d: int, K: int, hid: int, esize: int,
+                smem_cap: int = SMEM_CAP) -> dict | None:
+    """The chain's carve that the launch would choose (csrc/ar_decode.cu
+    `decode`: the ring takes what the buffers leave, cls and column 1's v2h
+    move to shared memory while the ring keeps 12 stages, and a part must
+    fit beside the chunk it may start in): {'cls_smem', 'ring_stages',
+    'smem_bytes'}, or None when the batch's buffers leave the ring too few
+    stages.  `smem_cap`: the card's opt-in limit per block."""
+    nparts = len(chain_parts(L, d, K, hid, esize)[0])
+    cap = min(smem_cap, SMEM_CAP)
+
+    def stages(cls_smem: bool) -> int:
+        fixed = chain_smem_bytes(B, L, d, hid, K, nparts, cls_smem, 0)
+        return min(MAX_STAGES, (cap - -(-fixed // 128) * 128) // CHUNK_BYTES)
+
+    cls_smem = stages(True) >= 12
+    nst = stages(cls_smem)
+    if nst * CHUNK_BYTES < PART_BYTES + 2 * CHUNK_BYTES:
+        return None
+    return dict(cls_smem=cls_smem, ring_stages=nst,
+                smem_bytes=chain_smem_bytes(B, L, d, hid, K, nparts, cls_smem, nst))
+
+
+def max_batch(L: int, d: int, K: int, hid: int, esize: int,
+              smem_cap: int = SMEM_CAP) -> int:
+    """The largest sample batch one launch takes at this shape (MAX_BATCH
+    where it fits; at dim 512 the chain's buffers fill shared memory sooner),
+    0 when none does."""
+    return next((B for B in range(MAX_BATCH, 0, -1)
+                 if launch_plan(B, L, d, K, hid, esize, smem_cap) is not None), 0)
+
+
+def model_max_batch(model: GatedPixelCNN, dtype: torch.dtype = torch.bfloat16,
+                    smem_cap: int = SMEM_CAP) -> int:
+    """`max_batch` for `model`'s decode with `dtype` tables."""
+    return max_batch(model.n_layers, model.dim, model.input_dim,
+                     model.out_hidden.out_features,
+                     torch.empty((), dtype=dtype).element_size(), smem_cap)
+
+
+def _smem_cap(dev: torch.device) -> int:
+    props = torch.cuda.get_device_properties(dev)
+    return int(getattr(props, "shared_memory_per_block_optin", SMEM_CAP))
 
 
 @torch.no_grad()
@@ -277,7 +367,14 @@ def _decode(model, label, audio, tables, noise, generator, prefix_tokens, prefix
     tdtype = tables["emb"].dtype
     if tdtype not in TABLE_DTYPES:
         raise TypeError(f"tables must be float32 or bfloat16, got {tdtype}")
-    parts, row_elems = chain_parts(L, d, K, hid, tables["emb"].element_size())
+    esize = tables["emb"].element_size()
+    if launch_plan(B, L, d, K, hid, esize, _smem_cap(dev)) is None:
+        raise ValueError(
+            f"batch {B} does not fit one launch at dim {d}, {L} layers, {K} codes with "
+            f"{tdtype} tables: the chain's buffers leave its weight ring fewer than 4 "
+            f"stages of shared memory; the largest batch that fits is "
+            f"{max_batch(L, d, K, hid, esize, _smem_cap(dev))}: chunk the batch")
+    parts, row_elems = chain_parts(L, d, K, hid, esize)
     shapes = dict(wv0=(2, 2 * d, 6 * d), wvB=(L - 1, 2, 2 * d, 4 * d),
                   wv2h=(L, 2 * d, 2 * d), wfv=(d, d), emb=(K, d), chain=(CLUSTER, row_elems),
                   bv=(L, 2 * d), bhsum=(L, 2 * d), br=(L, d), b1=(hid,), b2=(K,))

@@ -24,14 +24,24 @@ The body AE (`make_body_ae_step`, steps.py:406-444), the FGD feature net:
 the plain autoencoder over the 129 conv channels, L1 reconstruction + L1
 velocity, Adam with the non-finite skip; no quantizer, so no kernel.
 
+The LS3DCG baseline (`make_ls3dcg_step`, steps.py:312-404): the LSGAN
+step, the discriminator updated first against a detached generator
+forward in eval mode, then the generator against the refreshed
+discriminator in eval mode; each model has its own Adam with the
+non-finite skip; no kernel.
+
+`rep6d=True` on stage 1, the token encoder and stage 2 is the 6-D pose
+variant (convert_to_6d): poses (T, 330), the conv channels picked by
+C_INDEX_6D, 78 body / 180 hand channels; the reference then trains a prior
+of dim 512 x 10 layers, whose decode K1 runs at that shape.
+
 The stochastic steps take a `torch.Generator` for their dropout and
 SpecAugment draws; a batch may instead carry the masks (`aud_keep`;
 `spec_starts`, `drop_keep`), which is how the tests hand in JAX's own.
 
 Unlike the JAX package, where the state is an immutable pytree, the state
 here holds the modules (parameters and BatchNorm statistics) and the
-optimizer, and a step updates them in place.  The 6-D pose variant
-(`rep6d`) and the LS3DCG stage wait (ROADMAP.md).
+optimizer, and a step updates them in place.
 """
 from __future__ import annotations
 
@@ -41,24 +51,35 @@ import torch
 import torch.nn.functional as F
 
 from talkshow_torch.kernels.wav2vec_extractor import pack_extractor_tables
+from talkshow_torch.losses import l1_loss, velocity_loss
 from talkshow_torch.models.face import FaceGenerator, draw_drop_keep
 from talkshow_torch.models.layers import FlaxBatchNorm1d, init_weights_
+from talkshow_torch.models.ls3dcg import LS3DCGDiscriminator, LS3DCGGenerator
 from talkshow_torch.models.pixelcnn import GatedPixelCNN, draw_aud_keep
 from talkshow_torch.models.vqvae import AE, VQVAE, AudioEncoder
 from talkshow_torch.models.wav2vec import draw_spec_starts
 from talkshow_torch.models.wav2vec_fused import frozen_features
 from talkshow_torch.ops import vq as vq_ops
-from talkshow_torch.ops.pose import BODY_DIM, C_INDEX_3D, FULL_POSE_DIM, HAND_DIM
+from talkshow_torch.ops.pose import BODY_DIM, C_INDEX_3D, C_INDEX_6D, FULL_POSE_DIM, HAND_DIM
 from talkshow_torch.train.optim import SkipNonfiniteAdam, SkipNonfiniteSGD, global_norm
 
-PARTS = (("body", slice(0, BODY_DIM)), ("hand", slice(BODY_DIM, BODY_DIM + HAND_DIM)))
+def parts(rep6d: bool = False) -> tuple:
+    """The (name, channel slice) of each VQ-VAE's conv channels: body 39 and
+    hand 90, or 78 and 180 in the 6-D variant."""
+    body, hand = (2 * BODY_DIM, 2 * HAND_DIM) if rep6d else (BODY_DIM, HAND_DIM)
+    return (("body", slice(0, body)), ("hand", slice(body, body + hand)))
 
 
-def conv_channels(poses: torch.Tensor) -> torch.Tensor:
-    """(B, T, 165) poses -> the 129 conv channels; 129-wide poses pass."""
-    if poses.shape[-1] != FULL_POSE_DIM:
+PARTS = parts()
+
+
+def conv_channels(poses: torch.Tensor, rep6d: bool = False) -> torch.Tensor:
+    """(B, T, 165) poses -> the 129 conv channels, or with rep6d (B, T, 330)
+    -> the 258 (C_INDEX_6D); poses of another width pass, as in JAX."""
+    full, index = (2 * FULL_POSE_DIM, C_INDEX_6D) if rep6d else (FULL_POSE_DIM, C_INDEX_3D)
+    if poses.shape[-1] != full:
         return poses
-    return poses[..., torch.as_tensor(C_INDEX_3D, device=poses.device)]
+    return poses[..., torch.as_tensor(index, device=poses.device)]
 
 
 @dataclass
@@ -121,12 +142,17 @@ def _norm_buffers(models) -> list:
             for b in (mod.running_mean, mod.running_var)]
 
 
+def _restore(buffers: list, saved: list) -> None:
+    """Put back the BatchNorm statistics of a skipped step (JAX's tree_select)."""
+    with torch.no_grad():
+        for b, s in zip(buffers, saved):
+            b.copy_(s)
+
+
 def recon_losses(recon: torch.Tensor, gt: torch.Tensor):
     """(L1 reconstruction, L1 velocity) of (B, T, C) poses (steps.py:78-81,
     :425-428)."""
-    rec = torch.mean(torch.abs(recon - gt))
-    vel = torch.mean(torch.abs((recon[:, 1:] - recon[:, :-1]) - (gt[:, 1:] - gt[:, :-1])))
-    return rec, vel
+    return l1_loss(recon, gt), velocity_loss(recon, gt)
 
 
 def part_losses(model: VQVAE, vq_state: vq_ops.VQState, gt: torch.Tensor):
@@ -139,13 +165,14 @@ def part_losses(model: VQVAE, vq_state: vq_ops.VQState, gt: torch.Tensor):
 
 
 def make_body_vq_step(vq_body: VQVAE, vq_hand: VQVAE, learning_rate: float = 1e-4,
-                      code_num: int = 2048):
+                      code_num: int = 2048, rep6d: bool = False):
     """-> (init_state(generator, device), step(state, batch)).
 
-    batch: {'poses': (B, T, 165) or the 129 conv channels}.  step returns
-    (state, metrics) with metrics {body,hand}_{rec,vel,commit} (0-dim
-    tensors) and nonfinite_skips (int)."""
+    batch: {'poses': (B, T, 165) or the 129 conv channels; with rep6d (B, T,
+    330) or the 258}.  step returns (state, metrics) with metrics
+    {body,hand}_{rec,vel,commit} (0-dim tensors) and nonfinite_skips (int)."""
     models = {"body": vq_body, "hand": vq_hand}
+    slices = parts(rep6d)
 
     def init_state(generator: torch.Generator, device="cuda") -> BodyVQState:
         vq = {name: vq_ops.init_vq_state(generator, code_num, m.embedding_dim, device)
@@ -156,12 +183,12 @@ def make_body_vq_step(vq_body: VQVAE, vq_hand: VQVAE, learning_rate: float = 1e-
         return BodyVQState(models, vq, SkipNonfiniteAdam(params, learning_rate))
 
     def step(state: BodyVQState, batch) -> tuple[BodyVQState, dict]:
-        conv = conv_channels(batch["poses"])
+        conv = conv_channels(batch["poses"], rep6d)
         buffers = _norm_buffers(state.models.values())
         saved = [b.clone() for b in buffers]
         state.optimizer.zero_grad()
         total, metrics, new_vq = 0.0, {}, {}
-        for name, sl in PARTS:
+        for name, sl in slices:
             rec, vel, commit, new_vq[name] = part_losses(state.models[name].train(),
                                                          state.vq[name], conv[..., sl])
             total = total + rec + vel + commit
@@ -171,9 +198,7 @@ def make_body_vq_step(vq_body: VQVAE, vq_hand: VQVAE, learning_rate: float = 1e-
         if state.optimizer.step():
             state.vq = new_vq
         else:
-            with torch.no_grad():
-                for b, s in zip(buffers, saved):
-                    b.copy_(s)
+            _restore(buffers, saved)
         state.step += 1
         metrics["nonfinite_skips"] = state.optimizer.nonfinite_count
         return state, metrics
@@ -181,15 +206,17 @@ def make_body_vq_step(vq_body: VQVAE, vq_hand: VQVAE, learning_rate: float = 1e-
     return init_state, step
 
 
-def make_token_encoder(vq_body: VQVAE, vq_hand: VQVAE, frozen_vq_states: dict):
+def make_token_encoder(vq_body: VQVAE, vq_hand: VQVAE, frozen_vq_states: dict,
+                       rep6d: bool = False):
     """poses -> (B, T/4, 2) int64 token grid through the FROZEN stage-1 VQs
     (eval mode, running statistics).  Deterministic given the poses."""
+    (_, body), (_, hand) = parts(rep6d)
 
     @torch.no_grad()
     def encode(poses: torch.Tensor) -> torch.Tensor:
-        conv = conv_channels(poses)
-        _, tb = vq_body.eval().encode(conv[..., :BODY_DIM], frozen_vq_states["body"])
-        _, th = vq_hand.eval().encode(conv[..., BODY_DIM:], frozen_vq_states["hand"])
+        conv = conv_channels(poses, rep6d)
+        _, tb = vq_body.eval().encode(conv[..., body], frozen_vq_states["body"])
+        _, th = vq_hand.eval().encode(conv[..., hand.start:], frozen_vq_states["hand"])
         return torch.stack([tb, th], dim=-1)
 
     return encode
@@ -246,9 +273,7 @@ def make_body_ae_step(ae: AE, learning_rate: float = 1e-4):
         rec, vel = recon_losses(state.model.train()(gt), gt)
         (rec + vel).backward()
         if not state.optimizer.step():
-            with torch.no_grad():
-                for b, s in zip(buffers, saved):
-                    b.copy_(s)
+            _restore(buffers, saved)
         state.step += 1
         return state, {"rec_loss": rec.detach(), "velocity_loss": vel.detach(),
                        "nonfinite_skips": state.optimizer.nonfinite_count}
@@ -291,19 +316,21 @@ class PixelState:
 
 def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body: VQVAE,
                          vq_hand: VQVAE, frozen_vq_states: dict,
-                         learning_rate: float = 1e-4, max_grad_norm: float = 5.0):
+                         learning_rate: float = 1e-4, max_grad_norm: float = 5.0,
+                         rep6d: bool = False):
     """-> (init_state(generator, device), step(state, batch, generator)).
 
     vq_body / vq_hand carry the frozen stage-1 weights and frozen_vq_states
     their {'body', 'hand'} VQStates; init_state moves them to the device.
     batch: 'aud_feat' (B, T, 64), 'speaker' (B,) and either 'tokens' (B,
     T/4, 2) (the trainer's cache; the frozen encode is skipped, which gives
-    the same tokens) or 'poses' (B, T, 165 or 129 conv channels); optional
+    the same tokens) or 'poses' (B, T, 165 or 129 conv channels; with rep6d
+    330 or 258, as `make_token_encoder`); optional
     'aud_keep' (B, T/4) bool, the audio dropout's keep mask, else drawn from
     `generator`.  Metrics: ce_loss and grad (the gradients' global norm
     before the clip; 0-dim tensors), nonfinite_skips (int)."""
     models = {"prior": prior, "audio": audio_enc}
-    encode = make_token_encoder(vq_body, vq_hand, frozen_vq_states)
+    encode = make_token_encoder(vq_body, vq_hand, frozen_vq_states, rep6d)
 
     def init_state(generator: torch.Generator, device="cuda") -> PixelState:
         for m in models.values():
@@ -336,9 +363,7 @@ def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body:
         ce.backward()
         norm = global_norm(opt.grads())
         if not opt.step(norm):
-            with torch.no_grad():
-                for b, s in zip(buffers, saved):
-                    b.copy_(s)
+            _restore(buffers, saved)
         state.step += 1
         return state, {"ce_loss": ce.detach(), "grad": norm.detach(),
                        "nonfinite_skips": opt.nonfinite_count}
@@ -458,5 +483,112 @@ def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: f
         state.step += 1
         return state, {"MSELoss": l1.detach(), "exp_loss": mse.detach(), "loss": loss.detach(),
                        "grad": norm.detach(), "nonfinite_skips": opt.nonfinite_count}
+
+    return init_state, step
+
+
+# ---------------------------------------------------------------------------
+# The LS3DCG baseline: two optimizers, one adversarial step
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LS3DCGState:
+    """LS3DCG train state: {'gen': LS3DCGGenerator, 'disc':
+    LS3DCGDiscriminator} (parameters and BatchNorm statistics), one
+    optimizer each under the same keys, and the step."""
+    models: dict
+    optimizers: dict
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"models": {k: m.state_dict() for k, m in self.models.items()},
+                "optimizers": {k: o.state_dict() for k, o in self.optimizers.items()},
+                "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for k, m in self.models.items():
+            m.load_state_dict(sd["models"][k])
+            self.optimizers[k].load_state_dict(sd["optimizers"][k])
+        self.step = int(sd["step"])
+
+    @torch.no_grad()
+    def load_converted(self, weights: dict) -> "LS3DCGState":
+        """Load `convert.from_jax_ls3dcg_state`'s output in place."""
+        for k, m in self.models.items():
+            m.load_state_dict(weights[k])
+            _load_adam(self.optimizers[k], {k: m}, weights["adam"][k])
+        self.step = weights["step"]
+        return self
+
+
+def make_ls3dcg_step(gen: LS3DCGGenerator, disc: LS3DCGDiscriminator,
+                     learning_rate: float = 1e-4, keypoint_w: float = 1.0, gan_w: float = 1.0):
+    """-> (init_state(generator, device), step(state, batch)): the LSGAN step
+    of nets/LS3DCG.py:280-363, as JAX's (steps.py:322-404).
+
+    batch: 'poses' (B, T, 165, or the 129 conv channels), 'expression'
+    (B, T, 100), 'aud_feat' (B, T, 64).  In order:
+    - the generator in eval mode (running statistics), detached;
+    - the discriminator in train mode on [gt conv | aud] then on [pred conv |
+      aud], its batch statistics chaining from the first call into the
+      second; D loss mean((real - 1)^2) + mean(fake^2); Adam;
+    - the generator in train mode; L1 jaw + MSE expression + L1 body + L1
+      hand, weighted by keypoint_w, plus gan_w mean((D(pred) - 1)^2) with
+      the refreshed discriminator in eval mode (its new parameters and
+      statistics; no gradient of its own); Adam.
+    A model whose gradients are not all finite keeps its parameters, Adam
+    state and BatchNorm statistics (JAX's tree_select).  Metrics: jaw_loss,
+    face_loss, body_loss, hand_loss, gen, dis (0-dim tensors) and
+    nonfinite_skips, the two optimizers' counts summed."""
+    models = {"gen": gen, "disc": disc}
+
+    def init_state(generator: torch.Generator, device="cuda") -> LS3DCGState:
+        for m in models.values():
+            init_weights_(m, generator).to(device)
+        return LS3DCGState(models, {k: SkipNonfiniteAdam(m.parameters(), learning_rate)
+                                    for k, m in models.items()})
+
+    def step(state: LS3DCGState, batch) -> tuple[LS3DCGState, dict]:
+        g, d = state.models["gen"], state.models["disc"]
+        g_opt, d_opt = state.optimizers["gen"], state.optimizers["disc"]
+        poses, aud = batch["poses"], batch["aud_feat"]
+        conv = conv_channels(poses)
+        # the discriminator, against a detached eval-mode generator
+        with torch.no_grad():
+            pred = g.eval()(aud)
+        d_buffers = _norm_buffers([d])
+        d_saved = [b.clone() for b in d_buffers]
+        d_opt.zero_grad()
+        d.train()
+        real = d(torch.cat([conv, aud], dim=-1))
+        fake = d(torch.cat([pred[..., 103:], aud], dim=-1))
+        d_loss = torch.mean((real - 1.0) ** 2) + torch.mean(fake ** 2)
+        d_loss.backward()
+        if not d_opt.step():
+            _restore(d_buffers, d_saved)
+        # the generator, against the refreshed discriminator in eval mode
+        g_buffers = _norm_buffers([g])
+        g_saved = [b.clone() for b in g_buffers]
+        g_opt.zero_grad()
+        pred = g.train()(aud)
+        jaw_loss = torch.mean(torch.abs(pred[..., :3] - poses[..., :3]))
+        face_loss = torch.mean((pred[..., 3:103] - batch["expression"]) ** 2)
+        body_loss = torch.mean(torch.abs(pred[..., 103:142] - conv[..., :BODY_DIM]))
+        hand_loss = torch.mean(torch.abs(pred[..., 142:] - conv[..., BODY_DIM:]))
+        l1 = jaw_loss + face_loss + body_loss + hand_loss
+        d.eval().requires_grad_(False)
+        try:
+            gen_err = torch.mean((d(torch.cat([pred[..., 103:], aud], dim=-1)) - 1.0) ** 2)
+            (keypoint_w * l1 + gan_w * gen_err).backward()
+        finally:
+            d.requires_grad_(True)
+        if not g_opt.step():
+            _restore(g_buffers, g_saved)
+        state.step += 1
+        metrics = {"jaw_loss": jaw_loss, "face_loss": face_loss, "body_loss": body_loss,
+                   "hand_loss": hand_loss, "gen": gen_err, "dis": d_loss}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["nonfinite_skips"] = g_opt.nonfinite_count + d_opt.nonfinite_count
+        return state, metrics
 
     return init_state, step

@@ -23,7 +23,10 @@ ends by encoding every window the dataset can give that is not cached yet
 its windows are cached, and with 128 windows that each keep their epoch-1
 jitter offset with probability 1/2, JAX's cache misses every batch of
 every later epoch.  The cache is not checkpointed; a resumed run refills
-it.
+it.  It belongs to one trainer and its dataset, so the 6-D variant's
+windows (330-wide poses, encoded by 78 / 180-channel VQs) never meet 3-D
+ones in it; `ShowDataset.from_root`'s pickle cache is keyed by
+convert_to_6d as well.
 
 Each epoch draws its window jitter and order from
 np.random.default_rng(seed + epoch) (the JAX trainer draws from one

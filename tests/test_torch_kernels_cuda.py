@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from talkshow_torch.kernels import counts
+from talkshow_torch.kernels import ar_decode, counts
 from talkshow_torch.kernels import wav2vec_extractor as k3
 from talkshow_torch.kernels import wav2vec_layers as k2
 from talkshow_torch.kernels.ar_decode import (pack_decode_tables, round_like_tables,
@@ -93,6 +93,10 @@ def test_f32_tables_match_plain(cuda, shape):
                                prefix_len=H, return_logits=True)
     assert torch.equal(tf.cpu(), given.cpu())
     np.testing.assert_allclose(lg.cpu().numpy(), want_lg.cpu().numpy(), atol=1e-3)
+    plan = ar_decode.launch_plan(shape[3], model.n_layers, model.dim, model.input_dim,
+                                 model.out_hidden.out_features, 4)
+    assert {k: ar_decode.last_launch[k] for k in ("smem_bytes", "ring_stages")} == \
+        {k: plan[k] for k in ("smem_bytes", "ring_stages")}
 
 
 @pytest.mark.cuda
@@ -154,6 +158,52 @@ def test_philox_noise_is_seeded_and_in_range(cuda):
     a, b, c = run(0), run(0), run(1)
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert int(a.min()) >= 0 and int(a.max()) < SHAPES[0][2]
+
+
+#: the 6-D variant's prior (dim 512, 10 layers over 2048 codes,
+#: scripts/train.py:143-145), one 10 s clip's 75 token rows
+SHAPE_6D = (512, 10, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_k1_at_the_6d_prior(cuda, B):
+    """K1 at dim 512 x 10 layers: where the batch fits one launch (B <= 23
+    there), f32 tables give the plain sampler's tokens under the same noise
+    and its teacher-forced logits within 1e-3, bf16 tables the rounded plain
+    version's logits within 1e-3 of max|logit|, and the launch takes the
+    shared-memory carve `launch_plan` computes; where it does not (B = 32),
+    the wrapper raises before any launch and names the largest batch."""
+    model, label, audio, given, noise = _case(*SHAPE_6D, B, 75, cuda, seed=6)
+    tables = pack_decode_tables(model, torch.float32)
+    fits = ar_decode.model_max_batch(model, torch.float32)
+    assert fits == 23
+    counts.clear()
+    if B > fits:
+        with pytest.raises(ValueError, match=f"largest batch that fits is {fits}"):
+            sample_tokens_fused(model, label, audio, tables=tables, noise=noise)
+        assert counts["ar_decode"] == 0
+        return
+    tok = sample_tokens_fused(model, label, audio, tables=tables, noise=noise)
+    torch.cuda.synchronize()
+    assert counts["ar_decode"] == 1
+    plan = ar_decode.launch_plan(B, model.n_layers, model.dim, model.input_dim,
+                                 model.out_hidden.out_features, 4)
+    assert ar_decode.last_launch["smem_bytes"] == plan["smem_bytes"]
+    assert ar_decode.last_launch["ring_stages"] == plan["ring_stages"]
+    assert torch.equal(tok.cpu(), sample_tokens(model, label, audio, noise=noise).cpu())
+    _, lg = sample_tokens_fused(model, label, audio, tables=tables, noise=noise,
+                                prefix_tokens=given, prefix_len=75, return_logits=True)
+    _, want = sample_tokens(model, label, audio, noise=noise, prefix_tokens=given,
+                            prefix_len=75, return_logits=True)
+    np.testing.assert_allclose(lg.cpu().numpy(), want.cpu().numpy(), atol=1e-3)
+    t16 = pack_decode_tables(model, torch.bfloat16)
+    _, lg16 = sample_tokens_fused(model, label, audio, tables=t16, noise=noise,
+                                  prefix_tokens=given, prefix_len=75, return_logits=True)
+    _, want16 = sample_tokens(round_like_tables(model, torch.bfloat16), label, audio,
+                              noise=noise, prefix_tokens=given, prefix_len=75,
+                              return_logits=True)
+    assert (lg16 - want16).abs().max().item() <= 1e-3 * max(want16.abs().max().item(), 1.0)
 
 
 W2V_SHAPES = {  # name: (config, B, T frames, N samples)
