@@ -5,8 +5,9 @@
 Phases (one line each; any failure raises and the script exits non-zero):
   1 device   CUDA present; the card's name and power limit (nvidia-smi);
              TF32 off for matmuls and cuDNN convolutions
-  2 build    nvcc builds the four kernels of talkshow_torch/csrc/ (sm_90a),
-             one process per source, all started together; loaded
+  2 build    nvcc builds the four kernels of talkshow_torch/csrc/ (sm_90a) and
+             g++ the rasterizer, one process per source, all started together;
+             loaded
   3 K1       the AR-decode kernel against its plain PyTorch version at full
              width (dim 256, 15 layers, K 2048, H 75), B in {1, 8, 32}:
              a) f32 tables, injected gumbel noise: free-run tokens equal,
@@ -221,11 +222,41 @@ Phases (one line each; any failure raises and the script exits non-zero):
              without --synthetic on a synthetic SHOW train split (8 clips of 20
              s): s2g_body_vq on MFCC windows (K4 twice a step) and s2g_face on
              whole raw clips (K3 once a step)
+ 26 CLIs     the user entry points on the 10 s clip at full width, each through
+             its main(argv) on the card (random weights from --seed): the demo's
+             default mode (p50 of 3 calls; equal bit for bit to
+             Pipeline.create(0).generate(seed=0); K1, K2, K3 once), --only_face
+             (K2, K3), --continuity (K1 twice), --streaming (1 s feeds; K1, K2, K3
+             once a step), --norm_stats, --model ls3dcg on phase 22's checkpoint
+             (no kernel); diversity at 4 speakers x 3 samples (K1 4 times);
+             continuity (K1 twice, K2, K3); convert_checkpoints on the golden
+             fixtures, loaded by load_pipeline into a pipeline of their widths on
+             the card (face output within 5e-4, hand decode within 2e-4 of
+             expected.npz); each one's wall time and launches
+ 27 render   30 frames of the demo's motion, whole_body tiles without captions,
+             over a synthetic SMPL-X rig of the official size (10 475 vertices):
+             LBS on the card, then the native rasterizer, ms a frame for each;
+             the native frames against the numpy rasterizer on 2 frames (frame 0
+             and the rest pose): at most 0.5 % of the pixels differ by more than 2
+             levels; the mp4 writer (cv2, the audio muxed where ffmpeg exists)
+             on the 30 frames where cv2 is installed, else a line that says so
+ 28 vertical the bh_model=false prior: the train CLI's s2g_body_pixel with
+             Model.bh_model false on phase 11's checkpoint (256 x 15, no horizontal
+             stack; K4 on cache misses, no K1); one step CUDA against CPU from one
+             state (phase 16's tolerances); Pipeline.generate on it raises the
+             named ValueError before any K1 launch
+ 29 causal   the causal VQ-VAE at full width (1024 hidden, 2048 x 64) on 10 s of
+             body (39) and hand (90) poses in 20-frame chunks: each K4 call's
+             indices equal the plain search's on its latents (near-ties exempt),
+             chunked tokens equal the full encode's (near-ties exempt), the
+             chunked decode within 1e-4 of max|out| of the full decode; K4's
+             launches and ms a chunk
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
 continuity, the serve flush, the stream and the eval path (eval_body and
 the eval CLI for K1, eval_face for K2 and K3), summed, K3 in phase 17 and
-phase 25, K1 at dim 512 in phase 24; K4: phases 11, 16, eval_vq_capacity,
-24 and 25), the nvidia-smi line, the total wall time and the result line.
+phase 25, K1 at dim 512 in phase 24, the entry points of phase 26; K4:
+phases 11, 16, eval_vq_capacity, 24, 25, 28 and 29), the nvidia-smi line,
+the total wall time and the result line.
 """
 from __future__ import annotations
 
@@ -1425,6 +1456,13 @@ def grad_errors(cpu_models: dict, gpu_models: dict) -> dict:
     return out
 
 
+def distinct_codes(cache: dict) -> str:
+    """The distinct body and hand codes among a trainer's cached token grids."""
+    grids = np.stack(list(cache.values()))
+    return (f"{len(cache)} windows, {len(np.unique(grids[..., 0]))} distinct body codes and "
+            f"{len(np.unique(grids[..., 1]))} distinct hand codes of {TRAIN['codes']}")
+
+
 def phase16(dev, tmp: str, vq_ckpt: str) -> dict:
     """Stage-2 training through `python -m talkshow_torch.train`'s entry
     point at full width on phase 11's checkpoint; the token cache; resume;
@@ -1497,6 +1535,7 @@ def phase16(dev, tmp: str, vq_ckpt: str) -> dict:
     if not (resumed.global_step == trainer.global_step
             and states_equal(resumed.state.state_dict(), trainer.state.state_dict())):
         raise AssertionError("phase 16: resume + epoch 2 differs from the uninterrupted run")
+    log(f"phase 16 3-D token cache: {distinct_codes(trainer._token_cache)}")
     log(f"phase 16 cache and resume: the cached token grids of a batch's {len(brought)} "
         f"windows and of {len(filled)} filled ones equal a fresh encode bit for bit; ckpt-0 + epoch 2 ({steps2} steps, cache "
         f"refilled) equals the uninterrupted run bit for bit (parameters, BatchNorm "
@@ -2367,6 +2406,7 @@ def phase24(dev, tmp: str, wav10: str, card: str) -> dict:
         f"{e1['nearest_code']} = 2 x ({s2} missed batches + {fills} fill batches); epoch 2 in "
         f"{t3:.1f} s, nearest_code {e2.get('nearest_code', 0)} = 2 x {misses} misses; plain 0; "
         f"{len(logged)} logged values finite")
+    log(f"phase 24 6-D token cache: {distinct_codes(px._token_cache)}")
 
     ds6 = ShowDataset.from_root(os.path.join(tmp, "show"), SPEAKERS, "test", convert_to_6d=True,
                                 device=dev)
@@ -2533,6 +2573,357 @@ def phase25(dev, tmp: str, card: str) -> dict:
     return out
 
 
+def cli_run(fn, argv: list, reps: int = 1):
+    """fn(argv) `reps` times -> (the last result, p50 wall s, the last call's
+    launch counts)."""
+    from talkshow_torch.kernels import counts
+    secs = []
+    for _ in range(reps):
+        counts.clear()
+        t0 = time.time()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        seen = dict(counts)
+    return out, float(np.median(secs)), seen
+
+
+def launch_line(c: dict) -> str:
+    return ", ".join(f"{k} {c.get(k, 0)}" for k in KERNELS[:3])
+
+
+def phase26(dev, tmp: str, wav10: str, card: str) -> dict:
+    """The user entry points on the 10 s clip at full width (random weights
+    from --seed), each through its main(argv) on the card: the demo's
+    default mode (held to Pipeline.generate with the same seed, bit for
+    bit), --only_face, --continuity, --streaming, --norm_stats, --model
+    ls3dcg on phase 22's checkpoint; diversity at 4 x 3; continuity;
+    convert_checkpoints on the golden fixtures, loaded back into a pipeline
+    of their widths on the card.  Returns the K1-K3 launches and the
+    default mode's motion."""
+    from talkshow_torch import continuity, convert, convert_checkpoints, demo, diversity
+    from talkshow_torch.pipeline import Pipeline, load_pipeline
+    out = os.path.join(tmp, "demo")
+    base = ["--audio_file", wav10, "--out_dir", out]
+    total: dict = {}
+
+    def record(tag, secs, c, want, what):
+        if any(c.get(k, 0) != want.get(k, 0) for k in KERNELS[:3]) or c.get(
+                "sample_tokens_plain") or c.get("face_plain"):
+            raise AssertionError(f"phase 26 {tag}: counts {c}, expected {want}")
+        for k in KERNELS[:3]:
+            total[k] = total.get(k, 0) + c.get(k, 0)
+        log(f"phase 26 {tag}: {what}; {secs * 1e3:.1f} ms wall (the CLI's main, pipeline "
+            f"creation included); launches {launch_line(c)}, plain sampler and face stage "
+            f"0 [{card}]")
+
+    one = {"ar_decode": 1, "wav2vec_layers": 1, "wav2vec_extractor": 1}
+    motion, secs, c = cli_run(demo.main, base + ["--seed", "0"], reps=3)
+    saved = np.load(os.path.join(out, "speech10.npy"))
+    ref = Pipeline.create(0, dev).generate(wav10, speaker=0, num_samples=1, seed=0)
+    if not (motion.shape == (1, 300, 265) and np.isfinite(motion).all()
+            and np.array_equal(saved, motion.reshape(-1, 265)) and np.array_equal(motion, ref)):
+        raise AssertionError(f"phase 26 demo: {motion.shape}, equal to generate "
+                             f"{np.array_equal(motion, ref)}")
+    record("demo (default)", secs, c, one, f"(1, 300, 265) finite, saved (300, 265) as "
+           f"speech10.npy, equal bit for bit to Pipeline.create(0).generate(seed=0) (p50 of 3)")
+    for tag, extra, want in (("demo --only_face", ["--only_face"],
+                              {"wav2vec_layers": 1, "wav2vec_extractor": 1}),
+                             ("demo --continuity", ["--continuity"], dict(one, ar_decode=2))):
+        m, secs, c = cli_run(demo.main, base + extra)
+        if m.shape != (1, 300, 265) or not np.isfinite(m).all():
+            raise AssertionError(f"phase 26 {tag}: {m.shape}")
+        record(tag, secs, c, want, f"{m.shape} finite")
+    m, secs, c = cli_run(demo.main, base + ["--streaming"])
+    steps = c.get("ar_decode", 0)
+    if m.shape != (1, 300, 265) or not np.isfinite(m).all() or steps < 9:
+        raise AssertionError(f"phase 26 demo --streaming: {m.shape}, counts {c}")
+    record("demo --streaming", secs, c, {k: steps for k in KERNELS[:3]},
+           f"{m.shape} finite from 10 feeds of 1 s, {steps} session steps (K1, K2, K3 once a "
+           f"step)")
+    rng = np.random.default_rng(26)
+    stats = np.stack([rng.standard_normal(165), rng.uniform(0.5, 1.5, 165)]).astype(np.float32)
+    np.save(os.path.join(tmp, "norm_stats.npy"), stats)
+    m, secs, c = cli_run(demo.main, base + ["--norm_stats", os.path.join(tmp, "norm_stats.npy")])
+    if m.shape != (1, 300, 265) or not np.isfinite(m).all() or np.array_equal(m, motion):
+        raise AssertionError(f"phase 26 demo --norm_stats: {m.shape}")
+    record("demo --norm_stats", secs, c, one, f"{m.shape} finite, body denormalized")
+    m, secs, c = cli_run(demo.main, base + ["--model", "ls3dcg", "--num_sample", "2",
+                                            "--ls3dcg_ckpt", os.path.join(tmp, "ls_a",
+                                                                          "ckpt-0.pt")])
+    if m.shape != (2, 300, 265) or not np.isfinite(m).all():
+        raise AssertionError(f"phase 26 demo --model ls3dcg: {m.shape}")
+    record("demo --model ls3dcg", secs, c, {}, f"{m.shape} finite from phase 22's ckpt-0.pt "
+           f"(no kernel: MFCC and the generator)")
+    scores, secs, c = cli_run(diversity.main, ["--audio_file", wav10, "--num_sample", "3",
+                                               "--out_dir", out])
+    div = np.load(os.path.join(out, "speech10_diversity.npy"))
+    if div.shape != (4, 3, 300, 129) or not all(math.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"phase 26 diversity: {div.shape}, {scores}")
+    record("diversity 4 x 3", secs, c, {"ar_decode": 4},
+           f"(4, 3, 300, 129) finite, scores " + ", ".join(f"{v:.4f}" for v in scores.values()))
+    m, secs, c = cli_run(continuity.main, ["--audio_file", wav10, "--out_dir", out])
+    if m.shape != (1, 300, 265) or not np.isfinite(m).all():
+        raise AssertionError(f"phase 26 continuity: {m.shape}")
+    record("continuity", secs, c, dict(one, ar_decode=2), f"{m.shape} finite, "
+           f"speech10_continuity.npy")
+
+    # the golden fixtures through convert_checkpoints, loaded into a pipeline
+    # of their widths on the card
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "golden")
+    with open(os.path.join(gold, "meta.json")) as f:
+        meta = json.load(f)
+    px = meta["pixel"]
+    pipe = Pipeline.create(0, dev, convert.config_from_hf(meta["hf_wav2vec"]),
+                           num_hiddens=meta["vq_hid"], code_num=px["K"], pixel_dim=px["dim"],
+                           pixel_layers=px["n_layers"], audio_channels=px["aud_ch"])
+    t0 = time.time()
+    for kind in ("face", "body_vq", "body_pixel"):
+        path = os.path.join(tmp, f"{kind}.pt")
+        convert_checkpoints.main([kind, "--src", os.path.join(gold, f"{kind}.pth"),
+                                  "--out", path])
+        load_pipeline(path, template=pipe)
+    secs = time.time() - t0
+    exp = dict(np.load(os.path.join(gold, "expected.npz")))
+    with torch.no_grad():
+        wav = torch.as_tensor(exp["face_wav"], device=dev).reshape(1, -1)
+        face = pipe.face_model(wav, torch.zeros((1, 4), device=dev),
+                               exp["face_out"].shape[1]).cpu().numpy()
+        idx = torch.as_tensor(exp["vq_idx_hand"], device=dev)
+        rec = pipe.body.vq_hand.decode_latents(idx, pipe.body.vq_hand_state)
+    d_face = float(np.abs(face - exp["face_out"]).max())
+    d_rec = float(np.abs(rec.transpose(1, 2).cpu().numpy() - exp["vq_rec_hand"]).max())
+    if d_face > 5e-4 or d_rec > 2e-4:
+        raise AssertionError(f"phase 26 convert_checkpoints: face {d_face}, hand decode {d_rec}")
+    log(f"phase 26 convert_checkpoints face / body_vq / body_pixel on the golden fixtures in "
+        f"{secs * 1e3:.1f} ms, loaded by load_pipeline into a pipeline of their widths on the "
+        f"card: the face module's output within {d_face:.2e} <= 5e-4 and the hand VQ decode "
+        f"within {d_rec:.2e} <= 2e-4 of the replicas' (expected.npz); no kernel [{card}]")
+    return dict(launches=total, motion=motion)
+
+
+def phase27(dev, tmp: str, motion: np.ndarray, wav10: str, card: str) -> None:
+    """Rendering 30 frames of the demo's motion in whole_body mode without
+    captions: LBS on the card over the synthetic rig at the official size,
+    then the native rasterizer; its frames held to the numpy rasterizer;
+    the mp4 writer where cv2 is installed."""
+    import importlib.util
+    import shutil
+
+    from talkshow_torch import native, render
+    from talkshow_torch.ops import smplx_lbs
+    npz = os.path.join(tmp, "smplx_synthetic.npz")
+    np.savez(npz, **smplx_lbs.build_synthetic_smplx_arrays(num_verts=EVAL["verts"]))
+    model = smplx_lbs.load_smplx_npz(npz, device=dev)
+    frames = 30
+    clip = motion[:, :frames]
+    lbs_ms = cuda_ms(lambda: render.motion_vertices(model, clip), 3)
+    verts = render.motion_vertices(model, clip).cpu().numpy()
+    t0 = time.time()
+    canvases = list(render.render_frames(verts, model.faces, "whole_body"))
+    ras_ms = (time.time() - t0) * 1e3 / frames
+    if len(canvases) != frames or canvases[0].shape != (1440, 800, 3):
+        raise AssertionError(f"phase 27: {len(canvases)} frames of {canvases[0].shape}")
+    w, h, xmag, ymag, cam_y, cam_z = render.camera_for_mode("whole_body")
+    rest = render.motion_vertices(model, np.zeros((1, 1, 265), np.float32)).cpu().numpy()
+    worst, covered = 0, []
+    for tag, v, tile in (("frame 0", verts[0, 0], canvases[0]),
+                         ("rest pose", rest[0, 0],
+                          render.render_mesh_frame(rest[0, 0], model.faces, "whole_body"))):
+        plain = render._rasterize_numpy(render.flip_yz(v), model.faces, xmag, ymag, cam_y, cam_z,
+                                        render.LIGHT_RIG, render.AMBIENT, render.BASE_COLOR, w, h)
+        differ = int((np.abs(tile.astype(int) - plain.astype(int)).max(-1) > 2).sum())
+        worst = max(worst, differ)
+        covered.append(int((tile < 255).any(-1).sum()))
+    limit = int(0.005 * w * h)
+    if worst > limit or covered[1] < 1000:
+        raise AssertionError(f"phase 27: {worst} pixels differ (limit {limit}), covered {covered}")
+    log(f"phase 27 render: {frames} frames of the demo's motion, whole_body {w} x {h} tiles, no "
+        f"captions, synthetic rig of {model.v_template.shape[0]} vertices and "
+        f"{len(model.faces)} faces: LBS on the card {lbs_ms / frames:.3f} ms a frame "
+        f"({lbs_ms:.2f} ms for the batch of {frames}); native rasterizer (g++ -O3 -fopenmp, "
+        f"{native.num_threads()} threads) {ras_ms:.2f} ms a frame [{card}]")
+    log(f"phase 27 render vs the numpy rasterizer on 2 frames (frame 0 of the motion, {covered[0]} "
+        f"pixels covered; the rest pose, {covered[1]}): at most {worst} pixels differ by more "
+        f"than 2 levels <= {limit} (0.5 % of the tile)")
+    if importlib.util.find_spec("cv2") is None:
+        log("phase 27 render: the mp4 writer (render.write_video) needs cv2, which this machine "
+            "lacks; the writer is not driven here")
+        return
+    path = os.path.join(tmp, "render.mp4")
+    t0 = time.time()
+    render.write_video(iter(canvases), path, 30, wav10)
+    secs = time.time() - t0
+    if not os.path.getsize(path):
+        raise AssertionError("phase 27: the writer wrote an empty file")
+    log(f"phase 27 render: cv2 present, render.write_video wrote the {frames} canvases as "
+        f"{os.path.basename(path)} ({os.path.getsize(path)} bytes, "
+        f"{'audio muxed by ffmpeg' if shutil.which('ffmpeg') else 'no ffmpeg: silent'}) in "
+        f"{secs * 1e3 / frames:.2f} ms a frame [{card}]")
+
+
+def phase28(dev, tmp: str, wav10: str, vq_ckpt: str, card: str) -> dict:
+    """The bh_model=false (vertical-only) prior: the train CLI's stage 2 on
+    phase 11's checkpoint; one step at full width CUDA against CPU from one
+    state; Pipeline.generate refuses it before any K1 launch.  Returns the
+    stage's K4 launches."""
+    from talkshow_torch.config import Config
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.pixelcnn import GatedPixelCNN, draw_aud_keep
+    from talkshow_torch.models.vqvae import AudioEncoder
+    from talkshow_torch.pipeline import Pipeline
+    from talkshow_torch.train.__main__ import frozen_vqs, main as train_main
+    from talkshow_torch.train.steps import make_body_pixel_step
+    cfg = os.path.join(tmp, "body_pixel_vertical.json")
+    write_stage_config(cfg, "s2g_body_pixel", 1)
+    with open(cfg) as f:
+        conf = json.load(f)
+    conf["Model"]["bh_model"] = False
+    with open(cfg, "w") as f:
+        json.dump(conf, f)
+    run = os.path.join(tmp, "pixel_vertical")
+    counts.clear()
+    t0 = time.time()
+    tr = train_main(["--config_file", cfg, "--synthetic", "--device", str(dev), "--vq_ckpt",
+                     vq_ckpt, "--epochs", "1", "--run_dir", run])
+    torch.cuda.synchronize()
+    c, steps, secs = dict(counts), tr.global_step, time.time() - t0
+    prior = tr.state.models["prior"]
+    keys = tr.dataset.window_keys()
+    fills = -(-(len(keys) - TRAIN["batch"] * steps) // TRAIN["batch"])
+    logged = logged_values(run)
+    if (prior.bh_model or hasattr(prior, "fusion_h") or (prior.dim, prior.n_layers) != (
+            PIXEL["dim"], PIXEL["layers"]) or steps < 10
+            or c.get("nearest_code", 0) != 2 * (steps + fills) or c.get("ar_decode")
+            or not all(math.isfinite(v) for v in logged)):
+        raise AssertionError(f"phase 28 stage 2: bh_model {prior.bh_model}, {steps} steps, "
+                             f"counts {c}")
+    log(f"phase 28 vertical-only prior: python -m talkshow_torch.train s2g_body_pixel with "
+        f"Model.bh_model false on phase 11's ckpt-0.pt, prior {prior.dim} x {prior.n_layers} "
+        f"(no horizontal stack, no fusion_h) over {prior.input_dim} codes: {steps} steps in "
+        f"{secs:.1f} s, nearest_code {c['nearest_code']} = 2 x ({steps} + {fills} fill "
+        f"batches), no K1; {len(logged)} logged values finite")
+
+    def fresh_state(device):
+        vb, vh, sts = frozen_vqs(Config.from_reference_json(cfg), vq_ckpt)
+        init, step = make_body_pixel_step(
+            GatedPixelCNN(input_dim=PIXEL["codes"], dim=PIXEL["dim"], n_layers=PIXEL["layers"],
+                          bh_model=False),
+            AudioEncoder(num_hiddens=PIXEL["audio"]), vb, vh, sts, 1e-4, 5.0)
+        return init(torch.Generator().manual_seed(28), device), step
+
+    first = next(iter(tr.batch_iter(0)))
+    tokens = torch.as_tensor(np.stack([tr._token_cache[tuple(map(int, k))]
+                                       for k in first["window_key"][:8]]))
+    keep = draw_aud_keep(8, tokens.shape[1], torch.Generator().manual_seed(29), "cpu")
+    cpu_batch = {"tokens": tokens, "aud_feat": torch.as_tensor(first["aud_feat"][:8]),
+                 "speaker": torch.as_tensor(first["speaker"][:8]), "aud_keep": keep}
+    gpu_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    (s_cpu, step_cpu), (s_gpu, step_gpu) = fresh_state("cpu"), fresh_state(dev)
+    _, mc = step_cpu(s_cpu, cpu_batch)
+    _, mg = step_gpu(s_gpu, gpu_batch)
+    rel = max(abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k])) for k in ("ce_loss", "grad"))
+    g_err = grad_errors(s_cpu.models, s_gpu.models)
+    if not (rel <= 1e-4 and g_err["prior"] <= 1e-3 and g_err["audio"] <= 2e-2):
+        raise AssertionError(f"phase 28 CUDA vs CPU: loss/norm rel {rel}, gradients {g_err}")
+    log(f"phase 28 vertical-only prior, one step CUDA vs CPU from one state (B=8, "
+        f"{PIXEL['dim']} x {PIXEL['layers']}, TF32 off, the same tokens and dropout mask): ce_loss {float(mg['ce_loss']):.4f}, "
+        f"ce_loss and grad norm within {rel:.2e} relative <= 1e-4; prior gradients within "
+        f"{g_err['prior']:.2e} of max|g| <= 1e-3, audio-encoder gradients {g_err['audio']:.2e} "
+        f"<= 2e-2 (phase 16's tolerances)")
+    del s_cpu, s_gpu
+
+    pipe = Pipeline.create(0, dev, bh_model=False)
+    pipe.load_converted({"prior": prior.state_dict(),
+                         "audio_enc": tr.state.models["audio"].state_dict()})
+    counts.clear()
+    try:
+        pipe.generate(wav10, num_samples=1, seed=0)
+        raise AssertionError("phase 28: Pipeline.generate sampled the vertical-only prior")
+    except ValueError as e:
+        if "bh_model=false prior cannot be sampled" not in str(e) or counts.get("ar_decode") \
+                or counts.get("sample_tokens_plain"):
+            raise
+        log(f"phase 28 Pipeline.generate on the vertical-only prior raises ValueError before "
+            f"any K1 launch (ar_decode {counts.get('ar_decode', 0)}, plain sampler "
+            f"{counts.get('sample_tokens_plain', 0)}): \"{str(e)[:90]}...\"")
+    return dict(nearest_code=c["nearest_code"])
+
+
+def phase29(dev, card: str) -> int:
+    """The causal VQ-VAE at full width (1024 hidden, 2048 x 64 codebook) on
+    a 10 s clip of body (39) and hand (90) poses in 20-frame chunks: every
+    K4 call's indices against the plain search on the same latents, the
+    chunked tokens against the full encode, the chunked decode against the
+    full decode; K4's launches and ms a chunk.  Returns the launches."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.kernels import nearest_code as k4
+    from talkshow_torch.models.causal_vqvae import CausalVQVAE
+    from talkshow_torch.models.layers import init_weights_
+    from talkshow_torch.ops import vq as vq_ops
+    gen = torch.Generator().manual_seed(29)
+    T, chunk = 300, 20
+    launches = 0
+    for part, width in (("body", 39), ("hand", 90)):
+        model = init_weights_(CausalVQVAE(width, TRAIN["dim"], TRAIN["num_hiddens"]),
+                              gen).to(dev).eval()
+        st = vq_ops.init_vq_state(gen, TRAIN["codes"], TRAIN["dim"], dev)
+        emb = st.embeddings
+        e2 = k4.code_norms(emb)
+        x = (0.2 * torch.randn((1, T, width), generator=gen)).to(dev)
+        with torch.no_grad():
+            counts.clear()
+            _, full_idx, _ = model.encode_chunk(x, st)
+            z_full, _ = model.encode_latents(x)
+            idx_parts, z_parts, states = [], [], None
+            for i in range(0, T, chunk):
+                z, _ = model.encode_latents(x[:, i:i + chunk], states)
+                _, idx, states = model.encode_chunk(x[:, i:i + chunk], st, states)
+                flat = z.reshape(-1, z.shape[-1])
+                check_codes(f"phase 29 {part} chunk {i // chunk}", idx.reshape(-1), flat, emb, e2,
+                            k4.nearest_code_plain(flat, emb, e2))
+                idx_parts.append(idx)
+                z_parts.append(z)
+            torch.cuda.synchronize()
+            c = dict(counts)
+            chunked = torch.cat(idx_parts, dim=1)
+            z_chunked = torch.cat(z_parts, dim=1)
+            dz = (z_chunked - z_full).abs().max().item() / z_full.abs().max().item()
+            flat = z_full.reshape(-1, z_full.shape[-1])
+            near, differ, _ = check_codes(f"phase 29 {part} chunked vs full",
+                                          chunked.reshape(-1), flat, emb, e2,
+                                          full_idx.reshape(-1))
+            full, _ = model.decode_chunk(full_idx, st)
+            outs, states = [], None
+            for i in range(0, T // 4, chunk // 4):
+                out, states = model.decode_chunk(full_idx[:, i:i + chunk // 4], st, states)
+                outs.append(out)
+            dd = (torch.cat(outs, 1) - full).abs().max().item() / full.abs().max().item()
+        n = T // chunk
+        # the plain search runs only in the comparisons, once a chunk
+        if (c.get("nearest_code") != 1 + n or c.get("nearest_code_plain") != n
+                or full.shape != (1, T, width) or not torch.isfinite(full).all() or dd > 1e-4):
+            raise AssertionError(f"phase 29 {part}: counts {c}, decode {tuple(full.shape)}, "
+                                 f"chunked decode {dd}")
+        launches += c["nearest_code"]
+        with torch.no_grad():
+            xc, zc = x[:, :chunk], z_full[0, :chunk // 4].contiguous()
+            enc_ms = cuda_ms(lambda: model.encode_chunk(xc, st), 10)
+            dec_ms = cuda_ms(lambda: model.decode_chunk(full_idx[:, :chunk // 4], st), 10)
+            k4_ms = cuda_ms(lambda: vq_ops.nearest_code(zc, emb), 20)
+            plain_ms = cuda_ms(lambda: k4.nearest_code_plain(zc, emb, e2), 20)
+        log(f"phase 29 causal VQ-VAE {part} ({width} channels, {TRAIN['num_hiddens']} hidden, codebook "
+            f"{TRAIN['codes']} x {TRAIN['dim']}) on a 10 s clip ({T} frames) in {n} chunks of "
+            f"{chunk} frames: K4 launches {c['nearest_code']} (1 full encode + {n} chunks), the "
+            f"plain search only in the {n} comparisons; each K4 call's indices equal the plain search's on its latents (near-ties "
+            f"exempt); chunked latents within {dz:.2e} of max|z| of the full encode, tokens "
+            f"equal on {T // 4 - differ}/{T // 4} rows ({differ} differ, all near-ties); chunked "
+            f"decode within {dd:.2e} of max|out| <= 1e-4 of the full decode; a chunk: encode "
+            f"{enc_ms:.3f} ms, decode {dec_ms:.3f} ms, K4 ({chunk // 4} rows) {k4_ms:.4f} ms, "
+            f"plain search {plain_ms:.4f} ms [{card}]")
+    return launches
+
+
 T_START = time.time()
 
 
@@ -2553,13 +2944,17 @@ def main() -> int:
 
     from talkshow_torch.kernels import (_build, ar_decode, counts, nearest_code,
                                         wav2vec_extractor, wav2vec_layers)
+    from talkshow_torch import native
     t0 = time.time()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        sos = list(pool.map(_build.build, KERNELS))
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        rasterizer = pool.submit(_build.build_shared, native.SOURCE, native.GXX)
+        sos = list(pool.map(_build.build, KERNELS)) + [rasterizer.result()]
     for mod in (ar_decode, wav2vec_layers, wav2vec_extractor, nearest_code):
         mod._lib()
-    log(f"phase 2 build: {', '.join(os.path.relpath(so) for so in sos)} built and loaded "
-        f"in {time.time() - t0:.1f} s")
+    native.load_library()
+    log(f"phase 2 build: {', '.join(os.path.relpath(so) for so in sos)} built (nvcc for the "
+        f"four kernels, g++ for the rasterizer, all started together) and loaded in "
+        f"{time.time() - t0:.1f} s")
 
     # ---- phase 3: K1 against its plain version -------------------------------
     max_err = phase3(dev)
@@ -2713,6 +3108,19 @@ def main() -> int:
         f"nearest_code {six['nearest_code']} (6-D stages 1-2, eval_vq_capacity) + "
         f"{show['nearest_code']} (stage 1 on the SHOW layout), wav2vec_extractor "
         f"{show['wav2vec_extractor']} (the face stage on the SHOW layout); LS3DCG none")
+
+    # ---- phases 26-29: the user entry points, rendering, the vertical-only
+    # prior, the causal VQ-VAE ------------------------------------------------
+    clis = phase26(dev, tmp, wav10, card)
+    phase27(dev, tmp, clis["motion"], wav10, card)
+    vertical = phase28(dev, tmp, wav10, os.path.join(tmp, "run_a", "ckpt-0.pt"), card)
+    causal = phase29(dev, card)
+    for k, v in clis["launches"].items():
+        path_launches[k] += v
+    k4_launches += vertical["nearest_code"] + causal
+    log("launches on the entry points (phase 26): " + launch_line(clis["launches"])
+        + f"; nearest_code {vertical['nearest_code']} (the vertical-only prior's stage 2) + "
+        f"{causal} (the causal VQ-VAE)")
 
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs

@@ -12,11 +12,14 @@ extractor, and the VQ nearest-code search that training stage 1 runs.
     # serving.MotionServer / streaming.StreamingSession wrap a pipeline
 
     python -m talkshow_torch.train --config_file body_vq.json --synthetic
+    python -m talkshow_torch.demo --audio_file speech.wav --num_sample 3
+    # also .eval, .diversity, .continuity, .convert_checkpoints, .legacy_eval
 
 Module names mirror talkshow_tpu's, so each counterpart is easy to find.
 The package imports torch and numpy only: no JAX and nothing of
-talkshow_tpu.  Kernels are built with nvcc on first use
-(`kernels/_build.py`), so importing the package needs no CUDA toolkit.
+talkshow_tpu.  Kernels are built with nvcc, and the mesh rasterizer of
+`render.py` with g++, on first use (`kernels/_build.py`), so importing the
+package needs no compiler.
 
 Public functions keep the JAX package's channels-last (B, T, C) layout.
 """

@@ -7,6 +7,7 @@ numpy arrays (the caller runs ``jax.tree.map(np.asarray, tree)``; this
 module imports no JAX) and returns the port's state dicts and VQStates,
 ready for `Pipeline.load_converted` (and `AE.load_state_dict`).
 `convert_ls3dcg` maps the LS3DCG generator's and discriminator's trees,
+`convert_causal_vqvae` the streaming VQ-VAE's,
 and the `from_jax_*_state` functions carry a JAX train state (parameters,
 statistics, optimizer moments, counts) into the port's, stage by stage.
 
@@ -106,6 +107,14 @@ def convert_vqvae(variables: dict) -> dict:
     return _convert(variables, _CONV_STACK)
 
 
+def convert_causal_vqvae(variables: dict) -> dict:
+    """flax CausalVQVAE variables (talkshow_tpu/models/causal_vqvae.py) ->
+    the port's CausalVQVAE state dict: `layer_<i>` -> `layers.<i>`,
+    TorchBatchNorm's `norm.BatchNorm_0` -> `norm`."""
+    return _convert(variables, [(r"\blayer_(\d+)\b", r"layers.\1"),
+                                (r"\bnorm\.BatchNorm_0\b", "norm")])
+
+
 def convert_ae(variables: dict) -> dict:
     """flax AE variables -> port AE state dict (the VQVAE's names, no
     quantizer).  Also maps an Adam moment tree: pass {"params": tree}."""
@@ -120,7 +129,20 @@ _LINEAR_1X1 = ("vert_to_horiz", "horiz_resid", "embedding_aud", "fusion_v",
                "fusion_h", "out_hidden", "out_logits")
 
 
-def convert_pixelcnn(variables: dict) -> dict:
+#: the parameters a bh_model=False prior does not have (JAX's converter
+#: still carries fusion_h over from a reference file, convert/talkshow.py:178-180)
+_HORIZONTAL = ("fusion_h", "horiz_stack", "vert_to_horiz")
+
+
+def _drop_horizontal(sd: dict) -> dict:
+    return {k: v for k, v in sd.items()
+            if not any(part in _HORIZONTAL for part in k.split("."))}
+
+
+def convert_pixelcnn(variables: dict, bh_model: bool = True) -> dict:
+    """flax GatedPixelCNN variables -> port GatedPixelCNN state dict;
+    bh_model=False drops what the vertical-only prior lacks, as
+    talkshow_tpu/convert/talkshow.py:151,187-195 takes the flag."""
     def special(key, a):
         if key.endswith(".kernel") and key.split(".")[-2] in _LINEAR_1X1:
             return {_rename(key, rules + _LEAF): a[0, 0].T}
@@ -128,7 +150,8 @@ def convert_pixelcnn(variables: dict) -> dict:
 
     rules = [(r"\blayer_(\d+)\b", r"layers.\1"),
              (r"\bclass_embed\b", "class_cond_embedding")]
-    return _convert(variables, rules, special=special)
+    sd = _convert(variables, rules, special=special)
+    return sd if bh_model else _drop_horizontal(sd)
 
 
 _FACE = [(r"feature_extractor\.conv_(\d+)", r"feature_extractor.conv_layers.\1.conv"),
@@ -208,23 +231,24 @@ def _find(tree, field: str):
     return None
 
 
-def from_jax_pixel_state(state) -> dict:
+def from_jax_pixel_state(state, bh_model: bool = True) -> dict:
     """A JAX `train.steps.PixelState` (numpy leaves) -> the port's stage-2
-    state, for `train.steps.PixelState.load_converted`.
+    state, for `train.steps.PixelState.load_converted` (`bh_model`: the
+    prior's, as `convert_pixelcnn`).
 
     Returns {"prior": GatedPixelCNN state dict, "audio": AudioEncoder state
     dict (params + BatchNorm statistics), "exp_avg", "exp_avg_sq":
     {"prior", "audio": state dicts of the Adam moments}, "adam_step":
     optax's count, "nonfinite_count", "step": ints}."""
     adam = _find(state.opt_state["inner"], "mu")
-    out = {"prior": convert_pixelcnn({"params": state.params["prior"]}),
+    out = {"prior": convert_pixelcnn({"params": state.params["prior"]}, bh_model),
            "audio": convert_audio_encoder({"params": state.params["audio"],
                                            "batch_stats": state.batch_stats["audio"]}),
            "adam_step": int(np.asarray(adam.count)),
            "nonfinite_count": int(np.asarray(state.opt_state["nonfinite_count"])),
            "step": int(np.asarray(state.step))}
     for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
-        out[key] = {"prior": convert_pixelcnn({"params": tree["prior"]}),
+        out[key] = {"prior": convert_pixelcnn({"params": tree["prior"]}, bh_model),
                     "audio": convert_audio_encoder({"params": tree["audio"]})}
     return out
 
@@ -348,12 +372,13 @@ def reference_body_vq(ckpt: dict) -> dict:
     return {"vq_body": vb, "vq_hand": vh, "vq_body_state": sb, "vq_hand_state": sh}
 
 
-def reference_pixelcnn(sd: dict) -> dict:
+def reference_pixelcnn(sd: dict, bh_model: bool = True) -> dict:
     """gated_pixelcnn_v2.GatedPixelCNN (:90-150) -> the port's GatedPixelCNN
     state dict: 1x1 Conv2d weights (out, in, 1, 1) become Linear (out, in),
     `output_conv.0/2` the head's out_hidden / out_logits, and layer 0's
     mask-A kernels lose their causally zeroed last row (vertical) and last
-    column (horizontal)."""
+    column (horizontal).  bh_model=False keeps only what the vertical-only
+    prior has (no fusion_h, horiz_stack or vert_to_horiz)."""
     sd = strip_module_prefix(sd)
     out = {}
     for k, v in sd.items():
@@ -365,14 +390,22 @@ def reference_pixelcnn(sd: dict) -> dict:
         elif v.dim() == 4 and v.shape[2:] == (1, 1) and "stack" not in k:
             v = v[:, :, 0, 0]
         out[k] = v
-    return _float(out)
+    return _float(out if bh_model else _drop_horizontal(out))
 
 
-def reference_body_pixel(ckpt: dict) -> dict:
+def pixelcnn_depth(sd: dict) -> int:
+    """The number of layers of a PixelCNN state dict (reference or port),
+    from its `layers.<i>.` keys, as talkshow_tpu/convert/talkshow.py:164-166
+    infers it (15 for the 3-D prior, 10 for the 6-D one)."""
+    return 1 + max(int(k.split(".")[1]) for k in strip_module_prefix(sd)
+                   if k.startswith("layers."))
+
+
+def reference_body_pixel(ckpt: dict, bh_model: bool = True) -> dict:
     """Reference body-pixel checkpoint {'generator': {'generator',
     'audioencoder', ..}} -> {"prior", "audio_enc": state dicts}."""
     gen = _wrapper(ckpt, "audioencoder")
-    return {"prior": reference_pixelcnn(gen["generator"]),
+    return {"prior": reference_pixelcnn(gen["generator"], bh_model),
             "audio_enc": _float(strip_module_prefix(gen["audioencoder"]))}
 
 
@@ -421,6 +454,24 @@ def masked_spec_embed_default(face_sd: dict) -> torch.Tensor:
     return torch.zeros_like(bias)
 
 
+_W2V_POS = "encoder.pos_conv_embed.conv"
+
+
+def reference_wav2vec(sd: dict) -> dict:
+    """A Hugging Face Wav2Vec2Model state dict (the encoder under the
+    reference face model's `audio_encoder.`) -> the port's Wav2Vec2Encoder
+    state dict: the weight-normed positional conv resolved (either key
+    layout), and zeros for `masked_spec_embed` where the file lacks it."""
+    sd = strip_module_prefix(sd)
+    out = {k: v for k, v in sd.items()
+           if not k.startswith(_W2V_POS + ".") or k == _W2V_POS + ".bias"}
+    out[_W2V_POS + ".weight"] = (sd[_W2V_POS + ".weight"] if _W2V_POS + ".weight" in sd
+                                 else _weight_norm(sd, _W2V_POS))
+    if "masked_spec_embed" not in out:
+        out["masked_spec_embed"] = torch.zeros_like(out["feature_projection.projection.bias"])
+    return _float(out)
+
+
 def reference_face(ckpt: dict) -> dict:
     """Reference face checkpoint ({'generator': {'generator': flat
     s2g_face.Generator state dict, 'generator_optim': ..}, 'epoch', ..}, or
@@ -429,18 +480,10 @@ def reference_face(ckpt: dict) -> dict:
     while isinstance(sd, dict) and "generator" in sd and not any("." in k for k in sd):
         sd = sd["generator"]
     sd = strip_module_prefix(sd)
-    pos = "audio_encoder.encoder.pos_conv_embed.conv"
-    out = {}
-    for k, v in sd.items():
-        if k.startswith(pos + ".") and k != pos + ".bias":
-            continue
-        out[_rename(k, _FACE_REF)] = v
-    if MASKED_SPEC_EMBED not in out:
-        out[MASKED_SPEC_EMBED] = masked_spec_embed_default(out)
-    if pos + ".weight" in sd:
-        out[pos + ".weight"] = sd[pos + ".weight"]
-    else:
-        out[pos + ".weight"] = _weight_norm(sd, pos)
+    enc = "audio_encoder."
+    out = {_rename(k, _FACE_REF): v for k, v in sd.items() if not k.startswith(enc)}
+    w2v = reference_wav2vec({k[len(enc):]: v for k, v in sd.items() if k.startswith(enc)})
+    out.update({enc + k: v for k, v in w2v.items()})
     return _float(out)
 
 

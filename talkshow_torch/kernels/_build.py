@@ -45,19 +45,23 @@ def nvcc_path() -> str:
 
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless a library for this source exists."""
-    src = CSRC / f"{name}.cu"
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
-    out = BUILD / f"{name}-{digest}.so"
+    return build_shared(CSRC / f"{name}.cu", [nvcc_path(), *FLAGS], headers)
+
+
+def build_shared(src: Path, compiler: list, extra: bytes = b"") -> Path:
+    """Run `compiler -o <lib> src` into BUILD unless a library keyed by the
+    hash of the source, `extra` and the command exists; raise on failure."""
+    digest = hashlib.sha256(src.read_bytes() + extra
+                            + " ".join(compiler[1:]).encode()).hexdigest()[:16]
+    out = BUILD / f"{src.stem}-{digest}.so"
     if out.exists():
         return out
     BUILD.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([*compiler, "-o", str(tmp), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"{compiler[0]} failed for {src}:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 

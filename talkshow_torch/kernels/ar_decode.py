@@ -36,7 +36,7 @@ import ctypes
 import torch
 
 from talkshow_torch.kernels import TABLE_DTYPES, check, counts
-from talkshow_torch.models.pixelcnn import GatedPixelCNN, sample_tokens
+from talkshow_torch.models.pixelcnn import GatedPixelCNN, check_sampleable, sample_tokens
 
 #: most sample batch rows one launch takes (the argmax's lanes); at a given
 #: shape the chain's shared memory may hold fewer (`max_batch`), and
@@ -224,7 +224,10 @@ def pack_decode_tables(model: GatedPixelCNN, dtype: torch.dtype = torch.bfloat16
     horizontal taps), wres, the x-part of fusion_h, w1 (512, d) and
     w2 (K, 512), in the order of `chain_parts`, whose descriptors are
     `parts` (int32, (n, 8)).  Biases stay f32: bv (L, 2d), bhsum = v2h +
-    horizontal bias (L, 2d), br (L, d), b1 (512), b2 (K)."""
+    horizontal bias (L, 2d), br (L, d), b1 (512), b2 (K).  The kernel runs
+    the bh_model=True data flow: a bh_model=False prior raises ValueError,
+    as JAX's `supports_fused` refuses it (pixelcnn_pallas.py:75-80)."""
+    check_sampleable(model)
     if dtype not in TABLE_DTYPES:
         raise ValueError(f"table dtype must be float32 or bfloat16, got {dtype}")
     d, L, K = model.dim, model.n_layers, model.input_dim
@@ -337,7 +340,9 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
     type, f32 the exact one).  On a CPU tensor this is the plain sampler
     (model weights, f32; Philox is not used there: noise comes from
     `generator`).  A launch the card cannot hold (the cluster cannot be
-    co-scheduled beside the rest of the grid) raises RuntimeError."""
+    co-scheduled beside the rest of the grid) raises RuntimeError; a
+    bh_model=False prior raises ValueError on either device."""
+    check_sampleable(model)
     if audio.device.type == "cpu":
         return sample_tokens(model, label, audio, noise=noise,
                              generator=generator, prefix_tokens=prefix_tokens,

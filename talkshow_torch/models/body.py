@@ -7,7 +7,9 @@ decode -> VQ decode -> [body | hand].  The decode goes through
 CUDA tensors and runs the plain sampler for CPU tensors.  The 6-D variant
 (`create_body_models(rep6d=True)`: VQ-VAEs of 78 and 180 channels, the
 prior of dim 512 x 10 layers) decodes through the same kernel and gives
-(B, T, 258) conv poses.
+(B, T, 258) conv poses.  The vertical-only prior (`bh_model=False`) trains
+but is not sampled: `generate_conv_poses` raises before any launch
+(`models/pixelcnn.check_sampleable`).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from talkshow_torch.kernels.ar_decode import model_max_batch, sample_tokens_fused
 from talkshow_torch.models.layers import init_weights_
-from talkshow_torch.models.pixelcnn import GatedPixelCNN
+from talkshow_torch.models.pixelcnn import GatedPixelCNN, check_sampleable
 from talkshow_torch.models.vqvae import VQVAE, AudioEncoder
 from talkshow_torch.ops import vq as vq_ops
 from talkshow_torch.ops.pose import BODY_DIM, HAND_DIM
@@ -37,12 +39,14 @@ def create_body_models(generator: torch.Generator, code_num: int = 2048,
                        embedding_dim: int = 64, num_hiddens: int = 1024,
                        pixel_dim: int = 256, pixel_layers: int = 15,
                        num_classes: int = 4, audio_channels: int = 256,
-                       device="cuda", rep6d: bool = False) -> BodyModels:
+                       device="cuda", rep6d: bool = False,
+                       bh_model: bool = True) -> BodyModels:
     """Random-init every body-stage module from `generator` (shapes per the
     reference config/body_pixel.json; `audio_channels` is the audio
     encoder's width, JAX's `AudioEncoder(num_hiddens=)`, which the prior
     reads; `rep6d`: VQ-VAEs over the 6-D variant's 78 / 180 channels, the
-    prior's width as given).  The VQ encoders, which inference
+    prior's width as given; `bh_model`: the prior's, as JAX's
+    models/body.py:42,61).  The VQ encoders, which inference
     does not run, draw their weights last, so every other module gets the
     draws it got before they were ported."""
     st_b = vq_ops.init_vq_state(generator, code_num, embedding_dim, device)
@@ -52,7 +56,8 @@ def create_body_models(generator: torch.Generator, code_num: int = 2048,
     vq_hand = VQVAE(HAND_DIM * scale, embedding_dim, num_hiddens)
     audio_enc = AudioEncoder(64, num_hiddens=audio_channels)
     prior = GatedPixelCNN(input_dim=code_num, dim=pixel_dim, n_layers=pixel_layers,
-                          n_classes=num_classes, audio_channels=audio_channels)
+                          n_classes=num_classes, audio_channels=audio_channels,
+                          bh_model=bh_model)
     for m in (vq_body.decoder, vq_hand.decoder, audio_enc, prior,
               vq_body.encoder, vq_hand.encoder):
         init_weights_(m, generator)
@@ -75,7 +80,9 @@ def generate_conv_poses(models: BodyModels, mfcc_feat: torch.Tensor,
     decode as sequential chunks, each with its own slice of `noise` (H, 2,
     B, K) or its own draw from `generator`.
     `tables`: packed decode weights (kernels.ar_decode.pack_decode_tables),
-    packed once per weight set by the caller."""
+    packed once per weight set by the caller.  A bh_model=False prior
+    raises ValueError first."""
+    check_sampleable(models.prior)
     audio = models.audio_enc(mfcc_feat)                      # (B, H, 256)
     B = audio.shape[0]
     chunk = model_max_batch(models.prior,

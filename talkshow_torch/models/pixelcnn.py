@@ -16,6 +16,15 @@ Masking is structural, as in the JAX package: mask-A layers (layer 0) have
 3 vertical kernel rows and a single strictly-left horizontal tap; the
 causal shift comes from explicit asymmetric padding.  1x1 convolutions are
 `nn.Linear` on channels-last tensors.
+
+`bh_model=False` is the vertical-only prior (JAX :57-111,209-213): no
+horizontal stack, a one-column vertical kernel, and the head reads the
+vertical stream.  It trains (the teacher-forced forward), but it cannot be
+sampled: JAX's incremental sampler calls `fusion_h`, which this prior does
+not have (talkshow_tpu/models/pixelcnn.py:262-265, flax's
+ScopeParamNotFoundError), and its row step carries the bh_model=True data
+flow (:226-252).  The port adds no sampler JAX lacks, so `sample_tokens`,
+`generate_conv_poses` and K1 refuse it (`check_sampleable`).
 """
 from __future__ import annotations
 
@@ -33,11 +42,12 @@ def gate(x: torch.Tensor) -> torch.Tensor:
 
 
 class GatedMaskedLayer(nn.Module):
-    """One gated masked layer (reference gated_pixelcnn_v2.py:25-87), NHWC,
-    bh_model=True."""
+    """One gated masked layer (reference gated_pixelcnn_v2.py:25-87), NHWC.
+    bh_model=False: the vertical-only layer (one-column vertical kernel, no
+    horizontal stack)."""
 
     def __init__(self, dim: int, mask_type: str, n_classes: int,
-                 residual: bool):
+                 residual: bool, bh_model: bool = True):
         super().__init__()
         self.dim = dim
         self.kernel = 7 if mask_type == "A" else 3
@@ -45,15 +55,18 @@ class GatedMaskedLayer(nn.Module):
         self.vrows = kh - 1 if mask_type == "A" else kh
         self.hcols = 1 if mask_type == "A" else 2
         self.residual = residual
+        self.bh_model = bh_model
         self.class_cond_embedding = nn.Embedding(n_classes, 2 * dim)
-        self.vert_stack = nn.Conv2d(dim, 2 * dim, (self.vrows, 3))
-        self.vert_to_horiz = nn.Linear(2 * dim, 2 * dim)
-        self.horiz_stack = nn.Conv2d(dim, 2 * dim, (1, self.hcols))
+        self.vert_stack = nn.Conv2d(dim, 2 * dim, (self.vrows, 3 if bh_model else 1))
+        if bh_model:
+            self.vert_to_horiz = nn.Linear(2 * dim, 2 * dim)
+            self.horiz_stack = nn.Conv2d(dim, 2 * dim, (1, self.hcols))
         self.horiz_resid = nn.Linear(dim, dim)
 
     def vert_conv(self, x: torch.Tensor, pad_top: int) -> torch.Tensor:
         """(B, R, W, dim) -> (B, R + pad_top - vrows + 1, W, 2dim) pre-gate."""
-        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, pad_top, 0))
+        wpad = 1 if self.bh_model else 0
+        xp = F.pad(x.permute(0, 3, 1, 2), (wpad, wpad, pad_top, 0))
         return self.vert_stack(xp).permute(0, 2, 3, 1)
 
     def horiz_conv(self, x: torch.Tensor) -> torch.Tensor:
@@ -72,7 +85,12 @@ class GatedMaskedLayer(nn.Module):
     def forward(self, x_v, x_h, label):
         cls = self.class_cond_embedding(label)[:, None, None, :]
         h_vert = self.vert_conv(x_v, self.kernel // 2)[:, : x_v.shape[1]]
-        return gate(h_vert + cls), self.horiz(h_vert, x_h, cls)
+        if self.bh_model:
+            return gate(h_vert + cls), self.horiz(h_vert, x_h, cls)
+        out = self.horiz_resid(gate(h_vert + cls))
+        if self.residual:
+            out = out + x_v
+        return out, out
 
 
 #: train-mode dropout rate of the audio embedding (talkshow_tpu/models/pixelcnn.py:166)
@@ -92,16 +110,19 @@ class GatedPixelCNN(nn.Module):
 
     def __init__(self, input_dim: int = 2048, dim: int = 256,
                  n_layers: int = 15, n_classes: int = 4,
-                 audio_channels: int = 256, hidden: int = 512):
+                 audio_channels: int = 256, hidden: int = 512,
+                 bh_model: bool = True):
         super().__init__()
         self.input_dim, self.dim, self.n_layers = input_dim, dim, n_layers
+        self.bh_model = bh_model
         self.embedding = nn.Embedding(input_dim, dim)
         self.embedding_aud = nn.Linear(audio_channels, dim)
         self.fusion_v = nn.Linear(2 * dim, dim)
-        self.fusion_h = nn.Linear(2 * dim, dim)
+        if bh_model:
+            self.fusion_h = nn.Linear(2 * dim, dim)
         self.layers = nn.ModuleList(
             GatedMaskedLayer(dim, "A" if i == 0 else "B", n_classes,
-                             residual=i > 0) for i in range(n_layers))
+                             residual=i > 0, bh_model=bh_model) for i in range(n_layers))
         self.out_hidden = nn.Linear(dim, hidden)
         self.out_logits = nn.Linear(hidden, input_dim)
 
@@ -124,9 +145,10 @@ class GatedPixelCNN(nn.Module):
         for i, layer in enumerate(self.layers):
             if i == 1:
                 x_v = self.fusion_v(torch.cat([x_v, aud_e], dim=-1))
-                x_h = self.fusion_h(torch.cat([x_h, aud_e], dim=-1))
+                if self.bh_model:
+                    x_h = self.fusion_h(torch.cat([x_h, aud_e], dim=-1))
             x_v, x_h = layer(x_v, x_h, label)
-        return self.head(x_h)
+        return self.head(x_h if self.bh_model else x_v)
 
     # -- incremental decode building blocks --------------------------------
     def row_step(self, emb_hist, v_prev, cls, aud_e):
@@ -160,6 +182,17 @@ class GatedPixelCNN(nn.Module):
         return self.head(x_h)
 
 
+def check_sampleable(model: GatedPixelCNN) -> None:
+    """Raise ValueError for a prior that no sampler of the JAX package can
+    run: the bh_model=False prior (see the module docstring)."""
+    if not model.bh_model:
+        raise ValueError(
+            "the bh_model=false prior cannot be sampled: JAX's incremental sampler "
+            "(talkshow_tpu/models/pixelcnn.py:sample_tokens) calls fusion_h, which this "
+            "prior has no parameters for (ScopeParamNotFoundError), and its fused kernel "
+            "refuses it (pixelcnn_pallas.supports_fused); train it, do not sample it")
+
+
 def gumbel_noise(shape, generator: torch.Generator | None,
                  device) -> torch.Tensor:
     """-log(-log(U)), U uniform on (tiny, 1), drawn on the generator's
@@ -183,8 +216,10 @@ def sample_tokens(model: GatedPixelCNN, label: torch.Tensor,
     given (tests hand in the JAX sampler's own block, so tokens reproduce
     it bit for bit), otherwise it is drawn from `generator`.  Rows below
     `prefix_len` are teacher-forced to `prefix_tokens` (B, H, 2).
-    Returns tokens (B, H, 2) int64 [, logits (B, H, 2, K)].
+    Returns tokens (B, H, 2) int64 [, logits (B, H, 2, K)].  A
+    bh_model=False prior raises ValueError (`check_sampleable`).
     """
+    check_sampleable(model)
     counts["sample_tokens_plain"] += 1
     B, H, _ = audio.shape
     W, dim, L, K = 2, model.dim, model.n_layers, model.input_dim

@@ -106,7 +106,7 @@ class Pipeline:
         if vq is not None and "g_body" in vq.get("generator", vq):
             weights.update(convert.reference_body_vq(vq))
         if body is not None:
-            weights.update(convert.reference_body_pixel(body))
+            weights.update(convert.reference_body_pixel(body, body_kwargs.get("bh_model", True)))
         return pipe.load_converted(weights)
 
     def _modules(self) -> dict:
@@ -339,16 +339,19 @@ def save_pipeline(pipe: Pipeline, path: str) -> None:
 
 def load_pipeline(path: str, template: Pipeline | None = None,
                   device="cuda") -> Pipeline:
-    """Restore a file written by `save_pipeline` into `template` (in place;
-    default a full-size `Pipeline.create(0, device)`) and return it.  A file
+    """Restore a file written by `save_pipeline`, or by
+    `python -m talkshow_torch.convert_checkpoints` (any subset of its keys),
+    into `template` (in place; default a full-size `Pipeline.create(0,
+    device)`) and return it.  A file
     written before the face stage carried wav2vec's SpecAugment vector
     (`masked_spec_embed`, read only in training) gets the one
     `convert.reference_face` gives a checkpoint without it: zeros."""
     pipe = template if template is not None else Pipeline.create(0, device)
     weights = torch.load(path, map_location=pipe.device, weights_only=True)
     for k in _VQ_STATES:
-        weights[k] = VQState(**weights[k])
-    face = weights["face"]
-    if convert.MASKED_SPEC_EMBED not in face:
+        if k in weights:
+            weights[k] = VQState(**weights[k])
+    face = weights.get("face")
+    if face is not None and convert.MASKED_SPEC_EMBED not in face:
         face[convert.MASKED_SPEC_EMBED] = convert.masked_spec_embed_default(face)
     return pipe.load_converted(weights)

@@ -18,7 +18,9 @@ comes from the config's Model.model_name:
 - s2g_body_vq: the VQ-VAEs at the config's `vq_num_hiddens` (1024), as
   scripts/train.py builds them;
 - s2g_body_pixel: the prior (`pixelcnn_dim`, `pixelcnn_layers`,
-  `num_speakers`) and a 256-wide audio encoder on the token grids of the
+  `num_speakers`, `bh_model`: false trains the vertical-only prior, which
+  no sampler of either package runs) and a 256-wide audio encoder on the
+  token grids of the
   stage-1 VQs of `--vq_ckpt` (a `ckpt-*.pt` of this trainer's s2g_body_vq
   run) or Model.vq_path, cached per window unless `--no_token_cache`;
 - s2g_face: the face generator (wav2vec 2.0 base) on whole clips at batch
@@ -28,6 +30,14 @@ comes from the config's Model.model_name:
   windows' poses at the generator learning rate;
 - s2g_LS3DCG: the LS3DCG generator and discriminator, the LSGAN step with
   `keypoint_loss_weight` and `gan_loss_weight` (scripts/train.py:179-187).
+
+Codebooks: every VQ-VAE is built at `vq_embedding_dim` and every codebook
+with `code_num` codes, in stage 1 and in the frozen VQs of stage 2, so the
+two stages agree for any config.  That departs from JAX where `code_num`
+is not 2048 or `vq_embedding_dim` not 64: JAX's stage 1 always builds
+2048 codes (talkshow_tpu/train/steps.py:55-56), while its stage 2 takes
+`code_num` logits over frozen VQ-VAEs of width 64 (scripts/train.py:126-127,146).
+At the reference defaults (2048 codes of width 64) the two agree.
 
 With Data.pose.convert_to_6d the poses are the 6-D variant's (T, 330): the
 VQ-VAEs take 78 / 180 channels and the s2g_body_pixel prior is 512 wide
@@ -163,14 +173,11 @@ def build_stage(cfg: Config, args) -> dict:
         if not path:
             raise SystemExit("s2g_body_pixel needs the stage-1 VQs: pass --vq_ckpt (a ckpt-*.pt "
                              "of an s2g_body_vq run) or set Model.vq_path")
-        if not cfg.model.bh_model:
-            raise SystemExit("the bh_model=false prior is not ported yet: ROADMAP.md Queue 1 "
-                             "item 9")
         vq_body, vq_hand, states = frozen_vqs(cfg, path, scale)
         width = PRIOR_6D if rep6d else dict(dim=cfg.model.pixelcnn_dim,
                                             n_layers=cfg.model.pixelcnn_layers)
         prior = GatedPixelCNN(input_dim=cfg.model.code_num, n_classes=cfg.model.num_speakers,
-                              **width)
+                              bh_model=cfg.model.bh_model, **width)
         init_state, step = make_body_pixel_step(prior, AudioEncoder(num_hiddens=256), vq_body,
                                                 vq_hand, states, lr,
                                                 cfg.train.max_gradient_norm, rep6d=rep6d)

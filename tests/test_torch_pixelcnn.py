@@ -10,7 +10,12 @@
   previous step's outputs from every CTA's slice), reproduce the plain
   sampler in order and in any random order that keeps only the waits the
   kernel declares, and lose it when one of those waits is dropped — the
-  CUDA code itself runs only on the card (tests/test_torch_kernels_cuda.py).
+  CUDA code itself runs only on the card (tests/test_torch_kernels_cuda.py);
+* the vertical-only prior (bh_model=False): its forward matches flax
+  (f32, within 1e-5 of max|logit|) from JAX's variables and from a
+  reference-layout state dict through both packages' converters; JAX's
+  sampler cannot run it (flax's ScopeParamNotFoundError), and every sampling
+  entry point of the port refuses it with a ValueError before any work.
 """
 import numpy as np
 import jax
@@ -406,3 +411,94 @@ def test_chain_parts_cover_each_cta_stream_once(models):
             off += size
         assert off <= row_elems and (row_elems * esize) % k1.CHUNK_BYTES == 0
         assert row_elems - off < k1.CHUNK_BYTES // esize
+
+
+# ---------------------------------------------------------------------------
+# the vertical-only prior (bh_model=False): trained, never sampled
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def vertical_models():
+    jm = JPixelCNN(input_dim=K, dim=DIM, n_layers=LAYERS, n_classes=CLASSES,
+                   audio=True, bh_model=False, audio_channels=AUDC)
+    jv = jax.jit(jm.init)(jax.random.PRNGKey(3), jnp.zeros((1, 9, 2), jnp.int32),
+                          jnp.zeros((1,), jnp.int32), jnp.zeros((1, 9, AUDC)))
+    jv = jax.tree.map(lambda a: a + 0.05 * jnp.sin(jnp.arange(a.size).reshape(a.shape)), jv)
+    tm = GatedPixelCNN(input_dim=K, dim=DIM, n_layers=LAYERS, n_classes=CLASSES,
+                       audio_channels=AUDC, bh_model=False).eval()
+    tm.load_state_dict(convert_pixelcnn(jax.tree.map(np.asarray, jv), bh_model=False))
+    return jm, jv, tm
+
+
+def _forward_close(jm, jv, tm):
+    label, audio, tokens = _inputs(8)
+    ref = np.asarray(jm.apply(jv, jnp.asarray(tokens), jnp.asarray(label), jnp.asarray(audio)))
+    with torch.no_grad():
+        out = tm(torch.as_tensor(tokens).long(), torch.as_tensor(label).long(),
+                 torch.as_tensor(audio)).numpy()
+    assert out.shape == (B, H, 2, K)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def test_vertical_only_forward_matches_flax(vertical_models):
+    jm, jv, tm = vertical_models
+    names = dict(tm.named_parameters())
+    assert "fusion_h.weight" not in names and "layers.1.horiz_stack.weight" not in names
+    assert names["layers.1.vert_stack.weight"].shape[-1] == 1
+    _forward_close(jm, jv, tm)
+
+
+def test_vertical_only_reference_layout_through_both_converters(vertical_models):
+    """A reference-layout state dict (1x1 convs as (out, in, 1, 1), the head
+    as output_conv.0/2, mask A's zeroed last vertical row, and the fusion_h
+    the reference module carries) gives the same prior through
+    talkshow_tpu/convert/talkshow.py and convert.reference_pixelcnn."""
+    from talkshow_tpu.convert.talkshow import convert_pixelcnn as jax_convert
+    from talkshow_torch.convert import reference_pixelcnn
+    jm, _, tm = vertical_models
+    ref = {}
+    for k, v in tm.state_dict().items():
+        k = k.replace("out_hidden.", "output_conv.0.").replace("out_logits.", "output_conv.2.")
+        if v.dim() == 2 and not k.endswith("embedding.weight") and "class_cond" not in k:
+            v = v[:, :, None, None]
+        if k == "layers.0.vert_stack.weight":
+            v = torch.cat([v, torch.zeros_like(v[:, :, :1])], dim=2)
+        ref["module." + k] = v.clone()
+    ref["module.fusion_h.weight"] = torch.ones(DIM, 2 * DIM, 1, 1)
+    ref["module.fusion_h.bias"] = torch.ones(DIM)
+    jvars = jax_convert({k: v.numpy() for k, v in ref.items()}, bh_model=False)
+    port = GatedPixelCNN(input_dim=K, dim=DIM, n_layers=LAYERS, n_classes=CLASSES,
+                         audio_channels=AUDC, bh_model=False).eval()
+    port.load_state_dict(reference_pixelcnn(ref, bh_model=False))
+    _forward_close(jm, jax.tree.map(jnp.asarray, jvars), port)
+
+
+def test_jax_cannot_sample_the_vertical_only_prior(vertical_models):
+    """The finding the port's refusal follows: JAX's incremental sampler
+    calls fusion_h (pixelcnn.py:262-265), which the prior never created."""
+    import flax
+    jm, jv, _ = vertical_models
+    label, audio, _ = _inputs(9)
+    with pytest.raises(flax.errors.ScopeParamNotFoundError, match="fusion_h"):
+        jax_sample_tokens(jm, jv, jnp.asarray(label), jnp.asarray(audio),
+                          jax.random.PRNGKey(0))
+
+
+@pytest.mark.parametrize("entry", ["sample_tokens", "sample_tokens_fused",
+                                   "pack_decode_tables", "generate_conv_poses"])
+def test_port_refuses_to_sample_the_vertical_only_prior(vertical_models, entry):
+    from talkshow_torch.models.body import BodyModels, generate_conv_poses
+    _, _, tm = vertical_models
+    label, audio, _ = _inputs(9)
+    lab, aud = torch.as_tensor(label).long(), torch.as_tensor(audio)
+    calls = {
+        "sample_tokens": lambda: sample_tokens(tm, lab, aud),
+        "sample_tokens_fused": lambda: sample_tokens_fused(tm, lab, aud),
+        "pack_decode_tables": lambda: pack_decode_tables(tm, torch.float32),
+        "generate_conv_poses": lambda: generate_conv_poses(
+            BodyModels(None, None, None, None, None, tm), torch.zeros(B, 4 * H, 64), lab),
+    }
+    counts.clear()
+    with pytest.raises(ValueError, match="bh_model=false prior cannot be sampled"):
+        calls[entry]()
+    assert not counts

@@ -30,6 +30,7 @@ from talkshow_tpu.models import vqvae as jv
 from talkshow_tpu.ops import vq as jvq
 from talkshow_tpu.train import steps as jsteps
 from talkshow_tpu.utils import skip_nonfinite_updates
+from talkshow_torch import config as tconfig
 from talkshow_torch import convert
 from talkshow_torch.kernels import ar_decode, counts
 from talkshow_torch.models import body as tbody
@@ -368,3 +369,38 @@ def test_cli_6d_stages(tmp_path, monkeypatch):
                                      vq.state.vq, rep6d=True)(poses)
     assert torch.equal(px.token_encoder(poses), want)
     assert np.array_equal(np.stack([px._token_cache[k] for k in keys]), want.numpy())
+
+
+def test_6d_stage1_code_use_matches_jax(jax_vqs, vq_run):
+    """ROADMAP Queue 3's check of the collapsed 6-D token cache: after
+    `vq_run`'s three 6-D stage-1 steps (JAX's, op by op in f64) and the
+    port's three from the same state on the same batches, every window of
+    the train CLI's synthetic dataset (four clips, 6-D) is encoded as the
+    stage-2 token cache holds it: the distinct body and hand codes are the
+    same number on both sides, and at least 99 % of the tokens are equal
+    (the port's steps run in f32 against JAX's f64 reference, which can
+    move a near-tie to its neighbour code: 1 of 928 here)."""
+    vb, vh, _, _ = jax_vqs
+    states, _, batches = vq_run
+    init, step = tsteps.make_body_vq_step(tv.VQVAE(78, 64, NH), tv.VQVAE(180, 64, NH),
+                                          learning_rate=LR, code_num=CODES, rep6d=True)
+    port = init(torch.Generator().manual_seed(0), "cpu")
+    port.load_converted(convert.from_jax_body_vq_state(states[0]))
+    for b in batches:
+        port, _ = step(port, {"poses": torch.as_tensor(b)})
+    cfg = tconfig.Config()
+    cfg.data.pose.generate_length, cfg.data.pose.convert_to_6d = W, True
+    cfg.train.batch_size = B
+    ds = cli.synthetic_for(cfg)
+    windows = np.stack([ds.window_poses(k) for k in ds.window_keys()])
+    assert windows.shape[1:] == (W, 330) and len(windows) > 40
+    end = states[-1]
+    jvars = {k: {"params": end.params[k], "batch_stats": end.batch_stats[k]}
+             for k in ("body", "hand")}
+    want = np.asarray(jsteps.make_token_encoder(vb, vh, jvars, end.vq, rep6d=True)(
+        jnp.asarray(windows)))
+    got = tsteps.make_token_encoder(port.models["body"], port.models["hand"], port.vq,
+                                    rep6d=True)(torch.as_tensor(windows)).numpy()
+    used = [(len(np.unique(a[..., 0])), len(np.unique(a[..., 1]))) for a in (got, want)]
+    assert used[0] == used[1], used
+    assert (got == want).mean() >= 0.99

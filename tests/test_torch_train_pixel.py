@@ -14,7 +14,10 @@ to lr with either sign on either side; those elements, chosen by JAX's
 gradient scale as tests/test_torch_train.py chooses them, take JAX's
 values.  The optimizer chain alone (clip, Adam, SGD with momentum) is held
 to optax within 1e-6 over several steps, both clip branches included.
-Token grids, masks and cached batches are equal exactly."""
+Token grids, masks and cached batches are equal exactly.  The same step
+tests hold the vertical-only prior (bh_model=False) to JAX's, and the CLI
+trains it; the CLI's codebook sizing (code_num codes of width
+vq_embedding_dim in both stages) is pinned on a non-default config."""
 import json
 
 import numpy as np
@@ -83,13 +86,14 @@ def _torch_batch(batch):
 # the JAX side: frozen VQs, the prior, three steps, the masks they drew
 # ---------------------------------------------------------------------------
 
-def _jax_models():
+def _jax_models(bh_model=True):
     vb, vh = jv.VQVAE(in_dim=39, num_hiddens=NH), jv.VQVAE(in_dim=90, num_hiddens=NH)
     r = jax.random.split(jax.random.PRNGKey(1), 4)
     sts = {"body": jvq.init_vq_state(r[0], CODES, 64), "hand": jvq.init_vq_state(r[1], CODES, 64)}
     jvars = {"body": _randomize(jax.jit(vb.init)(r[2], jnp.zeros((1, W, 39)), sts["body"]), 5),
              "hand": _randomize(jax.jit(vh.init)(r[3], jnp.zeros((1, W, 90)), sts["hand"]), 6)}
-    prior = jp.GatedPixelCNN(input_dim=CODES, dim=DIM, n_layers=LAYERS, audio_channels=AUD)
+    prior = jp.GatedPixelCNN(input_dim=CODES, dim=DIM, n_layers=LAYERS, audio_channels=AUD,
+                             bh_model=bh_model)
     return vb, vh, jvars, sts, prior, jv.AudioEncoder(num_hiddens=AUD)
 
 
@@ -103,11 +107,10 @@ def jax_aud_keep(prior, prior_params, key, batch=B, rows=H):
     return np.asarray(keep[..., 0, 0]) != 0
 
 
-@pytest.fixture(scope="module")
-def jax_run():
+def _jax_steps(bh_model):
     """Three JAX body-pixel steps; the states (numpy) before and after each,
     the metrics, the batches, the keys' keep masks and the models."""
-    vb, vh, jvars, sts, prior, audio = _jax_models()
+    vb, vh, jvars, sts, prior, audio = _jax_models(bh_model)
     init, step = jsteps.make_body_pixel_step(prior, audio, vb, vh, jvars, sts,
                                              learning_rate=LR, max_grad_norm=MAX_NORM)
     state = jax.jit(init, static_argnames="window")(jax.random.PRNGKey(2), window=W)
@@ -121,21 +124,33 @@ def jax_run():
         metrics.append({k: float(v) for k, v in m.items()})
     tokens = np.asarray(jsteps.make_token_encoder(vb, vh, jvars, sts)(jnp.asarray(batches[0]["poses"])))
     return dict(states=states, metrics=metrics, batches=batches, keeps=keeps, jvars=jvars,
-                sts=sts, prior=prior, audio=audio, tokens=tokens)
+                sts=sts, prior=prior, audio=audio, tokens=tokens, bh_model=bh_model)
 
 
-def _port(jvars, sts, lr=LR, state=None):
+@pytest.fixture(scope="module")
+def jax_run():
+    return _jax_steps(True)
+
+
+@pytest.fixture(scope="module")
+def jax_run_vertical():
+    """`jax_run` with the vertical-only prior (bh_model=False)."""
+    return _jax_steps(False)
+
+
+def _port(jvars, sts, lr=LR, state=None, bh_model=True):
     """The port's step and a state loaded from a JAX PixelState."""
     tb, th = tv.VQVAE(39, 64, NH), tv.VQVAE(90, 64, NH)
     tb.load_state_dict(convert.convert_vqvae(jvars["body"]))
     th.load_state_dict(convert.convert_vqvae(jvars["hand"]))
     states = {k: _tstate(s) for k, s in sts.items()}
-    prior = tp.GatedPixelCNN(input_dim=CODES, dim=DIM, n_layers=LAYERS, audio_channels=AUD)
+    prior = tp.GatedPixelCNN(input_dim=CODES, dim=DIM, n_layers=LAYERS, audio_channels=AUD,
+                             bh_model=bh_model)
     init, step = tsteps.make_body_pixel_step(prior, tv.AudioEncoder(num_hiddens=AUD), tb, th,
                                              states, lr, MAX_NORM)
     st = init(torch.Generator().manual_seed(0), "cpu")
     if state is not None:
-        st.load_converted(convert.from_jax_pixel_state(state))
+        st.load_converted(convert.from_jax_pixel_state(state, bh_model))
     return st, step, (tb, th, states)
 
 
@@ -145,8 +160,8 @@ def _close(got, want, tag, scale=None):
     assert err <= tol, (tag, err, tol)
 
 
-def _assert_state_close(state, jax_state, tag):
-    want = convert.from_jax_pixel_state(jax_state)
+def _assert_state_close(state, jax_state, tag, bh_model=True):
+    want = convert.from_jax_pixel_state(jax_state, bh_model)
     assert state.step == want["step"]
     assert state.optimizer.nonfinite_count == want["nonfinite_count"]
     adam = state.optimizer.adam
@@ -166,13 +181,13 @@ def _assert_state_close(state, jax_state, tag):
                 _close(st[key], w, f"{tag} {part} {key} {name}", w.abs().max().item())
 
 
-def _assert_update_close(state, before, jax_before, jax_after, tag):
+def _assert_update_close(state, before, jax_before, jax_after, tag, bh_model=True):
     """Each parameter's change in the step within 1e-2 lr of JAX's change,
     leaving out (and setting to JAX's values) the elements whose gradient
     scale, JAX's debiased sqrt(v_hat), is a whole leaf at most 1e-5 of the
     part's largest or an element below 1e-3 of its leaf's largest; at least
     95 % of each part is held."""
-    w0, w1 = convert.from_jax_pixel_state(jax_before), convert.from_jax_pixel_state(jax_after)
+    w0, w1 = (convert.from_jax_pixel_state(s, bh_model) for s in (jax_before, jax_after))
     debias = 1 - 0.999 ** w1["adam_step"]
     for part, model in state.models.items():
         scale = {k: (v / debias).sqrt() for k, v in w1["exp_avg_sq"][part].items()}
@@ -325,25 +340,36 @@ def test_audio_encoder_follows_train_mode(train):
 # (c) the step from one converted state, (d) tokens given, (e) the skip
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n_steps", [1, 3])
-def test_body_pixel_step_matches_jax(jax_run, n_steps):
-    states, metrics = jax_run["states"], jax_run["metrics"]
-    state, step, _ = _port(jax_run["jvars"], jax_run["sts"], state=states[0])
-    _assert_state_close(state, states[0], "start")
+def _steps_match_jax(run, n_steps):
+    states, metrics, bh = run["states"], run["metrics"], run["bh_model"]
+    state, step, _ = _port(run["jvars"], run["sts"], state=states[0], bh_model=bh)
+    _assert_state_close(state, states[0], "start", bh)
     counts.clear()
     for i in range(n_steps):
         before = {part: {k: p.detach().clone() for k, p in m.named_parameters()}
                   for part, m in state.models.items()}
-        batch = dict(_torch_batch(jax_run["batches"][i]),
-                     aud_keep=torch.as_tensor(jax_run["keeps"][i]))
+        batch = dict(_torch_batch(run["batches"][i]), aud_keep=torch.as_tensor(run["keeps"][i]))
         state, m = step(state, batch)
         for k, v in metrics[i].items():
             np.testing.assert_allclose(float(m[k]), v, rtol=TOL, atol=1e-7,
                                        err_msg=f"step {i} {k}")
-        _assert_update_close(state, before, states[i], states[i + 1], f"step {i}")
+        _assert_update_close(state, before, states[i], states[i + 1], f"step {i}", bh)
     assert metrics[0]["grad"] > MAX_NORM     # the first step took the clip branch
     assert counts["nearest_code_plain"] == 2 * n_steps
-    _assert_state_close(state, states[n_steps], f"after {n_steps}")
+    _assert_state_close(state, states[n_steps], f"after {n_steps}", bh)
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_body_pixel_step_matches_jax(jax_run, n_steps):
+    _steps_match_jax(jax_run, n_steps)
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_vertical_only_pixel_step_matches_jax(jax_run_vertical, n_steps):
+    """The bh_model=False prior's step from one JAX state: its parameters
+    (no fusion_h, no horizontal stack), the tolerances of the test above."""
+    assert "fusion_h" not in jax_run_vertical["states"][0].params["prior"]
+    _steps_match_jax(jax_run_vertical, n_steps)
 
 
 def test_tokens_given_equal_frozen_encode(jax_run):
@@ -464,7 +490,7 @@ def _narrow(monkeypatch):
     monkeypatch.setattr(cli, "VQVAE", lambda width, emb, nh: tv.VQVAE(width, emb, NH))
     monkeypatch.setattr(cli, "GatedPixelCNN", lambda **kw: tp.GatedPixelCNN(
         input_dim=kw["input_dim"], dim=DIM, n_layers=LAYERS, n_classes=kw["n_classes"],
-        audio_channels=AUD))
+        audio_channels=AUD, bh_model=kw["bh_model"]))
     monkeypatch.setattr(cli, "AudioEncoder", lambda num_hiddens: tv.AudioEncoder(
         num_hiddens=AUD))
 
@@ -507,3 +533,60 @@ def test_pixel_cli_takes_the_stage1_checkpoint(tmp_path, monkeypatch):
         json.dump(cfg, f)
     assert cli.main(["--config_file", px_cfg, "--run_dir", str(tmp_path / "px2"),
                      "--epochs", "0", "--synthetic", "--device", "cpu"]).global_step == 0
+
+
+def test_pixel_cli_trains_the_vertical_only_prior(tmp_path, monkeypatch):
+    """Model.bh_model false: the CLI's stage 2 builds and trains the
+    vertical-only prior (finite logs, the cache filled), and its
+    checkpoint loads into such a prior."""
+    _narrow(monkeypatch)
+    base = ["--synthetic", "--epochs", "1", "--device", "cpu"]
+    cli.main(["--config_file", _write_config(tmp_path / "vq.json", "s2g_body_vq"),
+              "--run_dir", str(tmp_path / "vq")] + base)
+    px_cfg = _write_config(tmp_path / "px.json", "s2g_body_pixel", bh_model=False)
+    tr = cli.main(["--config_file", px_cfg, "--run_dir", str(tmp_path / "px"),
+                   "--vq_ckpt", str(tmp_path / "vq" / "ckpt-0.pt")] + base)
+    prior = tr.state.models["prior"]
+    assert not prior.bh_model and not hasattr(prior, "fusion_h")
+    assert tr.global_step >= cli.SYNTHETIC_STEPS and set(tr._token_cache) == set(
+        tr.dataset.window_keys())
+    hist = json.load(open(tmp_path / "px" / "history.json"))
+    assert all(np.isfinite(v) for h in hist for v in h.values())
+    sd = torch.load(tmp_path / "px" / "ckpt-0.pt", weights_only=True)["state"]
+    tp.GatedPixelCNN(input_dim=CODES, dim=DIM, n_layers=LAYERS, audio_channels=AUD,
+                     bh_model=False).load_state_dict(sd["models"]["prior"])
+
+
+def test_cli_codebook_sizes_follow_the_config(tmp_path, monkeypatch):
+    """The port's codebook rule on a non-default config (code_num 64 ≠ 2048,
+    vq_embedding_dim 16 ≠ 64): stage 1's codebooks are (64, 16), its VQ-VAEs
+    emit width 16, and stage 2's frozen VQs and the prior's 64 logits take
+    those sizes.  (JAX's stage 1 would build 2048 codes and its stage 2
+    width-64 VQ-VAEs; see the CLI's docstring.)  The reference JSON has no
+    key for the width, in either package's reader, so the config object is
+    set after it is read."""
+    _narrow(monkeypatch)
+    read = tconfig.Config.from_reference_json
+
+    def with_width(path):
+        cfg = read(path)
+        cfg.model.vq_embedding_dim = 16
+        return cfg
+
+    monkeypatch.setattr(cli.Config, "from_reference_json", staticmethod(with_width))
+    base = ["--synthetic", "--epochs", "1", "--device", "cpu"]
+    sizes = dict(code_num=64)
+    vq = cli.main(["--config_file", _write_config(tmp_path / "vq.json", "s2g_body_vq", **sizes),
+                   "--run_dir", str(tmp_path / "vq")] + base)
+    assert all(s.embeddings.shape == (64, 16) for s in vq.state.vq.values())
+    assert all(m.embedding_dim == 16 for m in vq.state.models.values())
+    cfg = with_width(_write_config(tmp_path / "px.json", "s2g_body_pixel", **sizes))
+    vb, vh, states = cli.frozen_vqs(cfg, str(tmp_path / "vq" / "ckpt-0.pt"))
+    assert vb.embedding_dim == vh.embedding_dim == 16
+    assert all(s.embeddings.shape == (64, 16) for s in states.values())
+    tr = cli.main(["--config_file", str(tmp_path / "px.json"), "--run_dir",
+                   str(tmp_path / "px"), "--vq_ckpt", str(tmp_path / "vq" / "ckpt-0.pt")] + base)
+    prior = tr.state.models["prior"]
+    assert prior.input_dim == 64 and prior.out_logits.out_features == 64
+    grids = np.stack(list(tr._token_cache.values()))
+    assert grids.min() >= 0 and grids.max() < 64
