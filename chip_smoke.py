@@ -251,12 +251,35 @@ Phases (one line each; any failure raises and the script exits non-zero):
              chunked tokens equal the full encode's (near-ties exempt), the
              chunked decode within 1e-4 of max|out| of the full decode; K4's
              launches and ms a chunk
+ 30 bf16     --bf16 through the train CLI at full width: s2g_body_pixel on phase
+             11's checkpoint (the prior 256 x 15 in bf16, B = 128, T = 88; K4 for
+             the token encode) and s2g_face (wav2vec 2.0 base in bf16, B = 1, 8 s
+             clips; K3 on bf16 tables once a step); f32 masters; one step of each
+             CUDA against CPU from one state within tests/test_torch_bf16.py's
+             bounds; K3's bf16 features within 1e-2 of its plain version; each
+             step's p50 in bf16 and in f32 on the same weights, in turns, and the
+             bf16 step's device time by kernel and idle share
+ 31 schedule python -m talkshow_torch.full_schedule --smoke (its main()) at full
+             width on a synthetic SHOW tree of one 29 s train and one 20 s test
+             clip a speaker: body_vq, body_pixel (--bf16), face (--bf16
+             --face_bucket 30), body_ae, ls3dcg, then the eval battery; wall
+             seconds and K1-K4 launches per stage; the EVAL json holds every key
+             of scripts/eval_full_schedule.py's results (read as text), all its
+             numbers finite
+ 32 w2v-vq   Wav2VecVQEncoder (wav2vec 2.0 base, 1024 hidden) on the 10 s clip:
+             one eval forward launches K3 and K2 once each, within 1e-3 of
+             max|out| of the plain forward (f32 tables; bf16 reported); ms of the
+             kernel route and the plain forward, in turns
+ 33 legacy   FaceGeneratorMeshtalk and FreeformS2G / S2GDiscriminator
+             (tests/test_extras.py:148's widths) on the 10 s clip: CUDA within
+             1e-4 of the CPU; ms on the card
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
 continuity, the serve flush, the stream and the eval path (eval_body and
 the eval CLI for K1, eval_face for K2 and K3), summed, K3 in phase 17 and
-phase 25, K1 at dim 512 in phase 24, the entry points of phase 26; K4:
-phases 11, 16, eval_vq_capacity, 24, 25, 28 and 29), the nvidia-smi line,
-the total wall time and the result line.
+phase 25, K1 at dim 512 in phase 24, the entry points of phase 26, and
+phases 30-32; K4: phases 11, 16, eval_vq_capacity, 24, 25, 28, 29, 30 and
+31), the nvidia-smi line, the total wall time and the result line.
+
 """
 from __future__ import annotations
 
@@ -2924,6 +2947,347 @@ def phase29(dev, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 30-33: --bf16, the full schedule, Wav2VecVQEncoder, the Meshtalk face
+# and the legacy S2G family
+# ---------------------------------------------------------------------------
+
+#: one step CUDA against CPU under --bf16 is held to the bounds
+#: tests/test_torch_bf16.py holds the port's bf16 steps to JAX's with
+BF16_PIXEL = dict(ce=1e-3, grad=1.5e-2, moment=0.1, param_lr=2.0)
+BF16_FACE = dict(loss=1e-2, grad=1e-2, moment=0.1, param_lr=0.1)
+
+
+def phase30(dev, tmp: str, vq_ckpt: str, card: str) -> dict:
+    """--bf16 at full width through the train CLI: s2g_body_pixel (the prior
+    256 x 15 in bf16 at B = 128, T = 88; K4 for the token encode) and s2g_face
+    (wav2vec 2.0 base in bf16 at B = 1 on 8 s clips; K3 on bf16 tables); one
+    step of each CUDA against CPU from one state within tests/test_torch_bf16.py's
+    bounds; K3's bf16 features against its plain version on the same tables;
+    the step p50 in bf16 and in f32, in turns, with the device-idle share."""
+    from talkshow_torch.config import Config
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.kernels import wav2vec_extractor as k3
+    from talkshow_torch.models.face import FaceGenerator
+    from talkshow_torch.models.pixelcnn import GatedPixelCNN, draw_aud_keep
+    from talkshow_torch.models.vqvae import AudioEncoder
+    from talkshow_torch.models.wav2vec import Wav2Vec2Config
+    from talkshow_torch.models.wav2vec_fused import frozen_features
+    from talkshow_torch.train.__main__ import frozen_vqs, main as train_main
+    from talkshow_torch.train.steps import make_body_pixel_step, make_face_step
+    bf16, lr = torch.bfloat16, 1e-4
+    pcfg, fcfg = os.path.join(tmp, "pixel16.json"), os.path.join(tmp, "face16.json")
+    write_stage_config(pcfg, "s2g_body_pixel", 1)
+    write_stage_config(fcfg, "s2g_face", 1)
+    base = ["--synthetic", "--device", str(dev), "--bf16"]
+    counts.clear()
+    t0 = time.time()
+    ptr = train_main(["--config_file", pcfg, "--vq_ckpt", vq_ckpt, "--run_dir",
+                      os.path.join(tmp, "pixel16")] + base)
+    torch.cuda.synchronize()
+    pseen, pwall = dict(counts), time.time() - t0
+    prior = ptr.state.models["prior"]
+    plog = logged_values(os.path.join(tmp, "pixel16"))
+    if (prior.dtype != bf16 or pseen.get("nearest_code", 0) < 2 * ptr.global_step
+            or pseen.get("nearest_code_plain", 0) or not all(math.isfinite(v) for v in plog)
+            or any(p.dtype != torch.float32 for p in prior.parameters())):
+        raise AssertionError(f"phase 30 pixel: dtype {prior.dtype}, counts {pseen}, "
+                             f"logged {plog[:12]}")
+    counts.clear()
+    t0 = time.time()
+    ftr = train_main(["--config_file", fcfg, "--run_dir", os.path.join(tmp, "face16")] + base)
+    torch.cuda.synchronize()
+    fseen, fwall = dict(counts), time.time() - t0
+    flog = logged_values(os.path.join(tmp, "face16"))
+    if (ftr.state.tables["w0"].dtype != bf16 or fseen.get("wav2vec_extractor", 0)
+            != ftr.global_step or fseen.get("extractor_plain", 0)
+            or not all(math.isfinite(v) for v in flog)):
+        raise AssertionError(f"phase 30 face: tables {ftr.state.tables['w0'].dtype}, counts "
+                             f"{fseen}, logged {flog[:12]}")
+    log(f"phase 30 --bf16 train CLI: s2g_body_pixel (prior {PIXEL['dim']} x {PIXEL['layers']} "
+        f"in bf16, f32 parameters) {ptr.global_step} steps at B={TRAIN['batch']} "
+        f"T={TRAIN['window']} in {pwall:.1f} s, nearest_code (K4, the token encode) launches "
+        f"{pseen['nearest_code']}; s2g_face (wav2vec 2.0 base in bf16) {ftr.global_step} steps "
+        f"at B=1 in {fwall:.1f} s, wav2vec_extractor (K3) launches {fseen['wav2vec_extractor']} "
+        f"on bf16 tables, plain extractor 0; {len(plog) + len(flog)} logged values finite "
+        f"[{card}]")
+
+    # K3 on bf16 tables against its plain version on the same tables
+    first = next(iter(ftr.batch_iter(0)))
+    wav = torch.as_tensor(first["waveform"], device=dev)
+    got = frozen_features(ftr.state.face.audio_encoder, wav, tables=ftr.state.tables)
+    want = k3.extractor_plain(ftr.state.tables, wav)
+    k3_err = (got - want).abs().max().item() / want.abs().max().item()
+    if k3_err > 1e-2:
+        raise AssertionError(f"phase 30 K3 bf16: {k3_err} of max|out|")
+
+    # one pixel step CUDA against CPU (B = 8, the same tokens and dropout mask)
+    def pixel_state(device, dtype):
+        vb, vh, sts = frozen_vqs(Config.from_reference_json(pcfg), vq_ckpt)
+        init, step = make_body_pixel_step(
+            GatedPixelCNN(input_dim=PIXEL["codes"], dim=PIXEL["dim"], n_layers=PIXEL["layers"],
+                          dtype=dtype),
+            AudioEncoder(num_hiddens=PIXEL["audio"]), vb, vh, sts, lr, 5.0)
+        return init(torch.Generator().manual_seed(30), device), step
+
+    pb = next(iter(ptr.batch_iter(0)))
+    batch8 = ptr.put_batch({k: pb[k][:8] for k in ("poses", "aud_feat", "speaker")})
+    tokens = ptr.token_encoder(batch8["poses"]).cpu()
+    keep = draw_aud_keep(8, tokens.shape[1], torch.Generator().manual_seed(31), "cpu")
+    cpu_b = {"tokens": tokens, "aud_feat": batch8["aud_feat"].cpu(),
+             "speaker": batch8["speaker"].cpu(), "aud_keep": keep}
+    (sc, stc), (sg, stg) = pixel_state("cpu", bf16), pixel_state(dev, bf16)
+    _, mc = stc(sc, cpu_b)
+    _, mg = stg(sg, {k: v.to(dev) for k, v in cpu_b.items()})
+    px = {"ce": rel_err(float(mg["ce_loss"]), float(mc["ce_loss"])),
+          "grad": rel_err(float(mg["grad"]), float(mc["grad"])), "moment": 0.0, "param_lr": 0.0}
+    for name, mcpu in sc.models.items():
+        pg = dict(sg.models[name].named_parameters())
+        top = max(sc.optimizer.adam.state[p]["exp_avg"].abs().max().item()
+                  for p in mcpu.parameters())
+        for k, p in mcpu.named_parameters():
+            q = pg[k]
+            px["moment"] = max(px["moment"], (sg.optimizer.adam.state[q]["exp_avg"].cpu()
+                                              - sc.optimizer.adam.state[p]["exp_avg"]
+                                              ).abs().max().item() / top)
+            px["param_lr"] = max(px["param_lr"], (q.detach().cpu() - p.detach()).abs().max()
+                                 .item() / lr)
+            if q.dtype != torch.float32:
+                raise AssertionError(f"phase 30: master {k} is {q.dtype}")
+    del sc, sg
+
+    # one face step CUDA against CPU (stochastic=False, the 8 s clip)
+    def face_state(device):
+        init, step = make_face_step(FaceGenerator(Wav2Vec2Config(dtype=bf16)), stochastic=False)
+        return init(torch.Generator().manual_seed(30), device), step
+
+    cpu_f = {k: torch.as_tensor(v) for k, v in first.items()}
+    (fc, ftc), (fg, ftg) = face_state("cpu"), face_state(dev)
+    _, mfc = ftc(fc, cpu_f)
+    _, mfg = ftg(fg, {k: v.to(dev) for k, v in cpu_f.items()})
+    fa = {"loss": max(rel_err(float(mfg[k]), float(mfc[k]))
+                      for k in ("loss", "MSELoss", "exp_loss")),
+          "grad": rel_err(float(mfg["grad"]), float(mfc["grad"]))}
+    pg = dict(fg.face.named_parameters())
+    bufs = [(fc.optimizer.inner.state[p]["momentum_buffer"],
+             fg.optimizer.inner.state[pg[k]]["momentum_buffer"].cpu())
+            for k, p in fc.face.named_parameters() if p.requires_grad]
+    ttop = max(a.abs().max().item() for a, _ in bufs)
+    fa["moment"] = max((b - a).abs().max().item() for a, b in bufs) / ttop
+    fa["param_lr"] = max((pg[k].detach().cpu() - p.detach()).abs().max().item()
+                         for k, p in fc.face.named_parameters()) / (1e-3 * ttop)
+    del fc, fg
+    log(f"phase 30 CUDA vs CPU, one --bf16 step from one state: body-pixel (B=8, full width, "
+        f"the same tokens and dropout mask) ce {px['ce']:.2e} relative <= {BF16_PIXEL['ce']}, "
+        f"grad norm {px['grad']:.2e} <= {BF16_PIXEL['grad']}, Adam's first moment "
+        f"{px['moment']:.2e} of its largest <= {BF16_PIXEL['moment']}, f32 masters within "
+        f"{px['param_lr']:.3f} lr <= {BF16_PIXEL['param_lr']}; face (B=1, "
+        f"{first['waveform'].shape[1] / 16000:.2f} s, stochastic=False) losses "
+        f"{fa['loss']:.2e} <= {BF16_FACE['loss']}, grad norm {fa['grad']:.2e} <= "
+        f"{BF16_FACE['grad']}, momentum {fa['moment']:.2e} of its largest <= "
+        f"{BF16_FACE['moment']}, masters within {fa['param_lr']:.2e} lr x that largest <= "
+        f"{BF16_FACE['param_lr']}; K3 on bf16 tables vs its plain version {k3_err:.2e} of "
+        f"max|out| <= 1e-2")
+    bad = [f"pixel {k}" for k, v in px.items() if v > BF16_PIXEL[k] * (1 + 1e-3)] + \
+        [f"face {k}" for k, v in fa.items() if v > BF16_FACE[k]]
+    if bad:
+        raise AssertionError(f"phase 30 CUDA vs CPU past the bound: {bad}")
+
+    # step p50, bf16 against f32 on the same weights, in turns
+    gen = torch.Generator(device=dev).manual_seed(30)
+    warm = ptr.device_batch(dict(pb), [])
+    vb, vh, sts = frozen_vqs(Config.from_reference_json(pcfg), vq_ckpt)
+    init32, step32 = make_body_pixel_step(
+        GatedPixelCNN(input_dim=PIXEL["codes"], dim=PIXEL["dim"], n_layers=PIXEL["layers"]),
+        AudioEncoder(num_hiddens=PIXEL["audio"]), vb, vh, sts, lr, 5.0)
+    s32 = init32(torch.Generator().manual_seed(0), dev)
+    for name, m in s32.models.items():
+        m.load_state_dict(ptr.state.models[name].state_dict())
+    p16 = lambda: ptr.step_fn(ptr.state, warm, gen)              # noqa: E731
+    p32 = lambda: step32(s32, warm, gen)                         # noqa: E731
+    a32, a16, b16, b32 = (step_p50(f) for f in (p32, p16, p16, p32))
+    log(f"phase 30 body-pixel step B={TRAIN['batch']} T={TRAIN['window']} (cached tokens): "
+        f"p50 bf16 {a16[0]:.2f} / {b16[0]:.2f} ms, f32 {a32[0]:.2f} / {b32[0]:.2f} ms, in turns, "
+        f"10 steps each [{card}]")
+    log(f"phase 30 body-pixel step (bf16) device time by kernel: "
+        f"{idle_line(p16, (a16[0] + b16[0]) / 2, reps=2)} [{card}]")
+    fbatch = ftr.put_batch(dict(first))
+    fgen = torch.Generator(device=dev).manual_seed(30)
+    finit32, fstep32 = make_face_step(FaceGenerator())
+    f32s = finit32(torch.Generator().manual_seed(0), dev)
+    f32s.face.load_state_dict(ftr.state.face.state_dict())
+    f16 = lambda: ftr.step_fn(ftr.state, fbatch, fgen)           # noqa: E731
+    f32 = lambda: fstep32(f32s, fbatch, fgen)                    # noqa: E731
+    c32, c16, d16, d32 = (step_p50(f, 20) for f in (f32, f16, f16, f32))
+    log(f"phase 30 face step B=1, {first['waveform'].shape[1] / 16000:.2f} s clip: p50 bf16 "
+        f"(K3 on bf16 tables) {c16[0]:.2f} / {d16[0]:.2f} ms, f32 (K3 on f32 tables) "
+        f"{c32[0]:.2f} / {d32[0]:.2f} ms, in turns, 20 steps each [{card}]")
+    log(f"phase 30 face step (bf16) device time by kernel: "
+        f"{idle_line(f16, (c16[0] + d16[0]) / 2, reps=2)} [{card}]")
+    return {"nearest_code": pseen.get("nearest_code", 0),
+            "wav2vec_extractor": fseen.get("wav2vec_extractor", 0)}
+
+
+def jax_eval_keys() -> set:
+    """The keys scripts/eval_full_schedule.py writes into its results (read
+    as text; `rep6d` only when its probe file exists)."""
+    import re
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                           "eval_full_schedule.py")) as f:
+        return set(re.findall(r'results\["(\w+)"\]', f.read())) - {"rep6d"}
+
+
+def phase31(dev, tmp: str, card: str) -> dict:
+    """The full schedule end to end at full width: python -m
+    talkshow_torch.full_schedule --smoke (2 epochs a stage) on a synthetic
+    SHOW tree of one 29 s train clip and one 20 s test clip per speaker, all
+    five trainables and the eval battery; wall seconds and K1-K4 launches per
+    stage; the EVAL json carries every key of the JAX script, its numbers
+    finite."""
+    from talkshow_torch import full_schedule
+    from talkshow_torch.data.synthetic_show import write_show_tree
+    root, run_root = os.path.join(tmp, "schedule_data"), os.path.join(tmp, "schedule")
+    minutes = write_show_tree(root, clips_per_speaker=1)
+    stages = ["body_vq", "body_pixel", "face", "body_ae", "ls3dcg"]
+    t0 = time.time()
+    out = full_schedule.main(["--data_root", root, "--run_root", run_root, "--smoke",
+                              "--stages"] + stages + ["eval", "--smplx_npz",
+                                                      os.path.join(tmp, "schedule_rig.npz"),
+                                                      "--device", str(dev), "--tag", "smoke"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    status, res = out["status"]["stages"], out["eval"]
+
+    def numbers(x):
+        if isinstance(x, dict):
+            return [v for y in x.values() for v in numbers(y)]
+        if isinstance(x, list):
+            return [v for y in x for v in numbers(y)]
+        return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) else []
+
+    missing = jax_eval_keys() - set(res)
+    summary = res["train_summary"]
+    if (missing or set(summary) != set(stages) or not all(math.isfinite(v) for v in numbers(res))
+            or any(status[s]["state"] != "done" for s in stages + ["eval"])
+            or any(summary[s]["epochs"] != 2 for s in stages)):
+        raise AssertionError(f"phase 31: missing keys {missing}, summary {summary}, status "
+                             f"{status}")
+    for s in stages + ["eval"]:
+        st = status[s]
+        log(f"phase 31 schedule {s}: {st['wall_s']:.1f} s, launches " + ", ".join(
+            f"{k} {st['launches'][k]}" for k in KERNELS)
+            + (f"; {full_schedule.CURVE_KEYS[s]} first {summary[s]['first']} last "
+               f"{summary[s]['last']}" if s in summary else "") + f" [{card}]")
+    log(f"phase 31 schedule: {minutes:.1f} min of synthetic SHOW motion, 5 trainables x 2 "
+        f"epochs + the eval battery in {wall:.1f} s; EVAL json: {len(res)} keys, every one of "
+        f"the JAX script's {len(jax_eval_keys())}, all numbers finite; fgd trained "
+        f"{res['body_trained']['fgd']:.4f} vs random {res['body_random_prior']['fgd']:.4f}, "
+        f"jaw L1 trained {res['face_trained']['jaw_l1']:.4f} vs random "
+        f"{res['face_random_init']['jaw_l1']:.4f}, capacity "
+        f"{res['vq_capacity']['capacity_l1']:.4f} [{card}]")
+    return {k: sum(status[s]["launches"][k] for s in stages + ["eval"]) for k in KERNELS}
+
+
+def phase32(dev, card: str) -> dict:
+    """Wav2VecVQEncoder at full width (wav2vec 2.0 base, 1024 hidden) on the
+    10 s clip: its eval forward launches K3 and K2 once each (f32 tables)
+    and is within 1e-3 of max|out| (phase 8's bound) of the plain forward on
+    the card; bf16 tables reported; ms of the kernel route (bf16 tables)
+    against the plain forward, in turns."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.layers import init_weights_
+    from talkshow_torch.models.vqvae import Wav2VecVQEncoder
+    enc = init_weights_(Wav2VecVQEncoder(num_hiddens=1024), torch.Generator().manual_seed(32))
+    enc = enc.to(dev).eval()
+    wav, frames = speech(1, 10.0, 32, dev), 300
+    t32, t16 = enc.pack_tables(torch.float32), enc.pack_tables(torch.bfloat16)
+    with torch.no_grad():
+        counts.clear()
+        out = enc(wav, frames, tables=t32)
+        torch.cuda.synchronize()
+        seen = dict(counts)
+        plain = enc.head(enc.audio_encoder(wav, frames))
+        out16 = enc(wav, frames, tables=t16)
+        scale = plain.abs().max().item()
+        err, err16 = ((o - plain).abs().max().item() / scale for o in (out, out16))
+        if (seen.get("wav2vec_extractor") != 1 or seen.get("wav2vec_layers") != 1
+                or seen.get("extractor_plain") or seen.get("encoder_layers_plain")
+                or out.shape[:2] != (1, frames // 4) or err > 1e-3):
+            raise AssertionError(f"phase 32: counts {seen}, shape {tuple(out.shape)}, err {err}")
+        kern = lambda: enc(wav, frames, tables=t16)                     # noqa: E731
+        pl = lambda: enc.head(enc.audio_encoder(wav, frames))           # noqa: E731
+        p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (pl, kern, kern, pl))
+    log(f"phase 32 Wav2VecVQEncoder (wav2vec 2.0 base, 1024 hidden) on the 10 s clip: "
+        f"(1, {frames}) -> {tuple(out.shape)}; one eval forward launches wav2vec_extractor "
+        f"(K3) {seen['wav2vec_extractor']} and wav2vec_layers (K2) {seen['wav2vec_layers']}, "
+        f"plain extractor / layer stack 0; vs the plain forward {err:.2e} of max|out| <= 1e-3 "
+        f"(f32 tables), {err16:.2e} with bf16 tables (reported); kernel route (bf16 tables) "
+        f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, in turns [{card}]")
+    return seen
+
+
+def phase33(dev, wav10: str, card: str) -> None:
+    """The Meshtalk face (FaceGeneratorMeshtalk) and the legacy S2G family
+    (FreeformS2G and S2GDiscriminator at tests/test_extras.py:148's widths)
+    on the 10 s clip, random weights: CUDA within 1e-4 of the CPU (TF32
+    off; relative to max(1, max|out|)); ms on the card.  No kernel."""
+    from talkshow_torch.models.face import FaceGeneratorMeshtalk
+    from talkshow_torch.models.layers import init_weights_
+    from talkshow_torch.models.s2g_legacy import FreeformS2G, S2GDiscriminator
+    from talkshow_torch.ops.audio import audio_chunking, get_mfcc, load_wav
+    gen = torch.Generator().manual_seed(33)
+    x, _ = load_wav(wav10)
+    chunks = audio_chunking(torch.as_tensor(x), 30, 16000)[None]
+    onehot = torch.zeros((1, 4))
+    onehot[0, 2] = 1.0
+    spec = get_mfcc(wav10, device="cpu")[None]
+    T = spec.shape[1]
+    template = torch.randn((1, T, 16), generator=gen)
+    models = {
+        "meshtalk": (init_weights_(FaceGeneratorMeshtalk(), gen), (chunks, onehot), {}),
+        "freeform_s2g": (init_weights_(FreeformS2G(64, 275, (3, 113, 90, 69), 16, 64), gen),
+                         (spec,), {"noise": {"template": template}}),
+        "s2g_discriminator": (init_weights_(S2GDiscriminator(275), gen),
+                              (0.3 * torch.randn((1, T, 275), generator=gen),), {}),
+    }
+    parts = []
+    with torch.no_grad():
+        for name, (m, args, kw) in models.items():
+            m.eval()
+            want = m(*args, **kw)
+            want = want[0] if isinstance(want, tuple) else want
+            m.to(dev)
+            gargs = tuple(a.to(dev) for a in args)
+            gkw = {k: {kk: vv.to(dev) for kk, vv in v.items()} for k, v in kw.items()}
+
+            def run(m=m, gargs=gargs, gkw=gkw):
+                y = m(*gargs, **gkw)
+                return y[0] if isinstance(y, tuple) else y
+
+            got = run()
+            err = (got.cpu() - want).abs().max().item() / max(1.0, want.abs().max().item())
+            if got.shape != want.shape or not torch.isfinite(got).all() or err > 1e-4:
+                raise AssertionError(f"phase 33 {name}: shape {tuple(got.shape)}, err {err}")
+            parts.append(f"{name} {tuple(args[0].shape)} -> {tuple(got.shape)}, CUDA vs CPU "
+                         f"{err:.2e} <= 1e-4, {cuda_ms(run, 5):.3f} ms")
+    log("phase 33 (no kernel): " + "; ".join(parts) + f" [{card}]")
+
+
+def new_phases(dev, tmp: str, vq_ckpt: str, wav10: str, card: str) -> dict:
+    """Phases 30-33; returns their kernels' launches, each phase's counts
+    read around its own main-path run."""
+    bf16 = phase30(dev, tmp, vq_ckpt, card)
+    sched = phase31(dev, tmp, card)
+    vqenc = phase32(dev, card)
+    phase33(dev, wav10, card)
+    launches = {k: bf16.get(k, 0) + sched[k] + vqenc.get(k, 0) for k in KERNELS}
+    log(f"launches in phases 30-33: --bf16 training nearest_code {bf16['nearest_code']}, "
+        f"wav2vec_extractor {bf16['wav2vec_extractor']}; the schedule " + ", ".join(
+            f"{k} {sched[k]}" for k in KERNELS) + f"; Wav2VecVQEncoder wav2vec_extractor "
+        f"{vqenc.get('wav2vec_extractor', 0)}, wav2vec_layers {vqenc.get('wav2vec_layers', 0)}")
+    return launches
+
+
 T_START = time.time()
 
 
@@ -3121,6 +3485,13 @@ def main() -> int:
     log("launches on the entry points (phase 26): " + launch_line(clis["launches"])
         + f"; nearest_code {vertical['nearest_code']} (the vertical-only prior's stage 2) + "
         f"{causal} (the causal VQ-VAE)")
+
+    # ---- phases 30-33: --bf16, the full schedule, Wav2VecVQEncoder, the
+    # Meshtalk face and the legacy S2G family ---------------------------------
+    new = new_phases(dev, tmp, os.path.join(tmp, "run_a", "ckpt-0.pt"), wav10, card)
+    for k in KERNELS[:3]:
+        path_launches[k] += new[k]
+    k4_launches += new["nearest_code"]
 
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs

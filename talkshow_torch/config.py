@@ -176,6 +176,35 @@ class Config:
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
+    def to_reference_dict(self) -> dict[str, Any]:
+        """The reference JSON layout (config/*.json) of this config: what
+        `from_reference_dict` reads back to an equal Config (the
+        architecture knobs, which the reference files do not carry, keep
+        their defaults).  The full schedule writes its stage configs with it."""
+        m, t, lg = self.model, self.train, self.log
+        return {
+            "Data": {"data_root": self.data.data_root, "pklname": self.data.pklname,
+                     "whole_video": self.data.whole_video,
+                     "pose": dataclasses.asdict(self.data.pose),
+                     "aud": dataclasses.asdict(self.data.aud)},
+            "Model": {"model_type": m.model_type, "model_name": m.model_name,
+                      "composition": m.composition, "code_num": m.code_num,
+                      "bh_model": m.bh_model, "AudioOpt": m.audio_opt,
+                      "encoder_choice": m.encoder_choice, "gan": m.gan, "vq_path": m.vq_path},
+            "Train": {"epochs": t.epochs, "max_gradient_norm": t.max_gradient_norm,
+                      "learning_rate": {
+                          "generator_learning_rate": t.generator_learning_rate,
+                          "discriminator_learning_rate": t.discriminator_learning_rate},
+                      "weights": {"keypoint_loss_weight": t.keypoint_loss_weight,
+                                  "gan_loss_weight": t.gan_loss_weight}},
+            "DataLoader": {"batch_size": t.batch_size},
+            "Log": {"save_every": lg.save_every, "print_every": lg.print_every,
+                    "name": lg.name},
+            "smplx_npz_path": self.smplx_npz_path,
+            "extra_joint_path": self.extra_joint_path,
+            "dataset_load_mode": self.dataset_load_mode,
+        }
+
 
 def _fields(cls) -> set[str]:
     return {f.name for f in dataclasses.fields(cls)}

@@ -7,7 +7,11 @@ numpy arrays (the caller runs ``jax.tree.map(np.asarray, tree)``; this
 module imports no JAX) and returns the port's state dicts and VQStates,
 ready for `Pipeline.load_converted` (and `AE.load_state_dict`).
 `convert_ls3dcg` maps the LS3DCG generator's and discriminator's trees,
-`convert_causal_vqvae` the streaming VQ-VAE's,
+`convert_causal_vqvae` the streaming VQ-VAE's, `convert_layer_zoo` the
+UNet / sequence codecs / GRU translator of models/layers.py (flax's GRUCell
+gates into nn.GRU's stacked r, z, n), `convert_s2g` the legacy S2G family,
+`convert_meshtalk` the MeshTalk face and `convert_wav2vec_vq_encoder` the
+wav2vec-fronted VQ encoder,
 and the `from_jax_*_state` functions carry a JAX train state (parameters,
 statistics, optimizer moments, counts) into the port's, stage by stage.
 
@@ -167,20 +171,81 @@ _FACE = [(r"feature_extractor\.conv_(\d+)", r"feature_extractor.conv_layers.\1.c
 _ATTN = {"query": "q_proj", "key": "k_proj", "value": "v_proj", "out": "out_proj"}
 
 
+def _attention(key: str, a: np.ndarray, rules) -> dict | None:
+    """A flax attention projection (C, heads, hd) / (heads, hd, C) -> the
+    port's Linear; None for any other key."""
+    m = re.search(r"\.attention\.(query|key|value|out)\.(kernel|bias)$", key)
+    if m is None:
+        return None
+    proj, leaf = m.groups()
+    name = _rename(key[: m.start()], rules) + f".attention.{_ATTN[proj]}."
+    if leaf == "bias":
+        return {name + "bias": a.reshape(-1)}
+    w = a.reshape(-1, a.shape[-1]) if proj == "out" else a.reshape(a.shape[0], -1)
+    return {name + "weight": w.T}
+
+
 def convert_face(variables: dict) -> dict:
     """flax FaceGenerator variables -> port FaceGenerator state dict."""
-    def special(key, a):
-        m = re.search(r"\.attention\.(query|key|value|out)\.(kernel|bias)$", key)
-        if m is None:
-            return None
-        proj, leaf = m.groups()
-        name = _rename(key[: m.start()], _FACE) + f".attention.{_ATTN[proj]}."
-        if leaf == "bias":
-            return {name + "bias": a.reshape(-1)}
-        w = a.reshape(-1, a.shape[-1]) if proj == "out" else a.reshape(a.shape[0], -1)
-        return {name + "weight": w.T}
+    return _convert(variables, _FACE, special=lambda k, a: _attention(k, a, _FACE))
 
-    return _convert(variables, _FACE, special=special)
+
+#: the MeshTalk encoder's dilated convs (after _FACE renamed first_net's)
+_MESHTALK = _FACE + [(r"\bconv_(\d+)\b", r"convs.\1")]
+
+
+def convert_meshtalk(variables: dict) -> dict:
+    """flax FaceGeneratorMeshtalk (or MeshtalkEncoder) variables -> the
+    port's state dict: `conv_<i>` -> `convs.<i>`, the middle and heads as
+    `convert_face`."""
+    return _convert(variables, _MESHTALK)
+
+
+def convert_wav2vec_vq_encoder(variables: dict) -> dict:
+    """flax Wav2VecVQEncoder variables -> the port's: the wav2vec encoder
+    as `convert_face` maps it, the res / down stacks as `convert_vqvae`."""
+    rules = _FACE + _CONV_STACK
+    return _convert(variables, rules, special=lambda k, a: _attention(k, a, rules))
+
+
+#: the layer zoo (models/layers.py UNet1D, SeqEncoder1D, SeqDecoder1D,
+#: SeqTranslatorRNN): list-held blocks, BatchNorm CNR1d internals
+_ZOO = [(r"\b(down|up)_(\d+)\b", r"\1.\2"), (r"\bconv_(\d+)\b", r"convs.\1"),
+        (r"\bConv_0\b", "conv"), (r"\bTorchBatchNorm_0\.BatchNorm_0\b", "norm")]
+_GRU = ("r", "z", "n")
+
+
+def convert_layer_zoo(variables: dict) -> dict:
+    """flax UNet1D / SeqEncoder1D / SeqDecoder1D / SeqTranslatorRNN
+    variables -> the port's state dict.  flax's GRUCell (input Denses ir,
+    iz, in with biases; hidden Denses hr, hz without, hn with) -> nn.GRU's
+    stacked (r, z, n) weight_ih / weight_hh / bias_ih, and bias_hh with its
+    r and z thirds zero."""
+    sd = _convert(variables, _ZOO, skip=("GRUCell_0",))
+    gru = _flat(variables.get("params", {}))
+    if any(k.startswith("GRUCell_0.") for k in gru):
+        g = {k.removeprefix("GRUCell_0."): v for k, v in gru.items()
+             if k.startswith("GRUCell_0.")}
+        hn_b = g["hn.bias"]
+        arrays = {"weight_ih_l0": np.concatenate([g[f"i{c}.kernel"].T for c in _GRU]),
+                  "weight_hh_l0": np.concatenate([g[f"h{c}.kernel"].T for c in _GRU]),
+                  "bias_ih_l0": np.concatenate([g[f"i{c}.bias"] for c in _GRU]),
+                  "bias_hh_l0": np.concatenate([np.zeros(2 * hn_b.shape[0]), hn_b])}
+        sd.update({f"gru.{k}": torch.tensor(np.asarray(v, np.float32))
+                   for k, v in arrays.items()})
+    return sd
+
+
+#: the legacy S2G family (models/s2g_legacy.py): SeqTranslator1D stacks,
+#: BatchNorm CNR1d internals, the discriminator's outer convs
+_S2G = [(r"\bconv_(\d+)\b", r"conv_layers.\1"), (r"\bConv_0\b", "conv"),
+        (r"\bConv_1\b", "out"), (r"\bTorchBatchNorm_0\.BatchNorm_0\b", "norm")]
+
+
+def convert_s2g(variables: dict) -> dict:
+    """flax FreeformS2G or S2GDiscriminator variables (params and
+    batch_stats) -> the port's state dict of that module."""
+    return _convert(variables, _S2G)
 
 
 def convert_ls3dcg(variables: dict) -> dict:

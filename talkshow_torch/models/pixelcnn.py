@@ -17,6 +17,14 @@ Masking is structural, as in the JAX package: mask-A layers (layer 0) have
 causal shift comes from explicit asymmetric padding.  1x1 convolutions are
 `nn.Linear` on channels-last tensors.
 
+`dtype` (None = f32; bf16 for `--bf16` training) is flax's compute dtype
+of the teacher-forced forward (talkshow_tpu/models/pixelcnn.py:55-77,
+149-183): the embeddings, the audio embedding, the fusions, every layer's
+convs and 1x1s, the class embeddings and the head compute in it, with f32
+parameters; the audio dropout's f32 scale promotes its product to f32 as
+flax's does, and the caller takes the cross-entropy in f32.  The sampler
+and K1 read the f32 parameters as always.
+
 `bh_model=False` is the vertical-only prior (JAX :57-111,209-213): no
 horizontal stack, a one-column vertical kernel, and the head reads the
 vertical stream.  It trains (the teacher-forced forward), but it cannot be
@@ -33,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from talkshow_torch.kernels import counts
+from talkshow_torch.models.layers import conv, dense
 
 
 def gate(x: torch.Tensor) -> torch.Tensor:
@@ -63,31 +72,31 @@ class GatedMaskedLayer(nn.Module):
             self.horiz_stack = nn.Conv2d(dim, 2 * dim, (1, self.hcols))
         self.horiz_resid = nn.Linear(dim, dim)
 
-    def vert_conv(self, x: torch.Tensor, pad_top: int) -> torch.Tensor:
+    def vert_conv(self, x: torch.Tensor, pad_top: int, dtype=None) -> torch.Tensor:
         """(B, R, W, dim) -> (B, R + pad_top - vrows + 1, W, 2dim) pre-gate."""
         wpad = 1 if self.bh_model else 0
         xp = F.pad(x.permute(0, 3, 1, 2), (wpad, wpad, pad_top, 0))
-        return self.vert_stack(xp).permute(0, 2, 3, 1)
+        return conv(self.vert_stack, xp, dtype).permute(0, 2, 3, 1)
 
-    def horiz_conv(self, x: torch.Tensor) -> torch.Tensor:
+    def horiz_conv(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
         """(B, R, W, dim) -> (B, R, W, 2dim): column c sees x[c-1] (and
         x[c] for mask B)."""
         xp = F.pad(x.permute(0, 3, 1, 2), (1, 0))
-        return self.horiz_stack(xp).permute(0, 2, 3, 1)[:, :, : x.shape[2]]
+        return conv(self.horiz_stack, xp, dtype).permute(0, 2, 3, 1)[:, :, : x.shape[2]]
 
-    def horiz(self, h_vert, x_h, cls):
+    def horiz(self, h_vert, x_h, cls, dtype=None):
         """Horizontal half given pre-gate vertical features (any leading
         shape with W on axis -2); returns out_h."""
-        out = gate(self.vert_to_horiz(h_vert) + self.horiz_conv(x_h) + cls)
-        out_h = self.horiz_resid(out)
+        out = gate(dense(self.vert_to_horiz, h_vert, dtype) + self.horiz_conv(x_h, dtype) + cls)
+        out_h = dense(self.horiz_resid, out, dtype)
         return out_h + x_h if self.residual else out_h
 
-    def forward(self, x_v, x_h, label):
-        cls = self.class_cond_embedding(label)[:, None, None, :]
-        h_vert = self.vert_conv(x_v, self.kernel // 2)[:, : x_v.shape[1]]
+    def forward(self, x_v, x_h, label, dtype=None):
+        cls = self.class_cond_embedding.weight.to(dtype or torch.float32)[label][:, None, None, :]
+        h_vert = self.vert_conv(x_v, self.kernel // 2, dtype)[:, : x_v.shape[1]]
         if self.bh_model:
-            return gate(h_vert + cls), self.horiz(h_vert, x_h, cls)
-        out = self.horiz_resid(gate(h_vert + cls))
+            return gate(h_vert + cls), self.horiz(h_vert, x_h, cls, dtype)
+        out = dense(self.horiz_resid, gate(h_vert + cls), dtype)
         if self.residual:
             out = out + x_v
         return out, out
@@ -111,10 +120,10 @@ class GatedPixelCNN(nn.Module):
     def __init__(self, input_dim: int = 2048, dim: int = 256,
                  n_layers: int = 15, n_classes: int = 4,
                  audio_channels: int = 256, hidden: int = 512,
-                 bh_model: bool = True):
+                 bh_model: bool = True, dtype: torch.dtype | None = None):
         super().__init__()
         self.input_dim, self.dim, self.n_layers = input_dim, dim, n_layers
-        self.bh_model = bh_model
+        self.bh_model, self.dtype = bh_model, dtype
         self.embedding = nn.Embedding(input_dim, dim)
         self.embedding_aud = nn.Linear(audio_channels, dim)
         self.fusion_v = nn.Linear(2 * dim, dim)
@@ -126,8 +135,8 @@ class GatedPixelCNN(nn.Module):
         self.out_hidden = nn.Linear(dim, hidden)
         self.out_logits = nn.Linear(hidden, input_dim)
 
-    def head(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out_logits(F.relu(self.out_hidden(x)))
+    def head(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        return dense(self.out_logits, F.relu(dense(self.out_hidden, x, dtype)), dtype)
 
     def forward(self, tokens, label, audio, aud_keep=None):
         """Teacher-forced forward. audio: (B, H, audio_channels).
@@ -136,19 +145,21 @@ class GatedPixelCNN(nn.Module):
         of row h of example b is kept, scaled by 1 / (1 - AUD_DROPOUT), or
         zeroed, the same value over both columns and every channel, as
         JAX multiplies it by `aud_dropout(ones)`."""
-        x = self.embedding(tokens)                      # (B, H, W, dim)
+        dt = self.dtype
+        x = self.embedding.weight.to(dt or torch.float32)[tokens]      # (B, H, W, dim)
         x_v, x_h = x, x
-        aud_e = self.embedding_aud(audio)
+        aud_e = dense(self.embedding_aud, audio, dt)
         if aud_keep is not None:
-            aud_e = aud_e * (aud_keep.to(aud_e.dtype) / (1.0 - AUD_DROPOUT))[..., None]
-        aud_e = aud_e[:, :, None, :].expand_as(x)
+            aud_e = aud_e * (aud_keep.float() / (1.0 - AUD_DROPOUT))[..., None]
+        aud_e = aud_e[:, :, None, :].expand(x.shape[:3] + aud_e.shape[-1:])
         for i, layer in enumerate(self.layers):
             if i == 1:
-                x_v = self.fusion_v(torch.cat([x_v, aud_e], dim=-1))
+                x_v = dense(self.fusion_v, torch.cat([x_v.to(aud_e.dtype), aud_e], dim=-1), dt)
                 if self.bh_model:
-                    x_h = self.fusion_h(torch.cat([x_h, aud_e], dim=-1))
-            x_v, x_h = layer(x_v, x_h, label)
-        return self.head(x_h if self.bh_model else x_v)
+                    x_h = dense(self.fusion_h, torch.cat([x_h.to(aud_e.dtype), aud_e], dim=-1),
+                                dt)
+            x_v, x_h = layer(x_v, x_h, label, dt)
+        return self.head(x_h if self.bh_model else x_v, dt)
 
     # -- incremental decode building blocks --------------------------------
     def row_step(self, emb_hist, v_prev, cls, aud_e):

@@ -146,3 +146,59 @@ class AudioEncoder(nn.Module):
                       self._down_2, self._enc_3):
             h = block.forward_nct(h)
         return h.transpose(1, 2)
+
+
+class Wav2VecVQEncoder(nn.Module):
+    """Wav2vec-fronted VQ encoder variant (vqvae_1d.py:37-63; JAX
+    models/vqvae.py:152-179): wav2vec 2.0 features (B, frame_num, hidden)
+    -> project -> res / down stacks -> (B, frame_num / 4, num_hiddens).
+    Kept for surface parity; the released models use the MFCC encoder.
+
+    Train mode runs the plain encoder (the extractor's backward included,
+    as JAX's) and batch-statistics BatchNorm.  Eval mode on a CUDA
+    waveform runs the unmasked face route: K3 (`wav2vec_fused.
+    extractor_fused`) -> `mid_stack` -> K2 (`encoder_layers_fused`) on
+    `tables` (`pack_tables`; packed per call when not given), one launch of
+    each; on a CPU waveform the plain encoder."""
+
+    def __init__(self, num_hiddens: int = 1024, num_residual_layers: int = 2,
+                 wav2vec_cfg=None):
+        super().__init__()
+        from talkshow_torch.models.wav2vec import Wav2Vec2Config, Wav2Vec2Encoder
+        cfg = wav2vec_cfg or Wav2Vec2Config()
+        nh, r = num_hiddens, num_residual_layers
+        self.audio_encoder = Wav2Vec2Encoder(cfg)
+        self.project = ConvNormRelu(cfg.hidden_size, nh, leaky=True)
+        self._enc_1 = ResCNRStack(nh, r, leaky=True)
+        self._down_1 = ConvNormRelu(nh, nh, leaky=True, residual=True, sample="down")
+        self._enc_2 = ResCNRStack(nh, r, leaky=True)
+        self._down_2 = ConvNormRelu(nh, nh, leaky=True, residual=True, sample="down")
+        self._enc_3 = ResCNRStack(nh, r, leaky=True)
+
+    def pack_tables(self, dtype: torch.dtype = torch.bfloat16) -> dict:
+        """K2's and K3's tables of the wav2vec encoder: {'enc', 'ext'}."""
+        from talkshow_torch.models.wav2vec_fused import pack_face_tables
+        return pack_face_tables(self, dtype)
+
+    def forward(self, waveform: torch.Tensor, frame_num: int, *,
+                tables: dict | None = None) -> torch.Tensor:
+        enc = self.audio_encoder
+        if not self.training and waveform.device.type == "cuda":
+            from talkshow_torch.models.wav2vec_fused import encoder_layers_fused, extractor_fused
+            with torch.no_grad():
+                tables = tables or self.pack_tables()
+                feats = extractor_fused(enc, waveform, tables=tables["ext"])
+                h = encoder_layers_fused(enc, enc.mid_stack(feats, frame_num),
+                                         tables=tables["enc"])
+        else:
+            h = enc(waveform, frame_num)
+        return self.head(h)
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """wav2vec features (B, T, hidden) -> project and the res / down
+        stacks -> (B, T / 4, num_hiddens)."""
+        h = h.transpose(1, 2)
+        for block in (self.project, self._enc_1, self._down_1, self._enc_2,
+                      self._down_2, self._enc_3):
+            h = block.forward_nct(h)
+        return h.transpose(1, 2)

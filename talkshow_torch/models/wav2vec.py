@@ -8,6 +8,18 @@ LayerNorm -> post-norm transformer layers.  Parameter names follow
 Hugging Face's Wav2Vec2Model, which talkshow_tpu/convert/wav2vec.py reads.
 The attention is plain matmul + f32 softmax, as flax computes it.
 
+`Wav2Vec2Config.dtype` (None = f32; bf16 for `--bf16` training) is flax's
+compute dtype at the sites where the JAX module passes it
+(talkshow_tpu/models/wav2vec.py:47,65-81,110,130,143,160,165,168): the
+extractor convs (GroupNorm statistics in f32, its output cast back), the
+feature projection, the positional conv, attention (q, k, v and the
+output projection; softmax in f32, `force_fp32_for_softmax`, whose f32
+weights promote the context to f32) and the FFN Dense layers.  Parameters
+stay f32.  The LayerNorms have no dtype in JAX, so flax promotes a bf16
+input with its f32 scale to an f32 output: here they take the input as f32.
+The unmasked 50 -> 30 fps interpolation runs in the compute dtype (JAX's
+grid is weakly typed), the masked one in f32 (JAX's is f32).
+
 `valid_samples` / `valid_frames` (B,) select the length-masked path for
 batches padded to a length bucket: masked GroupNorm statistics, per-example
 interpolation, zeroed padded frames before the positional conv and masked
@@ -32,7 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from talkshow_torch.models.layers import (length_mask, linear_interpolate,
+from talkshow_torch.models.layers import (conv, dense, length_mask, linear_interpolate,
                                           masked_linear_interpolate)
 
 
@@ -48,6 +60,8 @@ class Wav2Vec2Config:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    #: compute dtype of the conv / matmul sites (None = float32)
+    dtype: torch.dtype | None = None
 
 
 class ChannelGroupNorm(nn.Module):
@@ -63,6 +77,9 @@ class ChannelGroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, mask=None):
+        """Statistics in f32 (the input's dtype comes back)."""
+        dtype_in = x.dtype
+        x = x.float()
         if mask is None:
             mean = x.mean(-1, keepdim=True)
             var = ((x - mean) ** 2).mean(-1, keepdim=True)
@@ -71,7 +88,7 @@ class ChannelGroupNorm(nn.Module):
             mean = (x * mask).sum(-1, keepdim=True) / n
             var = (((x - mean) ** 2) * mask).sum(-1, keepdim=True) / n
         h = (x - mean) * torch.rsqrt(var + self.eps)
-        return h * self.weight[:, None] + self.bias[:, None]
+        return (h * self.weight[:, None] + self.bias[:, None]).to(dtype_in)
 
 
 class _ConvLayer(nn.Module):
@@ -106,7 +123,7 @@ def spec_augment(x: torch.Tensor, starts: torch.Tensor, embed: torch.Tensor) -> 
     pos = torch.arange(x.shape[1], device=x.device)[None, None, :]
     s = starts.to(x.device)[..., None]
     mask = ((pos >= s) & (pos < s + MASK_TIME_LENGTH)).any(dim=1)       # (B, T)
-    return torch.where(mask[..., None], embed.to(x.dtype), x)
+    return torch.where(mask[..., None], embed, x)     # f32 embed: promotes, as jnp.where
 
 
 def conv_valid_length(num_samples, cfg: Wav2Vec2Config):
@@ -126,6 +143,7 @@ class FeatureExtractor(nn.Module):
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.dtype = cfg.dtype
         dims = (1,) + tuple(cfg.conv_dim)
         self.conv_layers = nn.ModuleList(
             _ConvLayer(dims[i], dims[i + 1], k, s,
@@ -136,7 +154,7 @@ class FeatureExtractor(nn.Module):
         h = x[:, None, :]
         n_valid = valid_samples
         for layer in self.conv_layers:
-            h = layer.conv(h)
+            h = conv(layer.conv, h, self.dtype)
             k, s = layer.conv.kernel_size[0], layer.conv.stride[0]
             if n_valid is not None:
                 n_valid = (n_valid - k) // s + 1
@@ -151,32 +169,34 @@ class FeatureExtractor(nn.Module):
 class FeatureProjection(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.dtype = cfg.dtype
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
     def forward(self, x):
-        return self.projection(self.layer_norm(x))
+        return dense(self.projection, self.layer_norm(x.float()), self.dtype)
 
 
 class PositionalConvEmbedding(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         k = cfg.num_conv_pos_embeddings
+        self.dtype = cfg.dtype
         self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
                               groups=cfg.num_conv_pos_embedding_groups)
         self.crop = k % 2 == 0
 
     def forward(self, x):
-        h = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        h = conv(self.conv, x.transpose(1, 2), self.dtype).transpose(1, 2)
         if self.crop:
             h = h[:, :-1]          # SamePad crop for even kernels
         return F.gelu(h)
 
 
 class Attention(nn.Module):
-    def __init__(self, hidden: int, heads: int):
+    def __init__(self, hidden: int, heads: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.heads = heads
+        self.heads, self.dtype = heads, dtype
         self.q_proj = nn.Linear(hidden, hidden)
         self.k_proj = nn.Linear(hidden, hidden)
         self.v_proj = nn.Linear(hidden, hidden)
@@ -190,23 +210,29 @@ class Attention(nn.Module):
         def split(t):
             return t.reshape(B, T, self.heads, hd).transpose(1, 2)   # (B, h, T, hd)
 
-        q = split(self.q_proj(x)) / math.sqrt(hd)
-        k, v = split(self.k_proj(x)), split(self.v_proj(x))
+        dt = self.dtype
+        q = split(dense(self.q_proj, x, dt))
+        # flax divides by sqrt(depth) in the compute dtype
+        q = q / (math.sqrt(hd) if dt is None else torch.tensor(math.sqrt(hd), dtype=dt))
+        k, v = split(dense(self.k_proj, x, dt)), split(dense(self.v_proj, x, dt))
         s = (q @ k.transpose(-1, -2)).float()
         if key_valid is not None:
             s = s.masked_fill(~key_valid[:, None, None, :], torch.finfo(s.dtype).min)
-        w = torch.softmax(s, dim=-1).to(v.dtype)
-        return self.out_proj((w @ v).transpose(1, 2).reshape(B, T, C))
+        w = torch.softmax(s, dim=-1)
+        ctx = (w @ v.to(w.dtype)).transpose(1, 2).reshape(B, T, C)
+        return dense(self.out_proj, ctx, dt)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, hidden: int, inter: int):
+    def __init__(self, hidden: int, inter: int, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.intermediate_dense = nn.Linear(hidden, inter)
         self.output_dense = nn.Linear(inter, hidden)
 
     def forward(self, x):
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+        h = F.gelu(dense(self.intermediate_dense, x, self.dtype))
+        return dense(self.output_dense, h, self.dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -215,9 +241,9 @@ class EncoderLayer(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         eps = cfg.layer_norm_eps
-        self.attention = Attention(cfg.hidden_size, cfg.num_heads)
+        self.attention = Attention(cfg.hidden_size, cfg.num_heads, cfg.dtype)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=eps)
-        self.feed_forward = FeedForward(cfg.hidden_size, cfg.intermediate_size)
+        self.feed_forward = FeedForward(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=eps)
 
     def forward(self, x, key_valid=None):
@@ -255,12 +281,13 @@ class Wav2Vec2Encoder(nn.Module):
             torch.rand(self.cfg.hidden_size, generator=torch.Generator().manual_seed(0)))
 
     def _pos_and_norm(self, x):
-        return self.encoder.layer_norm(x + self.encoder.pos_conv_embed(x))
+        return self.encoder.layer_norm((x + self.encoder.pos_conv_embed(x)).float())
 
     def mid_stack(self, feats: torch.Tensor, frame_num: int) -> torch.Tensor:
         """Extractor features (B, T50, C) -> pre-layer hidden states
         (interpolation, projection, positional conv, LayerNorm); unmasked."""
-        return self._pos_and_norm(self.feature_projection(linear_interpolate(feats, frame_num)))
+        feats = linear_interpolate(feats.to(self.cfg.dtype or torch.float32), frame_num)
+        return self._pos_and_norm(self.feature_projection(feats))
 
     def pre_layers(self, waveform: torch.Tensor | None, frame_num: int,
                    valid_samples=None, valid_frames=None, *,
@@ -278,9 +305,12 @@ class Wav2Vec2Encoder(nn.Module):
             valid_samples, valid_frames = valid_samples.to(dev), valid_frames.to(dev)
             in_valid = conv_valid_length(valid_samples, self.cfg)
             feats = feats * length_mask(in_valid, feats.shape[1], feats.dtype)
-            feats = masked_linear_interpolate(feats, frame_num, in_valid, valid_frames)
+            # JAX's masked grid is f32 (talkshow_tpu/models/layers.py:217)
+            feats = masked_linear_interpolate(feats.float(), frame_num, in_valid, valid_frames)
         else:
-            feats = linear_interpolate(feats, frame_num)
+            # in the compute dtype: JAX's grid is weakly typed, so bf16
+            # features interpolate in bf16
+            feats = linear_interpolate(feats.to(self.cfg.dtype or torch.float32), frame_num)
         x = self.feature_projection(feats)
         if spec_starts is not None:
             x = spec_augment(x, spec_starts, self.masked_spec_embed)

@@ -299,3 +299,122 @@ def _peak_pick(env: np.ndarray, sr: int, hop: int) -> np.ndarray:
         last = i
         peaks.append(i)
     return np.asarray(peaks, dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# the reference front end's other feature types (JAX ops/audio.py:356-463)
+# ---------------------------------------------------------------------------
+
+def mel_spectrogram(x: torch.Tensor, sr: int, hop: int, n_fft: int = N_FFT,
+                    n_mels: int = N_MELS) -> torch.Tensor:
+    """Raw power mel spectrogram (..., num_frames, n_mels), no log: the
+    reference's type='mel' feature (utils.py:179-184)."""
+    fb = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels), device=x.device)
+    return power_spectrogram(x, n_fft, hop) @ fb
+
+
+def get_mel(audio_fn: str, sr: int = 22000, fps: int = 30,
+            device: torch.device | str = "cuda") -> np.ndarray:
+    """wav path -> (frames, 256) mel power at hop 734 (30 fps) or 1467."""
+    x, sr0 = load_wav(audio_fn)
+    x = torch.as_tensor(x, device=device)
+    if sr0 != sr:
+        x = resample(x, sr0, sr)
+    return mel_spectrogram(x, sr, 734 if fps == 30 else 1467).cpu().numpy()
+
+
+def audio_chunking(x: torch.Tensor, frame_rate: int = 30,
+                   chunk_size: int = 16000) -> torch.Tensor:
+    """(T,) -> (frames, chunk_size): one chunk of audio per video frame,
+    centred on the frame (utils.py:133-145; the MeshTalk front end)."""
+    samples_per_frame = chunk_size // frame_rate
+    padding = (chunk_size - samples_per_frame) // 2
+    xp = F.pad(x, (padding, padding))
+    anchors = torch.arange(chunk_size // 2, xp.shape[-1] - chunk_size // 2,
+                           samples_per_frame, device=x.device)
+    return xp[anchors[:, None] + torch.arange(-chunk_size // 2, chunk_size // 2,
+                                              device=x.device)[None]]
+
+
+def chunk_log_mel(chunks: torch.Tensor, sr: int, win: int, hop: int,
+                  n_mels: int, n_fft: int = 2048) -> torch.Tensor:
+    """(..., N) chunks -> (..., frames, n_mels) log mel power: frames of
+    n_fft at `hop` (centred, reflect), a `win`-sample Hann window centred in
+    n_fft, the HTK filterbank, log of max(mel, 1e-10)."""
+    w = np.zeros(n_fft, np.float32)
+    w[(n_fft - win) // 2:(n_fft - win) // 2 + win] = _hann_window(win)
+    spec = torch.fft.rfft(frame_signal(chunks, n_fft, hop)
+                          * torch.as_tensor(w, device=chunks.device), dim=-1)
+    power = spec.real ** 2 + spec.imag ** 2
+    mel = power @ torch.as_tensor(mel_filterbank(sr, n_fft, n_mels), device=chunks.device)
+    return torch.log(mel.clamp_min(1e-10))
+
+
+def get_mel_chunked(audio_fn: str, sr: int = 16000, fps: int = 30,
+                    device: torch.device | str = "cuda") -> np.ndarray:
+    """type='mel_mul' (utils.py:185-192): loudness-normalise, one second of
+    audio per frame, a log mel per chunk -> (frames, 101, 256)."""
+    x, sr0 = load_wav(audio_fn)
+    x = torch.as_tensor(x, device=device)
+    if sr0 != sr:
+        x = resample(x, sr0, sr)
+    x = 0.01 * x / x.abs().mean()
+    chunks = audio_chunking(x, frame_rate=fps, chunk_size=sr)
+    return chunk_log_mel(chunks, sr, sr // 20, sr // 100, N_MELS).cpu().numpy()
+
+
+def mfcc_psf(x: np.ndarray, sr: int = 16000, n_mfcc: int = 64,
+             winstep: float = 1.01 / 15, winlen: float = 0.025,
+             n_fft: int = 2048, preemph: float = 0.97) -> np.ndarray:
+    """python_speech_features-style MFCC (utils.py:86-107), host numpy:
+    preemphasis, 25 ms frames at `winstep`, rectangular window, HTK mels
+    with nfilt = numcep, log, orthonormal DCT-II with ceplifter 22, c0
+    replaced by the log frame energy (appendEnergy)."""
+    x = np.asarray(x, np.float64)
+    x = np.append(x[0], x[1:] - preemph * x[:-1])
+    frame_len = int(round(winlen * sr))
+    step = int(round(winstep * sr))
+    num_frames = 1 + max(0, int(np.ceil((len(x) - frame_len) / step)))
+    pad_len = (num_frames - 1) * step + frame_len
+    x = np.pad(x, (0, max(0, pad_len - len(x))))
+    idx = np.arange(frame_len)[None] + step * np.arange(num_frames)[:, None]
+    frames = x[idx]
+    energy = np.sum(frames ** 2, axis=1)
+    energy = np.where(energy == 0, np.finfo(np.float64).eps, energy)
+    spec = np.abs(np.fft.rfft(frames, n_fft, axis=1)) ** 2 / n_fft
+    feat = spec @ np.asarray(mel_filterbank(sr, n_fft, n_mfcc), np.float64)
+    feat = np.log(np.where(feat == 0, np.finfo(np.float64).eps, feat))
+    ceps = feat @ np.asarray(dct_matrix(n_mfcc, n_mfcc), np.float64)
+    lifter = 22
+    ceps = ceps * (1 + (lifter / 2.0) * np.sin(np.pi * np.arange(n_mfcc) / lifter))
+    ceps[:, 0] = np.log(energy)
+    return ceps.astype(np.float32)
+
+
+def get_mfcc_psf(audio_fn: str, sr: int = 16000, smlpx: bool = True,
+                 fps: int = 25) -> np.ndarray:
+    """wav path -> `mfcc_psf` at winstep 1.01/15 (smlpx) or 0.04; host."""
+    x, sr0 = load_wav(audio_fn)
+    if sr0 != sr:
+        x = resample(torch.as_tensor(x), sr0, sr).numpy()
+    return mfcc_psf(x, sr=sr, winstep=1.01 / 15 if smlpx else 0.04)
+
+
+def smooth_geom(geom: torch.Tensor, mask: torch.Tensor | None = None,
+                filter_size: int = 9, sigma: float = 2.0) -> torch.Tensor:
+    """Gaussian temporal smoothing of vertex geometry (T, V, 3), edge
+    padded, optionally blended through a per-vertex mask (V,)
+    (utils.py:272-298)."""
+    if filter_size % 2 != 1:
+        raise ValueError(f"filter_size must be odd, got {filter_size}")
+    r = filter_size // 2
+    k = np.exp(-0.5 * np.arange(-r, r + 1) ** 2 / sigma ** 2)
+    k = torch.as_tensor((k / k.sum()).astype(np.float32), device=geom.device)
+    gp = torch.cat([geom[:1].expand(r, -1, -1), geom, geom[-1:].expand(r, -1, -1)])
+    idx = torch.arange(geom.shape[0], device=geom.device)[:, None] \
+        + torch.arange(filter_size, device=geom.device)[None]
+    smoothed = torch.einsum("tkvc,k->tvc", gp[idx], k)
+    if mask is None:
+        return smoothed
+    m = mask[None, :, None]
+    return smoothed * m + geom * (1 - m)

@@ -25,6 +25,10 @@ comes from the config's Model.model_name:
   run) or Model.vq_path, cached per window unless `--no_token_cache`;
 - s2g_face: the face generator (wav2vec 2.0 base) on whole clips at batch
   1, or `--face_bucket` frames' length buckets of `--face_batch_size`;
+- `--bf16`: s2g_body_pixel's prior and s2g_face's wav2vec stack and
+  feature map compute in bf16 (f32 parameters, optimizer state, losses and
+  checkpoints; the face step's frozen extractor runs K3 on bf16 tables), as
+  scripts/train.py:47-50 says; the other stages ignore it;
 - s2g_body_ae: the body AE, the FGD feature net (`AE(in_dim=129,
   num_hiddens=vq_num_hiddens)`, as scripts/train.py:172-178), on the
   windows' poses at the generator learning rate;
@@ -67,6 +71,7 @@ from talkshow_torch.models.face import FaceGenerator
 from talkshow_torch.models.ls3dcg import LS3DCGDiscriminator, LS3DCGGenerator
 from talkshow_torch.models.pixelcnn import GatedPixelCNN
 from talkshow_torch.models.vqvae import AE, VQVAE, AudioEncoder
+from talkshow_torch.models.wav2vec import Wav2Vec2Config
 from talkshow_torch.ops.pose import (BODY_DIM, CONV_DIM, HAND_DIM, SPEAKER_ID,
                                     axis_angle_poses_to_6d)
 from talkshow_torch.ops.vq import VQState
@@ -133,6 +138,10 @@ def parse_args(argv=None):
                    help="s2g_face: round clip lengths up to multiples of this many frames "
                         "and batch clips of one bucket")
     p.add_argument("--face_batch_size", type=int, default=1)
+    p.add_argument("--bf16", action="store_true",
+                   help="mixed precision for s2g_body_pixel and s2g_face: bf16 compute at "
+                        "flax's sites (f32 parameters, optimizer state and losses); the other "
+                        "stages ignore it")
     return p.parse_args(argv)
 
 
@@ -154,6 +163,7 @@ def build_stage(cfg: Config, args) -> dict:
     keyword arguments of Trainer."""
     name = cfg.model.model_name
     lr = cfg.train.generator_learning_rate
+    dtype = torch.bfloat16 if args.bf16 else None
     rep6d = cfg.data.pose.convert_to_6d
     scale = 2 if rep6d else 1
     feat = "raw" if cfg.model.encoder_choice == "faceformer" else "mfcc"
@@ -177,7 +187,7 @@ def build_stage(cfg: Config, args) -> dict:
         width = PRIOR_6D if rep6d else dict(dim=cfg.model.pixelcnn_dim,
                                             n_layers=cfg.model.pixelcnn_layers)
         prior = GatedPixelCNN(input_dim=cfg.model.code_num, n_classes=cfg.model.num_speakers,
-                              bh_model=cfg.model.bh_model, **width)
+                              bh_model=cfg.model.bh_model, dtype=dtype, **width)
         init_state, step = make_body_pixel_step(prior, AudioEncoder(num_hiddens=256), vq_body,
                                                 vq_hand, states, lr,
                                                 cfg.train.max_gradient_norm, rep6d=rep6d)
@@ -188,7 +198,7 @@ def build_stage(cfg: Config, args) -> dict:
                     token_encoder=encoder)
     if name == "s2g_face":
         # the JAX CLI's face step runs at make_face_step's default lr, 1e-3
-        init_state, step = make_face_step(FaceGenerator(),
+        init_state, step = make_face_step(FaceGenerator(Wav2Vec2Config(dtype=dtype)),
                                           max_grad_norm=cfg.train.max_gradient_norm)
         ds = (synthetic_face_dataset(num_clips=4, frames=240, bucketed=bool(args.face_bucket))
               if args.synthetic else show_dataset(cfg, args, feat))

@@ -15,8 +15,8 @@ then Adam, with the non-finite skip.
 
 Stage 3 (`make_face_step`, steps.py:244-320): the face generator with its
 wav2vec conv extractor frozen: the extractor runs under no_grad (K3 with
-f32 tables on the card for whole clips; the plain masked extractor for
-bucketed batches), the rest trains with clip-by-global-norm then SGD with
+f32 tables on the card for whole clips, bf16 tables when the model
+computes in bf16; the plain masked extractor for bucketed batches), the rest trains with clip-by-global-norm then SGD with
 momentum; L1 on the first 6 channels + MSE on the last 100, over real
 frames only for bucketed batches.
 
@@ -29,6 +29,12 @@ step, the discriminator updated first against a detached generator
 forward in eval mode, then the generator against the refreshed
 discriminator in eval mode; each model has its own Adam with the
 non-finite skip; no kernel.
+
+Mixed precision (`--bf16`, JAX scripts/train.py:47-50,150,166): the prior
+built with `dtype=torch.bfloat16` and the face generator with
+`Wav2Vec2Config(dtype=torch.bfloat16)` compute in bf16 at flax's sites;
+parameters, optimizer state and checkpoints stay f32, and the losses are
+taken in f32.
 
 `rep6d=True` on stage 1, the token encoder and stage 2 is the 6-D pose
 variant (convert_to_6d): poses (T, 330), the conv channels picked by
@@ -379,8 +385,9 @@ def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body:
 class FaceState:
     """Stage-3 train state: the face generator (its conv extractor frozen:
     requires_grad off, no optimizer state), the optimizer of the rest and
-    the step.  `tables`: K3's f32 tables of the frozen extractor, packed on
-    first use after each weight load."""
+    the step.  `tables`: K3's tables of the frozen extractor, packed on
+    first use after each weight load: f32, or bf16 when the wav2vec
+    config computes in bf16 (`--bf16`), the tables inference uses."""
     face: FaceGenerator
     optimizer: SkipNonfiniteSGD
     step: int = 0
@@ -389,8 +396,9 @@ class FaceState:
     @property
     def tables(self) -> dict:
         if self._tables is None:
-            self._tables = pack_extractor_tables(self.face.audio_encoder.feature_extractor,
-                                                 torch.float32)
+            enc = self.face.audio_encoder
+            self._tables = pack_extractor_tables(enc.feature_extractor,
+                                                 enc.cfg.dtype or torch.float32)
         return self._tables
 
     def state_dict(self) -> dict:

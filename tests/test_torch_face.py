@@ -85,3 +85,45 @@ def test_masked_face_generator_and_encoder(wav):
     for b, n in enumerate(vf):
         np.testing.assert_allclose(enc[b, :n], ref_enc[b, :n], atol=1e-4)
         np.testing.assert_allclose(out[b, :n], np.asarray(ref)[b, :n], atol=1e-4)
+
+
+def test_meshtalk_encoder_matches_flax():
+    """MeshtalkEncoder (tests/test_misc_gaps.py's config): per-frame log mel,
+    dilated VALID convs with cropped averaged residuals, the code; within
+    1e-4; a frame's code reads only its own chunk."""
+    from talkshow_tpu.models.face import MeshtalkEncoder as JMesh
+    from talkshow_torch.convert import convert_meshtalk
+    from talkshow_torch.models.face import MeshtalkEncoder
+    chunks = (0.1 * np.random.default_rng(5).standard_normal((1, 2, 16000))).astype(np.float32)
+    jm = JMesh(latent_dim=32)
+    variables = _perturb(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(chunks)), 3)
+    ref = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(chunks)))
+    tm = MeshtalkEncoder(latent_dim=32).eval()
+    tm.load_state_dict(convert_meshtalk(variables))
+    with torch.no_grad():
+        out = tm(torch.as_tensor(chunks))
+        chunks2 = torch.as_tensor(chunks).clone()
+        chunks2[0, 1] = chunks2[0, 1] * 2.0 + 0.01
+        out2 = tm(chunks2)
+    assert out.shape == ref.shape == (1, 2, 32)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4)
+    np.testing.assert_allclose(out2[0, 0].numpy(), out[0, 0].numpy(), rtol=0, atol=0)
+    assert (out2[0, 1] - out[0, 1]).abs().max() > 1e-4
+
+
+def test_face_generator_meshtalk_matches_flax():
+    from talkshow_tpu.models.face import FaceGeneratorMeshtalk as JMeshFace
+    from talkshow_torch.convert import convert_meshtalk
+    from talkshow_torch.models.face import FaceGeneratorMeshtalk
+    chunks = (0.1 * np.random.default_rng(6).standard_normal((1, 2, 16000))).astype(np.float32)
+    onehot = np.eye(4, dtype=np.float32)[[1]]
+    jm = JMeshFace()
+    variables = _perturb(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(chunks),
+                                          jnp.asarray(onehot)), 4)
+    ref = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(chunks), jnp.asarray(onehot)))
+    tm = FaceGeneratorMeshtalk().eval()
+    tm.load_state_dict(convert_meshtalk(variables))
+    with torch.no_grad():
+        out = tm(torch.as_tensor(chunks), torch.as_tensor(onehot)).numpy()
+    assert out.shape == ref.shape == (1, 2, 103)
+    np.testing.assert_allclose(out, ref, atol=1e-4)

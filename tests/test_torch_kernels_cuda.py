@@ -514,6 +514,74 @@ def test_face_step_runs_k3_under_no_grad(cuda):
     assert max((pg[k].cpu() - v).abs().max().item() for k, v in pc.items()) <= 1e-5 * top
 
 
+TOY_W2V = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+               conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2),
+               num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wav2vec_vq_encoder_routes_k3_and_k2(cuda, dtype):
+    """Wav2VecVQEncoder's eval forward on the card (toy widths): one K3 and
+    one K2 launch, no plain extractor or layer stack; its output against the
+    plain forward of the same weights on the CPU within 1e-3 of max|out|
+    on f32 tables and 1e-2 on bf16 ones (K2's and K3's tolerances)."""
+    from talkshow_torch.models.vqvae import Wav2VecVQEncoder
+    enc = init_weights_(Wav2VecVQEncoder(num_hiddens=32, wav2vec_cfg=Wav2Vec2Config(**TOY_W2V)),
+                        torch.Generator().manual_seed(3)).eval()
+    wave = 0.1 * torch.randn((2, 16000), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        want = enc(wave, 28)
+        gpu = enc.to(cuda)
+        tables = gpu.pack_tables(dtype)
+        counts.clear()
+        got = gpu(wave.to(cuda), 28, tables=tables)
+        torch.cuda.synchronize()
+    assert counts["wav2vec_extractor"] == 1 and counts["wav2vec_layers"] == 1
+    assert not counts["extractor_plain"] and not counts["encoder_layers_plain"]
+    tol = 1e-3 if dtype == torch.float32 else 1e-2
+    assert got.shape == want.shape == (2, 7, 32)
+    assert (got.cpu() - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bf16_face_step_runs_k3_on_bf16_tables(cuda):
+    """The --bf16 face step on the card (toy widths): its frozen extractor
+    is one K3 launch on bf16 tables, within 1e-2 of max|out| of K3's plain
+    version on the same tables (phase 7's bf16 tolerance); the step is
+    finite and its losses within 2e-2 relative of the CPU's bf16 step
+    (cuBLAS and the CPU round their bf16 products differently)."""
+    from talkshow_torch.models.face import FaceGenerator
+    from talkshow_torch.models.wav2vec_fused import frozen_features
+    from talkshow_torch.train.steps import make_face_step
+    cfg = Wav2Vec2Config(**TOY_W2V, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(5)
+    ids = torch.zeros((1, 4))
+    ids[0, 1] = 1.0
+    batch = {"waveform": torch.randn((1, 16000), generator=gen), "id_onehot": ids,
+             "gt": 0.3 * torch.randn((1, 30, 265), generator=gen)}
+    out = {}
+    for dev in ("cpu", cuda):
+        init, step = make_face_step(FaceGenerator(cfg), stochastic=False)
+        state = init(torch.Generator().manual_seed(0), dev)
+        counts.clear()
+        state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        out[str(dev)] = (dict(counts), m, state)
+    seen, mg, sg = out["cuda"]
+    assert sg.tables["w0"].dtype == torch.bfloat16
+    assert seen.get("wav2vec_extractor") == 1 and not seen.get("extractor_plain")
+    _, mc, sc = out["cpu"]
+    for k in ("loss", "MSELoss", "exp_loss"):
+        assert np.isfinite(float(mg[k]))
+        assert abs(float(mg[k]) - float(mc[k])) <= 2e-2 * abs(float(mc[k])), k
+    enc = sg.face.audio_encoder
+    got = frozen_features(enc, batch["waveform"].to(cuda), tables=sg.tables).cpu()
+    want = k3.extractor_plain({k: v.cpu() if torch.is_tensor(v) else v
+                               for k, v in sg.tables.items()}, batch["waveform"])
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
 @pytest.mark.cuda
 def test_eval_body_decodes_on_k1_at_two_samples(cuda, monkeypatch):
     """eval/runners.eval_body at full width (prior 256 x 15 over 2048 codes,

@@ -202,17 +202,23 @@ def test_save_load_pipeline_round_trip(pipes, wav_file, tmp_path):
 def test_import_pulls_in_no_jax():
     """Every module of the port, and chip_smoke.py, imports without JAX,
     flax, transformers or the JAX package; the entry points (demo,
-    diversity, continuity, convert_checkpoints, legacy_eval) and the
-    renderer import no cv2 either (the writer imports it when it runs)."""
+    diversity, continuity, convert_checkpoints, legacy_eval, full_schedule,
+    eval_full_schedule) and the renderer import no cv2 either (the writer
+    imports it when it runs), and nothing imports matplotlib at the top
+    (the schedule's curve plot imports it when it runs)."""
     code = ("import sys, pkgutil, importlib, talkshow_torch, chip_smoke; "
             "[importlib.import_module(m.name) for m in "
             "pkgutil.walk_packages(talkshow_torch.__path__, 'talkshow_torch.')]; "
             "import talkshow_torch.pipeline, talkshow_torch.serving, talkshow_torch.streaming; "
             "import talkshow_torch.demo, talkshow_torch.diversity, talkshow_torch.continuity, "
             "talkshow_torch.convert_checkpoints, talkshow_torch.legacy_eval, "
-            "talkshow_torch.render, talkshow_torch.native, talkshow_torch.models.causal_vqvae; "
+            "talkshow_torch.render, talkshow_torch.native, talkshow_torch.models.causal_vqvae, "
+            "talkshow_torch.full_schedule, talkshow_torch.eval_full_schedule, "
+            "talkshow_torch.utils, talkshow_torch.models.s2g_legacy, "
+            "talkshow_torch.data.synthetic_show; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-            "'transformers', 'talkshow_tpu', 'cv2')]; print(bad); sys.exit(1 if bad else 0)")
+            "'transformers', 'talkshow_tpu', 'cv2', 'matplotlib')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -437,7 +437,7 @@ def test_face_cli(tmp_path, monkeypatch, bucket):
     extractor's unmasked route, or --face_bucket 32 --face_batch_size 2
     through the masked one; finite logs; the extractor unchanged."""
     monkeypatch.setattr(cli, "FaceGenerator",
-                        lambda: tface.FaceGenerator(tw2v.Wav2Vec2Config(**TINY)))
+                        lambda cfg=None: tface.FaceGenerator(tw2v.Wav2Vec2Config(**TINY)))
     cfg = _write_face_config(tmp_path / "face.json")
     argv = ["--config_file", cfg, "--synthetic", "--device", "cpu", "--run_dir",
             str(tmp_path / "run")]

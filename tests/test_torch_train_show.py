@@ -116,7 +116,7 @@ def test_train_cli_on_the_show_layout(show_root, tmp_path, monkeypatch):
     --synthetic exits."""
     monkeypatch.setattr(cli, "VQVAE", lambda width, emb, nh: tv.VQVAE(width, emb, 16))
     monkeypatch.setattr(cli, "FaceGenerator",
-                        lambda: tface.FaceGenerator(tw2v.Wav2Vec2Config(**TINY)))
+                        lambda cfg=None: tface.FaceGenerator(tw2v.Wav2Vec2Config(**TINY)))
     speakers = ["--speakers", "oliver", "seth"]
     vq_cfg = _config(tmp_path / "vq.json", "s2g_body_vq")
     base = ["--epochs", "1", "--device", "cpu", "--data_root", show_root] + speakers
@@ -135,7 +135,7 @@ def test_train_cli_on_the_show_layout(show_root, tmp_path, monkeypatch):
     assert [c.audio_path for c in again.dataset.clips] == [c.audio_path for c in clips]
     monkeypatch.undo()
     monkeypatch.setattr(cli, "FaceGenerator",
-                        lambda: tface.FaceGenerator(tw2v.Wav2Vec2Config(**TINY)))
+                        lambda cfg=None: tface.FaceGenerator(tw2v.Wav2Vec2Config(**TINY)))
     face_cfg = _config(tmp_path / "face.json", "s2g_face", "_raw.pkl",
                        encoder_choice="faceformer")
     face = cli.main(["--config_file", face_cfg, "--run_dir", str(tmp_path / "face")] + base)

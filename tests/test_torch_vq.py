@@ -113,3 +113,44 @@ def test_nearest_code_kernel_raises_on_cpu_tensors():
     x, emb = torch.zeros((4, 8)), torch.zeros((16, 8))
     with pytest.raises(ValueError):
         nearest_code_kernel(x, emb)
+
+
+W2V_TINY = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+                conv_dim=(16,) * 7, num_conv_pos_embeddings=16,
+                num_conv_pos_embedding_groups=4)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_wav2vec_vq_encoder_matches_jax(train):
+    """Wav2VecVQEncoder (tests/test_misc_gaps.py's tiny config, 1 s at 28
+    frames -> 7 rows) against flax within 1e-4: eval mode on the CPU is the
+    plain encoder with running statistics; train mode the batch statistics,
+    the running ones updated."""
+    from talkshow_tpu.models.vqvae import Wav2VecVQEncoder as JEnc
+    from talkshow_tpu.models.wav2vec import Wav2Vec2Config as JCfg
+    from talkshow_torch.convert import convert_wav2vec_vq_encoder
+    from talkshow_torch.models.vqvae import Wav2VecVQEncoder
+    from talkshow_torch.models.wav2vec import Wav2Vec2Config
+    wav = np.random.default_rng(0).standard_normal((2, 16000)).astype(np.float32)
+    jm = JEnc(num_hiddens=32, wav2vec_cfg=JCfg(**W2V_TINY))
+    v = jax.jit(lambda w: jm.init(jax.random.PRNGKey(0), w, 28))(jnp.asarray(wav))
+    rng = np.random.default_rng(1)
+    v = jax.tree_util.tree_map_with_path(
+        lambda p, a: (rng.uniform(0.5, 1.5, a.shape) if jax.tree_util.keystr(p).endswith("['var']")
+                      else np.asarray(a) + 0.05 * rng.standard_normal(a.shape)).astype(np.float32), v)
+    tm = Wav2VecVQEncoder(num_hiddens=32, wav2vec_cfg=Wav2Vec2Config(**W2V_TINY))
+    tm.load_state_dict(convert_wav2vec_vq_encoder(jax.tree.map(np.asarray, v)))
+    tm.train(train)
+    if train:
+        ref, upd = jax.jit(lambda vv, w: jm.apply(vv, w, 28, True, mutable=["batch_stats"]))(
+            v, jnp.asarray(wav))
+    else:
+        ref = jax.jit(lambda vv, w: jm.apply(vv, w, 28))(v, jnp.asarray(wav))
+    out = tm(torch.as_tensor(wav), 28)
+    assert out.shape == ref.shape == (2, 7, 32)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-4)
+    if train:
+        sd = tm.state_dict()
+        for k, want in convert_wav2vec_vq_encoder(
+                {"batch_stats": jax.tree.map(np.asarray, upd["batch_stats"])}).items():
+            np.testing.assert_allclose(sd[k].numpy(), want.numpy(), atol=1e-4)
