@@ -273,12 +273,43 @@ Phases (one line each; any failure raises and the script exits non-zero):
  33 legacy   FaceGeneratorMeshtalk and FreeformS2G / S2GDiscriminator
              (tests/test_extras.py:148's widths) on the 10 s clip: CUDA within
              1e-4 of the CPU; ms on the card
+ 34 dp x tp  the body-VQ step at full width (1024 hidden, 2048 x 64, B = 128,
+             T = 88) on (dp 2, tp 1) and (dp 1, tp 2): two ranks on this card
+             in a gloo group over CUDA tensors (tests/torch_dist_check.py,
+             each rank killed on failure or at its timeout), 5 steps a layout
+             from one state; each step held against the one-process step from
+             the same state on the same global batch: losses, running
+             statistics, codebooks, gradients, and the parameters' changes
+             (the share of elements off by more than 1e-2 lr, the L2 error)
+             within twice that step's own spread under the batch's rows
+             reversed, or the floors; a step that quantized a row to
+             another code (a near-tie decided by rounding; at most 1e-2 of
+             the rows) within 1e-3 in its losses and 0.2 in the L2 error of
+             its parameters' changes; losses and states bit-equal on both ranks; one (1 x 2)
+             step with a planted fault (the last tp rank never updates its
+             slices) must fail that check; K4 once a quantizer a step on
+             each rank; step p50 per layout; a one-rank NCCL all_reduce; dp 2
+             on NCCL, a card per rank, where there are two cards; the train
+             CLI under `torchrun --nproc_per_node 2` with parallel dp 2 (1
+             epoch)
+ 35 sharded  Pipeline.generate_body_sharded at full width: a 10 s clip, S = 8
+             on a dp = 4 mesh of this card: one K1 launch a shard (B = 2), no
+             plain sampler call, each shard's tokens equal generate_conv(S = 2)
+             under its noise; ms against the unsharded S = 8 call, in turns
+ 36 mesh srv MotionServer(mesh=dp 2 of this card, bucket_frames 32, max_batch 8)
+             on phase 14's 8 clips: K1 and K2 once a shard a group, the plain
+             masked extractor once a shard, no plain sampler or face stage;
+             a flush reproduced bit for bit per seed; face columns within 2e-4
+             of the unsharded server's (f32 tables); flush p50 against the
+             unsharded server, in turns
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
 continuity, the serve flush, the stream and the eval path (eval_body and
 the eval CLI for K1, eval_face for K2 and K3), summed, K3 in phase 17 and
-phase 25, K1 at dim 512 in phase 24, the entry points of phase 26, and
-phases 30-32; K4: phases 11, 16, eval_vq_capacity, 24, 25, 28, 29, 30 and
-31), the nvidia-smi line, the total wall time and the result line.
+phase 25, K1 at dim 512 in phase 24, the entry points of phase 26,
+phases 30-32 and 35-36; K4: phases 11, 16, eval_vq_capacity, 24, 25, 28,
+29, 30, 31 and the ranks of phase 34), the nvidia-smi line, the total wall
+time and the result line.  Several ranks on one card measure correctness,
+not scaling.
 
 """
 from __future__ import annotations
@@ -3288,6 +3319,258 @@ def new_phases(dev, tmp: str, vq_ckpt: str, wav10: str, card: str) -> dict:
     return launches
 
 
+def dist_check():
+    """tests/torch_dist_check.py: the rank processes of phase 34 and their
+    launcher."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_dist_check
+    return torch_dist_check
+
+
+def run_group(world: int, args: list, timeout: float) -> list:
+    """`world` ranks of tests/torch_dist_check.py (each killed on failure
+    or at `timeout`); returns each rank's saved result."""
+    sc = dist_check()
+    out = args[args.index("--out") + 1]
+    port = sc.free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    sc.launch(lambda r: sc.rank_argv(r, world, port, args), world, timeout, env)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+#: the errors of a body-VQ step that phase 34 prints (torch_dist_check._errors)
+STEP_ERRORS = ("losses", "bn", "vq", "grads", "grads_l2", "update_off", "update_l2", "moves")
+
+
+def check_layout(tag: str, ranks: list, layout: str, steps: int) -> str:
+    """Hold one layout's steps to tests/test_torch_parallel_dist.py's
+    bounds (`torch_dist_check.step_failures`), and every rank's state to
+    rank 0's, bit for bit; returns the phase line's part for it."""
+    sc = dist_check()
+    r0 = ranks[0][layout]
+    if not all(r[layout]["losses"] == r0["losses"] for r in ranks):
+        raise AssertionError(f"{tag} {layout}: losses differ across ranks")
+    if not all(r[layout]["fingerprints"] == r0["fingerprints"] for r in ranks):
+        raise AssertionError(f"{tag} {layout}: the ranks' states differ")
+    k4 = [r[layout]["k4"] for r in ranks]
+    plain = [r[layout]["k4_plain"] for r in ranks]
+    if k4 != [2 * steps] * len(ranks) or any(plain):
+        raise AssertionError(f"{tag} {layout}: K4 launches {k4}, plain searches {plain}")
+    bad = sc.step_failures(r0)
+    if bad:
+        raise AssertionError(f"{tag} {layout}: " + "; ".join(bad))
+    worst = {}
+    for errors in r0["errors"]:
+        for k in STEP_ERRORS:
+            worst[k] = max(worst.get(k, 0.0), errors["mesh"][k])
+            worst["spread " + k] = max(worst.get("spread " + k, 0.0), errors["f32"][k])
+    ms = float(np.median(r0["ms"][1:]))
+    return (f"{layout}: " + ", ".join(f"{k} {v:.1e}" for k, v in worst.items())
+            + f"; states bit-equal on every rank; K4 launches per rank {k4}; step p50 "
+            f"{ms:.1f} ms over {steps - 1} steps")
+
+
+#: phase 34's body-VQ steps per layout (the first is left out of the p50)
+DIST_STEPS = 5
+
+
+def phase34(dev, tmp: str, card: str) -> dict:
+    """The body-VQ step at full width on (dp 2, tp 1) and (dp 1, tp 2): two
+    ranks on this card in a gloo group, and a planted fault that the check
+    must catch; a one-rank NCCL all_reduce; dp 2 on NCCL where there are
+    two cards; the train CLI under torchrun.  Returns the K4 launches of
+    the ranks' main-path steps."""
+    sc = dist_check()
+    steps, layouts = DIST_STEPS, ("2x1", "1x2")
+    out = os.path.join(tmp, "dist")
+    t0 = time.perf_counter()
+    ranks = run_group(2, ["--layouts", *layouts, "--steps", str(steps), "--width", "full",
+                          "--fault", "1x2", "--device", dev.type, "--out", out,
+                          "--timeout", "600"], 600.0)
+    log(f"phase 34 dp x tp: body-VQ step at full width (1024 hidden, 2048 x 64 codebooks, "
+        f"B = 128, T = 88), 2 ranks on one card (gloo over CUDA tensors), {steps} steps a "
+        f"layout from one state, each held against the one-process step from the same state "
+        f"on the same global batch, beside that step's spread under the rows reversed "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    for layout in layouts:
+        log(f"phase 34 {check_layout('phase 34', ranks, layout, steps)} [{card}]")
+    fault = ranks[0]["fault"]["errors"][0]
+    if not sc.step_failures(ranks[0]["fault"]):
+        raise AssertionError(f"phase 34: the planted fault passed the check: {fault}")
+    log("phase 34 planted fault (1x2, the last tp rank never updates its parameter slices), "
+        "failed as it must: " + ", ".join(f"{k} {fault['mesh'][k]:.1e} (spread "
+                                          f"{fault['f32'][k]:.1e})"
+                                          for k in ("update_off", "update_l2")))
+    k4 = sum(r[layout]["k4"] for r in ranks for layout in layouts)
+    probe = run_group(1, ["--nccl_probe", "--out", out, "--timeout", "120"], 120.0)
+    nccl = torch.load(os.path.join(out, "nccl.pt"))
+    if not nccl["nccl_all_reduce"]:
+        raise AssertionError(f"phase 34 nccl: {nccl}, {probe}")
+    log("phase 34 nccl: a one-rank NCCL group on the card, one all_reduce: equal")
+    if torch.cuda.device_count() >= 2:
+        ranks = run_group(2, ["--layouts", "2x1", "--steps", str(steps), "--width", "full",
+                              "--device", "cuda", "--backend", "nccl", "--out",
+                              os.path.join(tmp, "dist_nccl"), "--timeout", "600"], 600.0)
+        log(f"phase 34 nccl dp=2, a card per rank: "
+            f"{check_layout('phase 34 nccl', ranks, '2x1', steps)} [{card}]")
+        k4 += sum(r["2x1"]["k4"] for r in ranks)
+    else:
+        log(f"phase 34 nccl dp=2: {torch.cuda.device_count()} card, not run")
+    # the train CLI under torchrun, config.parallel dp 2, both ranks on this card
+    cfg = os.path.join(tmp, "dist_body_vq.json")
+    write_stage_config(cfg, "s2g_body_vq", 1)
+    with open(cfg) as f:
+        raw = json.load(f)
+    raw["parallel"] = {"dp": 2, "tp": 1}
+    with open(cfg, "w") as f:
+        json.dump(raw, f)
+    run_dir = os.path.join(tmp, "dist_run")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+                          "--master_port", str(sc.free_port()),
+                          "-m", "talkshow_torch.train", "--config_file", cfg, "--synthetic",
+                          "--epochs", "1", "--run_dir", run_dir, "--device", dev.type],
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, OMP_NUM_THREADS="2"))
+    if res.returncode != 0:
+        raise AssertionError(f"phase 34 torchrun: exit {res.returncode}\n{res.stderr[-4000:]}")
+    vals = logged_values(run_dir)
+    if not (os.path.exists(os.path.join(run_dir, "ckpt-0.pt")) and vals
+            and np.isfinite(vals).all()):
+        raise AssertionError(f"phase 34 torchrun: files {os.listdir(run_dir)}, values {vals}")
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("rank 0 of")]
+    log(f"phase 34 torchrun: `torchrun --nproc_per_node 2 -m talkshow_torch.train` s2g_body_vq "
+        f"with parallel dp 2 at full width, 1 epoch: {line[0] if line else res.stdout[-200:]}; "
+        f"ckpt-0.pt and finite logs from rank 0, "
+        f"{time.perf_counter() - t0:.1f} s of wall time")
+    return {"nearest_code": k4}
+
+
+def phase35(pipe, dev, wav10: str, card: str) -> dict:
+    """generate_body_sharded at full width: a 10 s clip, S = 8 on a dp = 4
+    mesh of this card; returns the launches of the sharded call."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.models.pixelcnn import gumbel_noise
+    from talkshow_torch.ops.audio import get_mfcc
+    from talkshow_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(dp=4, devices=[dev] * 4)
+    feat = get_mfcc(wav10, device=dev).cpu().numpy()
+    H = feat.shape[0] // 4
+    K = pipe.body.prior.input_dim
+    noise = [gumbel_noise((H, 2, 2, K), torch.Generator().manual_seed(50 + i), dev)
+             for i in range(4)]
+    pipe.generate_conv_sharded(feat, 0, 8, mesh, noise=noise)       # tables packed
+    counts.clear()
+    parts = pipe.generate_conv_sharded(feat, 0, 8, mesh, noise=noise)
+    torch.cuda.synchronize()
+    seen = dict(counts)
+    if seen.get("ar_decode") != 4 or seen.get("sample_tokens_plain"):
+        raise AssertionError(f"phase 35: counts {seen}")
+    for i, (conv, tok) in enumerate(parts):
+        _, want = pipe.generate_conv(feat, 0, 2, noise=noise[i])
+        if not (torch.equal(tok, want) and conv.shape == (2, 4 * H, 129)
+                and torch.isfinite(conv).all()):
+            raise AssertionError(f"phase 35 shard {i}: tokens equal {torch.equal(tok, want)}, "
+                                 f"conv {tuple(conv.shape)}")
+    body = pipe.generate_body_sharded(feat, 0, 8, mesh, seed=3)
+    if body.shape != (8, 4 * H, 129) or not np.isfinite(body).all():
+        raise AssertionError(f"phase 35: generate_body_sharded {body.shape}")
+    times = {"sharded (4 x B=2)": [], "unsharded (B=8)": []}
+    for r in range(12):
+        for name in (times if r % 2 else reversed(list(times))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name.startswith("sharded"):
+                pipe.generate_body_sharded(feat, 0, 8, mesh, seed=r)
+            else:
+                pipe.generate_body(feat, 0, 8, seed=r)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 35 generate_body_sharded: 10 s clip, S = 8 on a dp = 4 mesh of this card: "
+        f"ar_decode launches {seen['ar_decode']} (one a shard, B = 2 each), plain sampler calls "
+        f"0; each shard's tokens equal generate_conv(S = 2) under its noise; "
+        + ", ".join(f"{k} p50 {float(np.median(v[2:])):.2f} ms" for k, v in times.items())
+        + f" (host clock to the readback, in turns, 10 runs) [{card}]")
+    return seen
+
+
+def phase36(pipe, dev, wav10: str, card: str) -> dict:
+    """MotionServer on a dp = 2 mesh of this card (bucket_frames 32,
+    max_batch 8, phase 14's 8 clips); returns the launches of one flush."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.ops.audio import load_wav
+    from talkshow_torch.parallel.mesh import make_mesh
+    from talkshow_torch.serving import MotionServer
+    wav, _ = load_wav(wav10)
+    mesh = make_mesh(dp=2, devices=[dev] * 2)
+    clips = [wav[:int(16000 * sec)] for sec in SERVE_SECONDS]
+    buckets = [-(-(len(c) * 30 // 16000) // 32) * 32 for c in clips]
+    groups = sum(-(-buckets.count(b) // 8) for b in set(buckets))
+    server = MotionServer(pipe, bucket_frames=32, max_batch=8, mesh=mesh)
+    plain = MotionServer(pipe, bucket_frames=32, max_batch=8)
+    server.warmup(10.0)
+    rids = [server.submit(c, speaker=i % 4) for i, c in enumerate(clips)]
+    counts.clear()
+    out = server.flush(seed=0)
+    torch.cuda.synchronize()
+    seen = dict(counts)
+    if not (len(out) == len(clips) and seen.get("ar_decode") == 2 * groups
+            and seen.get("wav2vec_layers") == 2 * groups
+            and seen.get("extractor_plain") == 2 * groups
+            and not seen.get("sample_tokens_plain") and not seen.get("face_plain")
+            and all(out[r].shape == (len(c) * 30 // 16000, 265) and np.isfinite(out[r]).all()
+                    for r, c in zip(rids, clips))):
+        raise AssertionError(f"phase 36: {groups} groups, counts {seen}")
+    again = [server.submit(c, speaker=i % 4) for i, c in enumerate(clips)]
+    out2 = server.flush(seed=0)
+    if not all(np.array_equal(out[a], out2[b]) for a, b in zip(rids, again)):
+        raise AssertionError("phase 36: a flush with the same seed is not reproduced")
+    # face columns against the unsharded server: f32 tables (bf16 reported)
+    errs = {}
+    for name, p in (("f32", pipe.with_face_dtype(torch.float32)), ("bf16", pipe)):
+        a, b = (MotionServer(p, bucket_frames=32, max_batch=8, mesh=m) for m in (mesh, None))
+        ra = [a.submit(c, speaker=0) for c in clips]
+        rb = [b.submit(c, speaker=0) for c in clips]
+        oa, ob = a.flush(seed=1), b.flush(seed=1)
+        errs[name] = max(max(np.abs(oa[x][:, :3] - ob[y][:, :3]).max(),
+                             np.abs(oa[x][:, -100:] - ob[y][:, -100:]).max())
+                         for x, y in zip(ra, rb))
+    if not errs["f32"] <= 2e-4:
+        raise AssertionError(f"phase 36: face columns sharded vs unsharded {errs}")
+    times = {"mesh dp=2": [], "unsharded": []}
+    for r in range(8):
+        for name, s in ((("mesh dp=2", server), ("unsharded", plain)) if r % 2 else
+                        (("unsharded", plain), ("mesh dp=2", server))):
+            for c in clips:
+                s.submit(c, speaker=0)
+            t0 = time.perf_counter()
+            s.flush()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 36 mesh server: dp = 2 on this card, bucket_frames 32, max_batch 8, "
+        f"{len(clips)} clips of {min(SERVE_SECONDS)}-{max(SERVE_SECONDS)} s in {groups} groups: "
+        f"per group 2 shards of 4 rows, ar_decode {seen['ar_decode'] // groups}, wav2vec_layers "
+        f"{seen['wav2vec_layers'] // groups}, plain masked extractor "
+        f"{seen['extractor_plain'] // groups}; the same seed reproduces the flush bit for bit; "
+        f"face columns vs the unsharded server max|d| {errs['f32']:.2e} (f32 tables, <= 2e-4), "
+        f"{errs['bf16']:.2e} (bf16 tables, reported); flush p50 "
+        + ", ".join(f"{k} {float(np.median(v[2:])):.2f} ms" for k, v in times.items())
+        + f" (in turns, 6 flushes each) [{card}]")
+    return seen
+
+
+def multi_device_phases(dev, tmp: str, wav10: str, card: str) -> dict:
+    """Phases 34-36; returns their kernels' launches."""
+    from talkshow_torch.pipeline import Pipeline
+    train = phase34(dev, tmp, card)
+    pipe = Pipeline.create(seed=0, device=dev)
+    sampled = phase35(pipe, dev, wav10, card)
+    served = phase36(pipe, dev, wav10, card)
+    launches = {k: sampled.get(k, 0) + served.get(k, 0) for k in KERNELS}
+    launches["nearest_code"] += train["nearest_code"]
+    log("launches in phases 34-36: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return launches
+
+
 T_START = time.time()
 
 
@@ -3492,6 +3775,13 @@ def main() -> int:
     for k in KERNELS[:3]:
         path_launches[k] += new[k]
     k4_launches += new["nearest_code"]
+
+    # ---- phases 34-36: dp x tp training, sharded sampling, the mesh server ----
+    multi = multi_device_phases(torch.device("cuda", torch.cuda.current_device()), tmp, wav10,
+                                card)
+    for k in KERNELS[:3]:
+        path_launches[k] += multi[k]
+    k4_launches += multi["nearest_code"]
 
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs

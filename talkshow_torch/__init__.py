@@ -12,6 +12,8 @@ extractor, and the VQ nearest-code search that training stage 1 runs.
     # serving.MotionServer / streaming.StreamingSession wrap a pipeline
 
     python -m talkshow_torch.train --config_file body_vq.json --synthetic
+    torchrun --nproc_per_node 4 -m talkshow_torch.train --config_file c.json ...
+    # (c.json's "parallel": {"dp": 2, "tp": 2}; talkshow_torch/parallel)
     python -m talkshow_torch.demo --audio_file speech.wav --num_sample 3
     # also .eval, .diversity, .continuity, .convert_checkpoints, .legacy_eval
 

@@ -100,7 +100,10 @@ class LogConfig:
 
 @dataclass
 class ParallelConfig:
-    """Device-mesh layout. dp*tp must equal the number of devices used."""
+    """Device-mesh layout. dp*tp must equal the number of devices used.
+    The port reads it from a config file's "parallel" entry ({"dp": .., "tp":
+    ..}; the reference files have none, so 1 x 1) and trains on dp*tp ranks
+    (`torchrun --nproc_per_node dp*tp -m talkshow_torch.train ...`)."""
     dp: int = 1     # data-parallel axis size
     tp: int = 1     # tensor-parallel axis size (wide conv/ffn channels)
 
@@ -135,6 +138,7 @@ class Config:
         w = t.get("weights", {})
         dl = raw.get("DataLoader", {})
         lg = raw.get("Log", {})
+        par = raw.get("parallel", {})
         return cls(
             data=DataConfig(
                 data_root=d.get("data_root", ""),
@@ -168,6 +172,7 @@ class Config:
                 print_every=lg.get("print_every", 200),
                 name=lg.get("name", "run"),
             ),
+            parallel=ParallelConfig(dp=par.get("dp", 1), tp=par.get("tp", 1)),
             smplx_npz_path=raw.get("smplx_npz_path", ""),
             extra_joint_path=raw.get("extra_joint_path", ""),
             dataset_load_mode=raw.get("dataset_load_mode", "json"),
@@ -200,6 +205,7 @@ class Config:
             "DataLoader": {"batch_size": t.batch_size},
             "Log": {"save_every": lg.save_every, "print_every": lg.print_every,
                     "name": lg.name},
+            "parallel": dataclasses.asdict(self.parallel),
             "smplx_npz_path": self.smplx_npz_path,
             "extra_joint_path": self.extra_joint_path,
             "dataset_load_mode": self.dataset_load_mode,

@@ -25,9 +25,12 @@ def _act(x: torch.Tensor, leaky: bool) -> torch.Tensor:
 def dense(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """m(x); with a compute dtype, flax's `Dense(dtype=...)`: input, weight
     and bias cast to dtype, the product rounded to it, then the bias added
-    (parameters stay f32)."""
+    (parameters stay f32).  A layer split over tp (`parallel.collectives`)
+    computes through its `tp_forward`."""
     if dtype is None:
         return m(x)
+    if hasattr(m, "tp_forward"):
+        return m.tp_forward(x, dtype)
     y = F.linear(x.to(dtype), m.weight.to(dtype))
     return y if m.bias is None else y + m.bias.to(dtype)
 
@@ -38,6 +41,8 @@ def conv(m: nn.Conv1d | nn.Conv2d, x: torch.Tensor,
     `Conv(dtype=...)`, as `dense`."""
     if dtype is None:
         return m(x)
+    if hasattr(m, "tp_forward"):
+        return m.tp_forward(x, dtype)
     x, w = x.to(dtype), m.weight.to(dtype)
     if x.device.type == "cpu" and m.groups > 1:
         # PyTorch's CPU bf16 grouped convolution returns wrong sums at a few
@@ -52,6 +57,14 @@ def conv(m: nn.Conv1d | nn.Conv2d, x: torch.Tensor,
     return y + m.bias.to(dtype).reshape((-1,) + (1,) * (y.dim() - 2))
 
 
+def embed(m: nn.Embedding, idx: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Rows `idx` of the embedding table, in `dtype` (f32 by default); a
+    table split over tp looks up its rows and sums over tp (`tp_lookup`)."""
+    if hasattr(m, "tp_lookup"):
+        return m.tp_lookup(idx).to(dtype or torch.float32)
+    return m.weight.to(dtype or torch.float32)[idx]
+
+
 class FlaxBatchNorm1d(nn.BatchNorm1d):
     """`TorchBatchNorm` of talkshow_tpu/models/layers.py:24-32, i.e. flax
     `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`, under nn.BatchNorm1d's
@@ -61,9 +74,16 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     var = max(0, E[x^2] - E[x]^2) over (B, T), and updates
     running = 0.9 * running + 0.1 * batch with that **biased** variance;
     torch's own update uses the unbiased one (n / (n - 1) larger).  Eval
-    mode is nn.BatchNorm1d's.  `num_batches_tracked` is not advanced."""
+    mode is nn.BatchNorm1d's.  `num_batches_tracked` is not advanced.
+
+    On a mesh (`mesh`, set by `parallel.collectives.shard_state`) with dp >
+    1 the train-mode statistics are the global batch's: the sums of x and
+    x^2 over this rank's rows are summed over the dp ranks (their gradient
+    too) and divided by every rank's count, so every rank updates its
+    running statistics alike (none is broadcast from rank 0)."""
 
     MOMENTUM = 0.9
+    mesh = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5)
@@ -71,8 +91,13 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2))
-        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        if self.mesh is None or self.mesh.dp == 1:
+            mean, ex2 = x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))
+        else:
+            n = x.shape[0] * x.shape[2] * self.mesh.dp
+            sums = self.mesh.dp_sum(torch.cat([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2))]))
+            mean, ex2 = (sums / n).chunk(2)
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -41,7 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from talkshow_torch.kernels import counts
-from talkshow_torch.models.layers import conv, dense
+from talkshow_torch.models.layers import conv, dense, embed
 
 
 def gate(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +92,7 @@ class GatedMaskedLayer(nn.Module):
         return out_h + x_h if self.residual else out_h
 
     def forward(self, x_v, x_h, label, dtype=None):
-        cls = self.class_cond_embedding.weight.to(dtype or torch.float32)[label][:, None, None, :]
+        cls = embed(self.class_cond_embedding, label, dtype)[:, None, None, :]
         h_vert = self.vert_conv(x_v, self.kernel // 2, dtype)[:, : x_v.shape[1]]
         if self.bh_model:
             return gate(h_vert + cls), self.horiz(h_vert, x_h, cls, dtype)
@@ -146,7 +146,7 @@ class GatedPixelCNN(nn.Module):
         zeroed, the same value over both columns and every channel, as
         JAX multiplies it by `aud_dropout(ones)`."""
         dt = self.dtype
-        x = self.embedding.weight.to(dt or torch.float32)[tokens]      # (B, H, W, dim)
+        x = embed(self.embedding, tokens, dt)                           # (B, H, W, dim)
         x_v, x_h = x, x
         aud_e = dense(self.embedding_aud, audio, dt)
         if aud_keep is not None:

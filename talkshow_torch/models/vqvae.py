@@ -71,7 +71,11 @@ class VQVAE(nn.Module):
     (B, T/4).  The quantizer state is the functional `vq_state` argument.
     `encoder` is registered after `decoder`, so `init_weights_` draws the
     decoder's weights first, as it did before the encoder was ported
-    (`body.create_body_models` draws both encoders last)."""
+    (`body.create_body_models` draws both encoders last).  `mesh`: set by
+    `parallel.collectives.shard_state` for training over dp ranks (the
+    EMA update's sums over the global batch)."""
+
+    mesh = None
 
     def __init__(self, in_dim: int, embedding_dim: int = 64,
                  num_hiddens: int = 1024, num_residual_layers: int = 2):
@@ -88,7 +92,7 @@ class VQVAE(nn.Module):
         `train` flag does."""
         z = self.encoder(poses)
         if self.training:
-            quant, commit, new_state, idx = vq_ops.quantize_train(vq_state, z)
+            quant, commit, new_state, idx = vq_ops.quantize_train(vq_state, z, mesh=self.mesh)
         else:
             quant, idx = vq_ops.quantize(vq_state, z)
             commit, new_state = z.new_zeros(()), vq_state

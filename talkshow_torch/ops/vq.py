@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from talkshow_torch.kernels.nearest_code import nearest_code_kernel, nearest_code_plain
+from talkshow_torch.parallel.mesh import global_mean
 
 __all__ = ["VQState", "init_vq_state", "nearest_code", "nearest_code_plain", "quantize",
            "quantize_train", "lookup"]
@@ -67,14 +68,20 @@ def lookup(state: VQState, indices: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_train(state: VQState, z: torch.Tensor, commitment_cost: float = 0.25,
-                   decay: float = 0.99, epsilon: float = 1e-5):
+                   decay: float = 0.99, epsilon: float = 1e-5, mesh=None):
     """Training-mode quantization with straight-through + EMA update.
 
     z: (..., D) encoder output.  Returns (quantized_st, commit_loss,
     new_state, indices).  The EMA update runs on detached values, as the
     reference's torch.no_grad block (vqvae_modules.py:288-299).  The code
     sums dw = onehot^T @ flat are a matmul (TF32 off on the card), not an
-    atomic scatter, so a rerun gives the same state bit for bit."""
+    atomic scatter, so a rerun gives the same state bit for bit.
+
+    On a mesh (`parallel.mesh.Mesh`) with dp > 1, z holds this rank's rows:
+    the code counts and sums are summed over the dp ranks (one all-reduce)
+    before the EMA update, so every rank updates its codebook alike, and
+    the commitment loss is this rank's term of the global mean
+    (`Mesh.dp_mean`)."""
     flat = z.detach().reshape(-1, z.shape[-1])
     k = state.embeddings.shape[0]
     idx = nearest_code(flat, state.embeddings)
@@ -84,6 +91,9 @@ def quantize_train(state: VQState, z: torch.Tensor, commitment_cost: float = 0.2
         onehot = F.one_hot(idx, k).to(flat.dtype)                   # (N, K)
         counts = onehot.sum(dim=0)                                 # (K,)
         dw = onehot.T @ flat                                       # (K, D)
+        if mesh is not None and mesh.dp > 1:
+            sums = mesh.dp_sum_(torch.cat([counts, dw.reshape(-1)]))
+            counts, dw = sums[:k], sums[k:].reshape(dw.shape)
         counter = state.counter + 1
         ema_count_hidden = state.ema_count_hidden - (state.ema_count_hidden - counts) * (1 - decay)
         ema_dw_hidden = state.ema_dw_hidden - (state.ema_dw_hidden - dw) * (1 - decay)
@@ -95,6 +105,7 @@ def quantize_train(state: VQState, z: torch.Tensor, commitment_cost: float = 0.2
         new_state = VQState(ema_dw / smoothed[:, None], ema_dw_hidden, ema_count_hidden,
                             counter)
 
-    commit = commitment_cost * torch.mean((z - quant.detach()) ** 2)
+    sq = (z - quant.detach()) ** 2
+    commit = commitment_cost * global_mean(sq, mesh)
     quant_st = z + (quant - z).detach()
     return quant_st, commit, new_state, idx.reshape(z.shape[:-1])

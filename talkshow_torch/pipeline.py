@@ -16,6 +16,12 @@ package leaves its wav2vec kernels unwired because they lost to XLA on the
 TPU, and on the H100 they are faster than the plain stage.  A pipeline on
 the CPU runs the plain face stage (`FaceGenerator.forward`).
 
+`generate_body_sharded` splits the samples over a mesh axis
+(`parallel.mesh.Mesh`, JAX's shard_map at pipeline.py:290-332): each
+shard decodes its rows on its own device (one K1 launch per shard on the
+card), on a copy of the weights and decode tables made once per device
+(`replica`).
+
 Weights come from `create` (random, seeded), `load_converted` (the JAX
 package's, through `talkshow_torch.convert.from_jax`),
 `from_torch_checkpoints` (the reference trainer's `.pth` files) or
@@ -23,6 +29,7 @@ package's, through `talkshow_torch.convert.from_jax`),
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -48,6 +55,21 @@ _VQ_STATES = ("vq_body_state", "vq_hand_state")
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _resolve(device) -> torch.device:
+    """A device with its index ("cuda" is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def shard_seed(seed: int, shard: int) -> int:
+    """The seed of shard `shard`'s generator in a sharded call seeded
+    `seed` (numpy's SeedSequence; 63 bits)."""
+    state = np.random.SeedSequence([seed, shard]).generate_state(1, np.uint64)[0]
+    return int(state >> np.uint64(1))
 
 
 @dataclass
@@ -126,7 +148,24 @@ class Pipeline:
         self.body = self.body._replace(**states)
         self.__dict__.pop("_decode_tables", None)
         self.__dict__.pop("_face_tables", None)
+        self.__dict__.pop("_replicas", None)
         return self
+
+    def replica(self, device) -> "Pipeline":
+        """This pipeline on `device`: itself on its own device, else a copy
+        of its weights there, made once per device and kept (its decode
+        and face tables are packed there on first use)."""
+        device = _resolve(device)
+        if device == _resolve(self.device):
+            return self
+        replicas = self.__dict__.setdefault("_replicas", {})
+        if device not in replicas:
+            body = BodyModels(*(copy.deepcopy(m).to(device) if isinstance(m, torch.nn.Module)
+                                else m.to(device) for m in self.body))
+            replicas[device] = dataclasses.replace(
+                self, face_model=copy.deepcopy(self.face_model).to(device), body=body,
+                device=device)
+        return replicas[device]
 
     def with_face_dtype(self, dtype: torch.dtype) -> "Pipeline":
         """A pipeline on the same modules whose face stage runs on `dtype`
@@ -262,6 +301,42 @@ class Pipeline:
         if pad_to_bucket:
             conv = conv[:, : (T // 4) * 4]
         return self._denorm_conv(conv.cpu().numpy())
+
+    def generate_conv_sharded(self, mfcc_feat, speaker: int, num_samples: int, mesh,
+                              seed: int = 0, axis: str = "dp", noise=None) -> list:
+        """The sample batch split over the mesh's `axis`: shard i decodes
+        num_samples / n rows on its device (`Mesh.axis_devices`), from its
+        own noise: `noise[i]`, a gumbel block (H, 2, num_samples / n, K),
+        or torch.Generator(shard_seed(seed, i)).  Every shard is launched
+        before any is read.  Returns [(conv poses, tokens)] per shard, on
+        the shard's device.  Raises ValueError unless the axis divides
+        num_samples."""
+        devices = mesh.axis_devices(axis)
+        n = len(devices)
+        if num_samples % n:
+            raise ValueError(f"num_samples={num_samples} not divisible by mesh axis "
+                             f"'{axis}' size {n}")
+        if noise is not None and len(noise) != n:
+            raise ValueError(f"noise: {len(noise)} blocks for {n} shards")
+        out = []
+        for i, dev in enumerate(devices):
+            shard = self.replica(dev)
+            out.append(shard.generate_conv(mfcc_feat, speaker, num_samples // n,
+                                           shard_seed(seed, i),
+                                           None if noise is None else noise[i]))
+        return out
+
+    def generate_body_sharded(self, mfcc_feat, speaker: int, num_samples: int, mesh,
+                              seed: int = 0, axis: str = "dp", noise=None) -> np.ndarray:
+        """Diversity sampling sharded over a device mesh (JAX
+        pipeline.py:290-332): MFCC (T, 64) -> conv poses (num_samples,
+        4*(T//4), 129), shard i's rows from its own noise
+        (`generate_conv_sharded`; JAX gives shard i the key
+        split(PRNGKey(seed), n)[i], which `noise` can carry)."""
+        parts = self.generate_conv_sharded(mfcc_feat, speaker, num_samples, mesh, seed, axis,
+                                           noise)
+        conv = np.concatenate([c.cpu().numpy() for c, _ in parts])
+        return self._denorm_conv(conv)
 
     def generate_body_continuity(self, wav_file: str, speaker: int,
                                  num_samples: int = 1, seed: int = 0,

@@ -16,10 +16,15 @@ unpadded clip's.
 
 Determinism: a group samples with one noise draw, so a request's tokens
 depend on its place in the batch; `flush(seed=...)` with the same queue
-reproduces.  The JAX package's `mesh` option (a group sharded over
-devices) and a CUDA graph per (bucket, batch) are not ported (ROADMAP
-Queue 1 item 10): the decode's Philox seed is read on the host per call
-and would be frozen into a graph.
+reproduces.  A CUDA graph per (bucket, batch) is not built: the decode's
+Philox seed is read on the host per call and would be frozen into a graph.
+
+`mesh` (a `parallel.mesh.Mesh`, JAX serving.py:65-66,104-108,154-166):
+each group's rows split over the devices of `mesh_axis`; every shard runs
+the whole group pass on its rows on its own device (the masked face stage,
+MFCC, one AR decode, assembly), on the pipeline's copy there
+(`Pipeline.replica`), and the rows are read back in request order.
+`max_batch` must be a multiple of the axis size.
 
 Usage:
     server = MotionServer(pipe, bucket_frames=32, max_batch=8)
@@ -29,8 +34,9 @@ Usage:
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -78,8 +84,14 @@ class MotionServer:
     noise: for parity with the JAX server, a callable
     (base, bucket, index, rows) -> gumbel block (rows, 2, max_batch, K)
     for the group starting at `index` of `bucket`'s requests, where base is
-    the flush's seed or counter; None draws from
-    torch.Generator(group_seed(base, bucket, index)) (Philox on the card).
+    the flush's seed or counter (on a mesh, shard i decodes with its rows'
+    slice of the block); None draws from
+    torch.Generator(group_seed(base, bucket, index)), on a mesh shard i's
+    from torch.Generator(group_seed(base, bucket, index, i)) (Philox on the
+    card).
+
+    mesh / mesh_axis: shard each group's rows over the axis' devices (see
+    the module docstring).
     """
     pipe: object
     bucket_frames: int = 32
@@ -87,6 +99,8 @@ class MotionServer:
     stand: bool = False
     transfer_dtype: str = "int16"
     noise: Callable | None = None
+    mesh: Any = None
+    mesh_axis: str = "dp"
     _queue: list = field(default_factory=list)
     _next_id: int = 0
     _flush_count: int = 0
@@ -95,6 +109,11 @@ class MotionServer:
         if self.transfer_dtype not in ("int16", "float32"):
             raise ValueError(f"transfer_dtype must be 'int16' or 'float32', "
                              f"got {self.transfer_dtype!r}")
+        if self.mesh is not None:
+            n = self.mesh.shape[self.mesh_axis]
+            if self.max_batch % n:
+                raise ValueError(f"max_batch={self.max_batch} not divisible by mesh axis "
+                                 f"'{self.mesh_axis}' size {n}")
 
     # ------------------------------------------------------------------
     def submit(self, wav16: np.ndarray, speaker: int = 0) -> int:
@@ -129,19 +148,20 @@ class MotionServer:
         top = _round_up(int(max_clip_seconds * 30) + 1, self.bucket_frames)
         n = 0
         for frames in range(self.bucket_frames, top + 1, self.bucket_frames):
-            self._run_group(frames, self.max_batch, None).cpu()
+            for part in self._run_group(frames, self.max_batch, None):
+                part.cpu()
             n += 1
         return n
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _run_group(self, bucket: int, B: int, requests, base: int = 0,
-                   index: int = 0) -> torch.Tensor:
-        """Launch one pass over a (bucket, B) group; returns the motion
-        (B, bucket, 265) on the device without waiting for it.  With
-        requests=None the rows are zeros (warmup)."""
+                   index: int = 0) -> list:
+        """Launch the pass over a (bucket, B) group, one per shard on a
+        mesh; returns the motion of each shard's rows ((B / shards, bucket,
+        265) each, in row order) on its device without waiting for it.
+        With requests=None the rows are zeros (warmup)."""
         pipe = self.pipe
-        dev = pipe.device
         # +1 frame of slack: a wav whose floor(len*30/16000) == bucket can
         # still hold up to ~_SPF more samples than bucket*_SPF
         nb = (bucket + 1) * _SPF
@@ -154,6 +174,27 @@ class MotionServer:
             wav[j, :n] = r.wav16
             ids[j] = r.speaker
             vs[j], vf[j] = n, r.frames
+        if self.mesh is None:
+            shards = [(pipe, slice(0, B), (base, bucket, index))]
+        else:
+            devices = self.mesh.axis_devices(self.mesh_axis)
+            b = B // len(devices)
+            shards = [(pipe.replica(dev), slice(i * b, (i + 1) * b), (base, bucket, index, i))
+                      for i, dev in enumerate(devices)]
+        # one noise block a group (its rows sliced per shard)
+        block = functools.cache(lambda h: self.noise(base, bucket, index, h))
+        return [self._pass(shard, bucket, wav[rows], ids[rows], vs[rows], vf[rows],
+                           None if self.noise is None else (lambda h, r=rows: block(h)[:, :, r]),
+                           group_seed(*key))
+                for shard, rows, key in shards]
+
+    def _pass(self, pipe, bucket: int, wav, ids, vs, vf, noise, seed: int) -> torch.Tensor:
+        """The whole group pass over these rows on the pipeline's device:
+        the masked face stage, MFCC, one AR decode (noise(rows) -> its
+        gumbel block, or a generator seeded `seed`), denormalization,
+        length matching and part2full -> (rows, bucket, 265)."""
+        dev = pipe.device
+        B = wav.shape[0]
         wav = torch.as_tensor(wav).to(dev)
         if wav.dtype == torch.int16:            # PCM transfer: dequantize here
             wav = wav.float() * (1.0 / 32768.0)
@@ -165,11 +206,10 @@ class MotionServer:
         feat = audio_ops.mfcc(audio_ops.resample(wav, 16000, 22000), 22000, fps=30)
         Tp = _round_up(max(feat.shape[1], 4), 4)
         feat = torch.nn.functional.pad(feat, (0, 0, 0, Tp - feat.shape[1]))
-        if self.noise is not None:
-            noise = self.noise(base, bucket, index, Tp // 4).to(dev, torch.float32).contiguous()
-            gen = None
+        if noise is not None:
+            noise, gen = noise(Tp // 4).to(dev, torch.float32).contiguous(), None
         else:
-            noise, gen = None, torch.Generator().manual_seed(group_seed(base, bucket, index))
+            gen = torch.Generator().manual_seed(seed)
         conv, _ = generate_conv_poses(pipe.body, feat, torch.as_tensor(ids).to(dev),
                                       generator=gen, noise=noise, tables=pipe._decode_tables)
         norm = pipe.conv_norm()
@@ -219,7 +259,7 @@ class MotionServer:
 
         out: dict[int, np.ndarray] = {}
         for chunk, fut in launched:
-            full = fut.cpu().numpy()          # readback (synchronizes)
+            full = torch.cat([part.cpu() for part in fut]).numpy()   # readback (synchronizes)
             served = set()
             for j, r in enumerate(chunk):
                 out[r.rid] = full[j, :r.frames]

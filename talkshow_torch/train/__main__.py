@@ -47,6 +47,19 @@ With Data.pose.convert_to_6d the poses are the 6-D variant's (T, 330): the
 VQ-VAEs take 78 / 180 channels and the s2g_body_pixel prior is 512 wide
 and 10 layers deep, as scripts/train.py:109-158 builds it.
 
+Several devices: the config's "parallel" entry ({"dp": D, "tp": P}; 1 x 1
+when absent) sets the mesh, and the CLI runs as one of D * P ranks under
+torchrun, which sets WORLD_SIZE, RANK and LOCAL_RANK:
+
+    torchrun --nproc_per_node 4 -m talkshow_torch.train \
+        --config_file body_vq_dp2_tp2.json --synthetic [--device cpu]
+
+The process group's backend follows the devices: "nccl" when this host has
+a card for every rank (rank i on card LOCAL_RANK), "gloo" for CPU ranks or
+for ranks sharing fewer cards (a line says which).  The s2g_body_vq,
+s2g_body_pixel (token cache included), s2g_body_ae and s2g_LS3DCG steps
+run on the mesh; s2g_face raises NotImplementedError there.
+
 Data: the SHOW layout under `--data_root` (or Data.data_root), the train
 split of `--speakers`, through `ShowDataset.from_root` with its cache at
 <data_root>/train<Data.pklname>: the MFCC for every stage but the
@@ -63,6 +76,7 @@ import logging
 import os
 
 import torch
+import torch.distributed as dist
 
 from talkshow_torch.config import Config
 from talkshow_torch.data.dataset import (ShowDataset, synthetic_dataset,
@@ -75,6 +89,7 @@ from talkshow_torch.models.wav2vec import Wav2Vec2Config
 from talkshow_torch.ops.pose import (BODY_DIM, CONV_DIM, HAND_DIM, SPEAKER_ID,
                                     axis_angle_poses_to_6d)
 from talkshow_torch.ops.vq import VQState
+from talkshow_torch.parallel import multihost
 from talkshow_torch.train.steps import (make_body_ae_step, make_body_pixel_step,
                                         make_body_vq_step, make_face_step,
                                         make_ls3dcg_step, make_token_encoder)
@@ -227,6 +242,8 @@ def main(argv=None) -> Trainer:
         cfg.data.data_root = args.data_root
     cfg.train.seed = args.seed
     device = torch.device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = start_process_group(device)
     if device.type == "cuda":
         # f32 sums, and deterministic cuDNN algorithms, so that a resumed
         # run equals an uninterrupted one bit for bit
@@ -242,8 +259,25 @@ def main(argv=None) -> Trainer:
     if args.resume:
         trainer.resume(args.resume)
     trainer.train(epochs=args.epochs)
-    print(f"done; checkpoints in {run_dir}")
+    if trainer.lead:
+        print(f"done; checkpoints in {run_dir}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return trainer
+
+
+def start_process_group(device: torch.device) -> torch.device:
+    """Join torchrun's process group; returns this rank's device.  NCCL
+    when every rank on this host has a card of its own, else gloo (CPU
+    ranks, or ranks that share a card)."""
+    here = multihost.local_world_size()
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = "nccl" if device.type == "cuda" and cards >= here else "gloo"
+    multihost.initialize_multihost(backend=backend)
+    device = multihost.rank_device(device.type)
+    print(f"rank {dist.get_rank()} of {dist.get_world_size()}: {backend} on {device} "
+          f"({here} ranks and {cards} card(s) on this host)")
+    return device
 
 
 if __name__ == "__main__":

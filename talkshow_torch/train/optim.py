@@ -30,6 +30,15 @@ the moments, the step counts and the parameters stay exactly as they were;
 `nonfinite_count` goes up by one.  The caller restores whatever else its
 forward pass changed (BatchNorm statistics, VQ state), as the JAX step does
 with `tree_select`.
+
+On a mesh (`mesh`, set by `parallel.collectives.shard_state`) the
+gradients are reduced before anything reads them: each rank's loss is its
+term of the global mean, so the gradients are summed over the dp ranks
+(one all-reduce of all of them, flattened) and equal the one-process
+step's on the global batch.  The global norm counts a parameter split over
+tp once (its slices' squares summed over tp), the finite check reads the
+reduced gradients, and every rank takes the same skip decision (one
+all-reduce of the flag).
 """
 from __future__ import annotations
 
@@ -53,22 +62,47 @@ class SkipNonfinite:
     in `state_dict`."""
     KEY = "inner"
 
+    mesh = None
+
     def __init__(self, params, inner: torch.optim.Optimizer, max_norm: float | None = None):
         self.params = list(params)
         self.inner = inner
         self.max_norm = max_norm
         self.nonfinite_count = 0
+        self._reduced = False
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
+        self._reduced = False
 
     def grads(self) -> list:
         """Every parameter's gradient; a parameter the loss did not reach
-        gets zeros first, as optax sees it."""
+        gets zeros first, as optax sees it.  On a mesh, summed over the dp
+        ranks (once per step)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return [p.grad for p in self.params]
+        grads = [p.grad for p in self.params]
+        if self.mesh is not None and self.mesh.dp > 1 and not self._reduced:
+            flat = self.mesh.dp_sum_(torch.cat([g.reshape(-1) for g in grads]))
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+        self._reduced = True
+        return grads
+
+    def grad_norm(self) -> torch.Tensor:
+        """The global L2 norm of the (reduced) gradients; on a mesh with tp
+        > 1 a split parameter's slices count once."""
+        grads = self.grads()
+        if self.mesh is None or self.mesh.tp == 1:
+            return global_norm(grads)
+        whole = [p.grad for p in self.params if not getattr(p, "tp_sharded", False)]
+        split = [p.grad for p in self.params if getattr(p, "tp_sharded", False)]
+        sq = sum(torch.sum(g * g) for g in split)
+        if torch.is_tensor(sq):
+            from torch import distributed as dist
+            dist.all_reduce(sq, group=self.mesh.tp_group)
+        return torch.sqrt(sum(torch.sum(g * g) for g in whole) + sq)
 
     def step(self, norm: torch.Tensor | None = None) -> bool:
         """Clip (when max_norm is set; `norm`, the gradients' global norm,
@@ -76,9 +110,12 @@ class SkipNonfinite:
         finite; returns whether it did."""
         grads = self.grads()
         finite = all_finite(grads)
+        if self.mesh is not None:
+            finite = not self.mesh.any(not finite)
         if finite:
             if self.max_norm is not None:
-                clip_by_global_norm_(grads, self.max_norm, norm)
+                clip_by_global_norm_(grads, self.max_norm,
+                                     self.grad_norm() if norm is None else norm)
             self.inner.step()
         else:
             self.nonfinite_count += 1

@@ -48,16 +48,29 @@ SpecAugment draws; a batch may instead carry the masks (`aud_keep`;
 Unlike the JAX package, where the state is an immutable pytree, the state
 here holds the modules (parameters and BatchNorm statistics) and the
 optimizer, and a step updates them in place.
+
+On a dp x tp mesh (`state.mesh`, set by `parallel.collectives.shard_state`;
+JAX's sharded steps compute what its one-device step computes on the
+global batch) the body-VQ, body-pixel, body-AE and LS3DCG steps take this
+rank's rows and compute the one-process step on the global batch: each
+loss is this rank's term of the global mean (`Mesh.dp_mean`; the velocity
+and commitment terms count B x T elements), BatchNorm and the EMA
+quantizer reduce their statistics over dp, the optimizer sums the
+gradients over dp, the metrics are the global values (one all-reduce),
+and the body-pixel step's audio dropout is drawn for the global batch and
+sliced to this rank's rows.  The face step raises NotImplementedError on a
+mesh of more than one device: its SpecAugment and dropout masks are not
+yet sliced so.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from talkshow_torch.kernels.wav2vec_extractor import pack_extractor_tables
-from talkshow_torch.losses import l1_loss, velocity_loss
 from talkshow_torch.models.face import FaceGenerator, draw_drop_keep
 from talkshow_torch.models.layers import FlaxBatchNorm1d, init_weights_
 from talkshow_torch.models.ls3dcg import LS3DCGDiscriminator, LS3DCGGenerator
@@ -67,7 +80,8 @@ from talkshow_torch.models.wav2vec import draw_spec_starts
 from talkshow_torch.models.wav2vec_fused import frozen_features
 from talkshow_torch.ops import vq as vq_ops
 from talkshow_torch.ops.pose import BODY_DIM, C_INDEX_3D, C_INDEX_6D, FULL_POSE_DIM, HAND_DIM
-from talkshow_torch.train.optim import SkipNonfiniteAdam, SkipNonfiniteSGD, global_norm
+from talkshow_torch.parallel.mesh import global_mean
+from talkshow_torch.train.optim import SkipNonfiniteAdam, SkipNonfiniteSGD
 
 def parts(rep6d: bool = False) -> tuple:
     """The (name, channel slice) of each VQ-VAE's conv channels: body 39 and
@@ -96,6 +110,7 @@ class BodyVQState:
     vq: dict
     optimizer: SkipNonfiniteAdam
     step: int = 0
+    mesh: Any = None
 
     def state_dict(self) -> dict:
         """Module state dicts under the reference's names, VQ states, the
@@ -148,6 +163,11 @@ def _norm_buffers(models) -> list:
             for b in (mod.running_mean, mod.running_var)]
 
 
+def _global(metrics: dict, mesh) -> dict:
+    """The global values of this rank's metric terms (one all-reduce)."""
+    return metrics if mesh is None else mesh.reduce_metrics(metrics)
+
+
 def _restore(buffers: list, saved: list) -> None:
     """Put back the BatchNorm statistics of a skipped step (JAX's tree_select)."""
     with torch.no_grad():
@@ -155,18 +175,19 @@ def _restore(buffers: list, saved: list) -> None:
             b.copy_(s)
 
 
-def recon_losses(recon: torch.Tensor, gt: torch.Tensor):
+def recon_losses(recon: torch.Tensor, gt: torch.Tensor, mesh=None):
     """(L1 reconstruction, L1 velocity) of (B, T, C) poses (steps.py:78-81,
-    :425-428)."""
-    return l1_loss(recon, gt), velocity_loss(recon, gt)
+    :425-428); on a mesh, this rank's terms of the global means."""
+    rec = global_mean(torch.abs(recon - gt), mesh)
+    return rec, global_mean(torch.abs(torch.diff(recon, dim=1) - torch.diff(gt, dim=1)), mesh)
 
 
-def part_losses(model: VQVAE, vq_state: vq_ops.VQState, gt: torch.Tensor):
+def part_losses(model: VQVAE, vq_state: vq_ops.VQState, gt: torch.Tensor, mesh=None):
     """One part's forward (steps.py:70-90) through a model in train mode:
     -> (rec, vel, commit, new VQState); the step's loss is rec + vel + commit
     summed over parts."""
     recon, commit, new_state, _ = model(gt, vq_state)
-    rec, vel = recon_losses(recon, gt)
+    rec, vel = recon_losses(recon, gt, mesh)
     return rec, vel, commit, new_state
 
 
@@ -196,11 +217,12 @@ def make_body_vq_step(vq_body: VQVAE, vq_hand: VQVAE, learning_rate: float = 1e-
         total, metrics, new_vq = 0.0, {}, {}
         for name, sl in slices:
             rec, vel, commit, new_vq[name] = part_losses(state.models[name].train(),
-                                                         state.vq[name], conv[..., sl])
+                                                         state.vq[name], conv[..., sl], state.mesh)
             total = total + rec + vel + commit
             metrics.update({f"{name}_rec": rec.detach(), f"{name}_vel": vel.detach(),
                             f"{name}_commit": commit.detach()})
         total.backward()
+        metrics = _global(metrics, state.mesh)
         if state.optimizer.step():
             state.vq = new_vq
         else:
@@ -239,6 +261,7 @@ class BodyAEState:
     model: AE
     optimizer: SkipNonfiniteAdam
     step: int = 0
+    mesh: Any = None
 
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
@@ -276,13 +299,13 @@ def make_body_ae_step(ae: AE, learning_rate: float = 1e-4):
         buffers = _norm_buffers([state.model])
         saved = [b.clone() for b in buffers]
         state.optimizer.zero_grad()
-        rec, vel = recon_losses(state.model.train()(gt), gt)
+        rec, vel = recon_losses(state.model.train()(gt), gt, state.mesh)
         (rec + vel).backward()
+        metrics = _global({"rec_loss": rec.detach(), "velocity_loss": vel.detach()}, state.mesh)
         if not state.optimizer.step():
             _restore(buffers, saved)
         state.step += 1
-        return state, {"rec_loss": rec.detach(), "velocity_loss": vel.detach(),
-                       "nonfinite_skips": state.optimizer.nonfinite_count}
+        return state, {**metrics, "nonfinite_skips": state.optimizer.nonfinite_count}
 
     return init_state, step
 
@@ -299,6 +322,7 @@ class PixelState:
     models: dict
     optimizer: SkipNonfiniteAdam
     step: int = 0
+    mesh: Any = None
 
     def state_dict(self) -> dict:
         return {"models": {k: m.state_dict() for k, m in self.models.items()},
@@ -358,21 +382,24 @@ def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body:
             if generator is None:
                 raise ValueError("the body-pixel step draws its audio dropout from a "
                                  "generator: pass one, or batch['aud_keep']")
-            keep = draw_aud_keep(B, H, generator, tokens.device)
+            # drawn for the global batch; this rank keeps its rows
+            dp, rank = (1, 0) if state.mesh is None else (state.mesh.dp, state.mesh.dp_rank)
+            keep = draw_aud_keep(B * dp, H, generator, tokens.device)[rank * B:(rank + 1) * B]
         buffers = _norm_buffers([state.models["audio"]])
         saved = [b.clone() for b in buffers]
         opt = state.optimizer
         opt.zero_grad()
         feat = state.models["audio"].train()(batch["aud_feat"])
         logits = state.models["prior"].train()(tokens, batch["speaker"].long(), feat, keep)
-        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(), tokens.reshape(-1))
+        flat = logits.reshape(-1, logits.shape[-1]).float()
+        ce = global_mean(F.cross_entropy(flat, tokens.reshape(-1), reduction="none"), state.mesh)
         ce.backward()
-        norm = global_norm(opt.grads())
+        norm = opt.grad_norm()
+        metrics = _global({"ce_loss": ce.detach()}, state.mesh)
         if not opt.step(norm):
             _restore(buffers, saved)
         state.step += 1
-        return state, {"ce_loss": ce.detach(), "grad": norm.detach(),
-                       "nonfinite_skips": opt.nonfinite_count}
+        return state, {**metrics, "grad": norm.detach(), "nonfinite_skips": opt.nonfinite_count}
 
     return init_state, step
 
@@ -392,6 +419,7 @@ class FaceState:
     optimizer: SkipNonfiniteSGD
     step: int = 0
     _tables: dict | None = None
+    mesh: Any = None
 
     @property
     def tables(self) -> dict:
@@ -463,6 +491,10 @@ def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: f
         return FaceState(face, SkipNonfiniteSGD(params, learning_rate, momentum, max_grad_norm))
 
     def step(state: FaceState, batch, generator: torch.Generator | None = None):
+        if state.mesh is not None and state.mesh.size > 1:
+            raise NotImplementedError("make_face_step: the face step does not run on a dp x tp "
+                                      "mesh yet (its SpecAugment and dropout masks are not "
+                                      "drawn for the global batch)")
         gt = batch["gt"]
         B, T = gt.shape[:2]
         vs, vf = batch.get("valid_samples"), batch.get("valid_frames")
@@ -486,7 +518,7 @@ def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: f
         l1, mse = face_losses(pred, gt, vf)
         loss = l1 + mse
         loss.backward()
-        norm = global_norm(opt.grads())
+        norm = opt.grad_norm()
         opt.step(norm)
         state.step += 1
         return state, {"MSELoss": l1.detach(), "exp_loss": mse.detach(), "loss": loss.detach(),
@@ -507,6 +539,7 @@ class LS3DCGState:
     models: dict
     optimizers: dict
     step: int = 0
+    mesh: Any = None
 
     def state_dict(self) -> dict:
         return {"models": {k: m.state_dict() for k, m in self.models.items()},
@@ -570,7 +603,8 @@ def make_ls3dcg_step(gen: LS3DCGGenerator, disc: LS3DCGDiscriminator,
         d.train()
         real = d(torch.cat([conv, aud], dim=-1))
         fake = d(torch.cat([pred[..., 103:], aud], dim=-1))
-        d_loss = torch.mean((real - 1.0) ** 2) + torch.mean(fake ** 2)
+        mesh = state.mesh
+        d_loss = global_mean((real - 1.0) ** 2, mesh) + global_mean(fake ** 2, mesh)
         d_loss.backward()
         if not d_opt.step():
             _restore(d_buffers, d_saved)
@@ -579,14 +613,14 @@ def make_ls3dcg_step(gen: LS3DCGGenerator, disc: LS3DCGDiscriminator,
         g_saved = [b.clone() for b in g_buffers]
         g_opt.zero_grad()
         pred = g.train()(aud)
-        jaw_loss = torch.mean(torch.abs(pred[..., :3] - poses[..., :3]))
-        face_loss = torch.mean((pred[..., 3:103] - batch["expression"]) ** 2)
-        body_loss = torch.mean(torch.abs(pred[..., 103:142] - conv[..., :BODY_DIM]))
-        hand_loss = torch.mean(torch.abs(pred[..., 142:] - conv[..., BODY_DIM:]))
+        jaw_loss = global_mean(torch.abs(pred[..., :3] - poses[..., :3]), mesh)
+        face_loss = global_mean((pred[..., 3:103] - batch["expression"]) ** 2, mesh)
+        body_loss = global_mean(torch.abs(pred[..., 103:142] - conv[..., :BODY_DIM]), mesh)
+        hand_loss = global_mean(torch.abs(pred[..., 142:] - conv[..., BODY_DIM:]), mesh)
         l1 = jaw_loss + face_loss + body_loss + hand_loss
         d.eval().requires_grad_(False)
         try:
-            gen_err = torch.mean((d(torch.cat([pred[..., 103:], aud], dim=-1)) - 1.0) ** 2)
+            gen_err = global_mean((d(torch.cat([pred[..., 103:], aud], dim=-1)) - 1.0) ** 2, mesh)
             (keypoint_w * l1 + gan_w * gen_err).backward()
         finally:
             d.requires_grad_(True)
@@ -595,7 +629,7 @@ def make_ls3dcg_step(gen: LS3DCGGenerator, disc: LS3DCGDiscriminator,
         state.step += 1
         metrics = {"jaw_loss": jaw_loss, "face_loss": face_loss, "body_loss": body_loss,
                    "hand_loss": hand_loss, "gen": gen_err, "dis": d_loss}
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = _global({k: v.detach() for k, v in metrics.items()}, mesh)
         metrics["nonfinite_skips"] = g_opt.nonfinite_count + d_opt.nonfinite_count
         return state, metrics
 

@@ -35,6 +35,23 @@ resumed at an epoch boundary sees the batches an uninterrupted run sees.
 On the card such a run equals an uninterrupted one bit for bit when cuDNN
 runs deterministic algorithms, as `python -m talkshow_torch.train` sets
 it to.
+
+`config.parallel` (dp, tp) is honoured as JAX's `setup` and `_put_batch`
+do: with dp * tp > 1 the trainer runs as one rank of a process group of
+dp * tp ranks (`torchrun --nproc_per_node dp*tp -m talkshow_torch.train`;
+without such a group `setup` raises, where it would otherwise train on one
+device).  Its `mesh` (`parallel.multihost.global_mesh`) puts the state on
+the mesh (`parallel.collectives.shard_state`: global-batch BatchNorm, EMA
+and losses, gradients summed over dp, wide weights split over tp).  Every
+rank builds the same global batch from the shared seed and puts only its
+rows on its device; the step generator is seeded alike on every rank.
+The token cache holds the grids this rank encoded (its rows of each
+missed batch, and at the end of epoch 1 every window, in batches of its
+share of the step); whether a batch hits is agreed over the ranks by one
+all-reduce of the miss flag, so every rank runs the same step.  Rank 0
+alone writes config.json, the log, history.json and the checkpoints,
+which hold whole parameters (`collectives.unsharded`); `resume` loads on
+every rank.  The metrics are the global ones.
 """
 from __future__ import annotations
 
@@ -52,6 +69,9 @@ import torch
 
 from talkshow_torch.config import Config
 from talkshow_torch.data.dataset import ShowDataset, compute_norm_stats, normalize_poses
+from talkshow_torch.parallel.collectives import shard_state, unsharded
+from talkshow_torch.parallel.mesh import batch_rows
+from talkshow_torch.parallel.multihost import global_mesh, world_size
 
 log = logging.getLogger("talkshow_torch")
 
@@ -94,7 +114,9 @@ class Trainer:
     `init_state_fn(generator, device)` makes the state, which has
     `state_dict` / `load_state_dict`.  `batch_keys`: the batch entries the
     step reads (None: all); the rest never go to the device.
-    `token_encoder`: poses (device) -> token grids, cached per window."""
+    `token_encoder`: poses (device) -> token grids, cached per window.
+    `mesh`: a `parallel.mesh.Mesh` over the process group's ranks; made
+    from `config.parallel` by `setup` when dp * tp > 1."""
     config: Config
     dataset: ShowDataset
     init_state_fn: Callable
@@ -111,14 +133,30 @@ class Trainer:
     face_bucket_frames: int = 0
     face_batch_size: int = 1
     token_encoder: Callable | None = None
+    mesh: Any = None
     _token_cache: dict = field(default_factory=dict)
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def setup(self) -> "Trainer":
         self.device = torch.device(self.device)
+        pc = self.config.parallel
+        if self.mesh is None and (pc.dp * pc.tp > 1 or world_size() > 1):
+            self.mesh = global_mesh(pc.dp, pc.tp, device=self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
+            if self.batch_mode == "face_clips":
+                raise NotImplementedError("make_face_step (s2g_face) does not run on a dp x tp "
+                                          "mesh yet: train the face stage on one device")
         os.makedirs(self.run_dir, exist_ok=True)
-        with open(os.path.join(self.run_dir, "config.json"), "w") as f:
-            f.write(self.config.to_json())
-        if not any(getattr(h, "_talkshow_run", None) == self.run_dir for h in log.handlers):
+        if self.lead:
+            with open(os.path.join(self.run_dir, "config.json"), "w") as f:
+                f.write(self.config.to_json())
+        if self.lead and not any(getattr(h, "_talkshow_run", None) == self.run_dir
+                                 for h in log.handlers):
             fh = logging.FileHandler(os.path.join(self.run_dir, "train.log"))
             fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
             fh._talkshow_run = self.run_dir
@@ -127,6 +165,8 @@ class Trainer:
         if self.state is None:
             gen = torch.Generator().manual_seed(self.config.train.seed)
             self.state = self.init_state_fn(gen, self.device)
+        if self.mesh is not None:
+            shard_state(self.mesh, self.state)
         return self
 
     def put_batch(self, batch: dict) -> dict:
@@ -134,8 +174,9 @@ class Trainer:
         if self.config.data.pose.normalization and "poses" in batch:
             if not hasattr(self, "_norm_stats"):
                 self._norm_stats = compute_norm_stats(self.dataset)
-                np.save(os.path.join(self.run_dir, "norm_stats.npy"),
-                        np.stack(self._norm_stats))
+                if self.lead:
+                    np.save(os.path.join(self.run_dir, "norm_stats.npy"),
+                            np.stack(self._norm_stats))
             batch = dict(batch, poses=normalize_poses(batch["poses"], self._norm_stats))
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
@@ -153,15 +194,22 @@ class Trainer:
         """A numpy batch -> the step's device batch: the entries it reads,
         and with a token encoder its `tokens` in place of the poses, from
         the cache or encoded here (the keys and device tokens are appended
-        to pending_cache for `drain_cache`)."""
+        to pending_cache for `drain_cache`).  On a mesh, this rank's rows."""
         wkey = batch.get("window_key")
         batch = {k: v for k, v in batch.items()
                  if k != "window_key" and isinstance(v, np.ndarray)
                  and (self.batch_keys is None or k in self.batch_keys)}
+        if self.mesh is not None:
+            rows = batch_rows(self.mesh, len(next(iter(batch.values()))), self.mesh.dp_rank)
+            batch = {k: v[rows] for k, v in batch.items()}
+            wkey = None if wkey is None else wkey[rows]
         if self.token_encoder is None or wkey is None:
             return self.put_batch(batch)
         keys = [tuple(map(int, k)) for k in wkey]
-        if all(k in self._token_cache for k in keys):
+        hit = all(k in self._token_cache for k in keys)
+        if self.mesh is not None:
+            hit = not self.mesh.any(not hit)
+        if hit:
             batch.pop("poses", None)
             out = self.put_batch(batch)
             out["tokens"] = torch.as_tensor(np.stack([self._token_cache[k] for k in keys]),
@@ -182,11 +230,11 @@ class Trainer:
 
     def fill_cache(self) -> int:
         """Encode every window of the dataset that is not cached, in batches
-        of train.batch_size windows (the last one padded by repeating its
-        last window, so that every encode has the step's shape); returns
-        the number of encode calls."""
+        of train.batch_size windows (on a mesh, this rank's share of them;
+        the last one padded by repeating its last window, so that every
+        encode has the step's shape); returns the number of encode calls."""
         keys = [k for k in self.dataset.window_keys() if k not in self._token_cache]
-        B = self.config.train.batch_size
+        B = self.config.train.batch_size // (1 if self.mesh is None else self.mesh.dp)
         for i in range(0, len(keys), B):
             chunk = keys[i:i + B]
             chunk += chunk[-1:] * (B - len(chunk))
@@ -222,8 +270,9 @@ class Trainer:
                 if self.global_step % print_every == 0:
                     self._collapse(running, pending)
                     avg = {k: v / count for k, v in running.items()}
-                    log.info(f"epoch {epoch} step {self.global_step} "
-                             + " ".join(f"{k}={v:.4f}" for k, v in avg.items()))
+                    if self.lead:
+                        log.info(f"epoch {epoch} step {self.global_step} "
+                                 + " ".join(f"{k}={v:.4f}" for k, v in avg.items()))
                     self.drain_cache(pending_cache)
             self.epoch = epoch + 1
             self.drain_cache(pending_cache)
@@ -237,8 +286,9 @@ class Trainer:
             self.history.append({"epoch": epoch, **avg})
             if (epoch + 1) % save_every == 0 or epoch + 1 == epochs:
                 self.save(os.path.join(self.run_dir, f"ckpt-{epoch}.pt"))
-        with open(os.path.join(self.run_dir, "history.json"), "w") as f:
-            json.dump(self.history, f, indent=1)
+        if self.lead:
+            with open(os.path.join(self.run_dir, "history.json"), "w") as f:
+                json.dump(self.history, f, indent=1)
         return self.state
 
     @staticmethod
@@ -250,14 +300,19 @@ class Trainer:
         pending.clear()
 
     def save(self, path: str) -> None:
-        torch.save({"state": self.state.state_dict(), "epoch": self.epoch,
-                    "global_step": self.global_step}, path)
+        """Rank 0 writes the whole state (every tp rank takes part in the
+        gather)."""
+        with unsharded(self.state):
+            if self.lead:
+                torch.save({"state": self.state.state_dict(), "epoch": self.epoch,
+                            "global_step": self.global_step}, path)
 
     def resume(self, path: str) -> "Trainer":
         # load on the host: load_state_dict puts each tensor where its
         # parameter lives, and keeps Adam's step counts on the host
         ckpt = torch.load(path, map_location="cpu")
-        self.state.load_state_dict(ckpt["state"])
+        with unsharded(self.state):
+            self.state.load_state_dict(ckpt["state"])
         self.epoch = int(ckpt["epoch"])
         self.global_step = int(ckpt["global_step"])
         return self
