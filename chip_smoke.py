@@ -302,12 +302,28 @@ Phases (one line each; any failure raises and the script exits non-zero):
              a flush reproduced bit for bit per seed; face columns within 2e-4
              of the unsharded server's (f32 tables); flush p50 against the
              unsharded server, in turns
+ 37 face dp  the face step at full width (wav2vec 2.0 base with the face
+             heads, 8 s clips, T = 240, f32) on (dp 1, tp 2) with whole clips at
+             B = 1 and on (dp 2, tp 1) with buckets of 32 frames at a global
+             B = 2: two ranks on this card in a gloo group, 4 steps a layout
+             from one state, SpecAugment and dropout drawn in the step for the
+             global batch; each step held against the one-process step on the
+             global batch with the global masks, beside that step computed in
+             another order (tests/test_torch_parallel_face.py's bounds); losses and
+             states bit-equal on both ranks; the frozen extractor whole and
+             unchanged on both; K3 once a step a rank on whole clips, the plain
+             masked extractor on buckets; one (1 x 2) step with a planted fault
+             must fail; the train CLI's s2g_face under `torchrun
+             --nproc_per_node 2` at tp 2, 1 epoch, its whole ckpt-0.pt loaded
+             on one device for one more step; step p50 per layout and the
+             phase's wall seconds
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
 continuity, the serve flush, the stream and the eval path (eval_body and
 the eval CLI for K1, eval_face for K2 and K3), summed, K3 in phase 17 and
 phase 25, K1 at dim 512 in phase 24, the entry points of phase 26,
 phases 30-32 and 35-36; K4: phases 11, 16, eval_vq_capacity, 24, 25, 28,
-29, 30, 31 and the ranks of phase 34), the nvidia-smi line, the total wall
+29, 30, 31 and the ranks of phase 34; K3 also on the ranks of phase 37), the
+nvidia-smi line, the total wall
 time and the result line.  Several ranks on one card measure correctness,
 not scaling.
 
@@ -3558,16 +3574,143 @@ def phase36(pipe, dev, wav10: str, card: str) -> dict:
     return seen
 
 
+#: phase 37's face steps per layout (the first is left out of the p50)
+FACE_DIST_STEPS = 4
+#: the errors of a face step that phase 37 prints (torch_dist_check.face_case)
+FACE_STEP_ERRORS = ("losses", "grad_norm", "grads", "grads_l2", "update_off", "update_l2",
+                    "momentum", "masters")
+
+
+def check_face_layout(tag: str, ranks: list, layout: str, steps: int, whole_clips: bool) -> str:
+    """Hold one layout's face steps to tests/test_torch_parallel_face.py's
+    bounds (`torch_dist_check.step_failures`), every rank's losses and state
+    to rank 0's bit for bit, the frozen extractor whole and unchanged on
+    every rank, and the extractor's route (K3 once a step a rank on whole
+    clips, the plain masked extractor on buckets); returns the phase line's
+    part for it."""
+    sc = dist_check()
+    r0 = ranks[0]["face"][layout]
+    if not all(r["face"][layout]["losses"] == r0["losses"] for r in ranks):
+        raise AssertionError(f"{tag} {layout}: losses differ across ranks")
+    if not all(r["face"][layout]["fingerprints"] == r0["fingerprints"] for r in ranks):
+        raise AssertionError(f"{tag} {layout}: the ranks' states differ")
+    ext = [r["face"][layout]["extractor"] for r in ranks]
+    if not all(e["whole"] and e["unchanged"] and not e["requires_grad"]
+               and e["fingerprint"] == ext[0]["fingerprint"] for e in ext):
+        raise AssertionError(f"{tag} {layout}: frozen extractor {ext}")
+    k3 = [r["face"][layout]["k3"] for r in ranks]
+    plain = [r["face"][layout]["k3_plain"] for r in ranks]
+    want = ([steps] * len(ranks), [0] * len(ranks))
+    if (k3, plain) != (want if whole_clips else want[::-1]):
+        raise AssertionError(f"{tag} {layout}: K3 launches {k3}, plain extractor calls {plain}")
+    bad = sc.step_failures(r0)
+    if bad:
+        raise AssertionError(f"{tag} {layout}: " + "; ".join(bad))
+    worst = {}
+    for errors in r0["errors"]:
+        for k in FACE_STEP_ERRORS:
+            worst[k] = max(worst.get(k, 0.0), errors["mesh"][k])
+            worst["spread " + k] = max(worst.get("spread " + k, 0.0), errors["f32"][k])
+    ms = float(np.median(r0["ms"][1:]))
+    return (f"{layout} ({'whole clips, B = 1' if whole_clips else 'buckets of 32 frames, B = 2'}"
+            f"): " + ", ".join(f"{k} {v:.1e}" for k, v in worst.items())
+            + f"; losses and states bit-equal on every rank; the frozen extractor whole and "
+            f"unchanged on every rank; K3 launches per rank {k3}, plain extractor calls per rank "
+            f"{plain}; step p50 {ms:.1f} ms over {steps - 1} steps")
+
+
+def phase37(dev, tmp: str, card: str) -> dict:
+    """The face step at full width (wav2vec 2.0 base with the face heads,
+    8 s clips) on (dp 1, tp 2) with whole clips and (dp 2, tp 1) with
+    buckets: two ranks on this card in a gloo group, FACE_DIST_STEPS steps a
+    layout from one state, each held against the one-process step on the
+    global batch with the global masks; a planted fault that the check must
+    catch; the train CLI's s2g_face under torchrun at tp 2, its checkpoint
+    loaded on one device.  Returns the K3 launches of the ranks' steps."""
+    from talkshow_torch.models.face import FaceGenerator
+    from talkshow_torch.data.dataset import synthetic_face_dataset
+    from talkshow_torch.train.steps import make_face_step
+    sc = dist_check()
+    steps, layouts = FACE_DIST_STEPS, ("1x2", "2x1")
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "dist_face")
+    ranks = run_group(2, ["--face", *layouts, "--face_width", "full", "--face_steps", str(steps),
+                          "--face_fault", "1x2", "--device", dev.type, "--out", out,
+                          "--timeout", "600"], 600.0)
+    log(f"phase 37 dp x tp: the face step at full width (wav2vec 2.0 base with the face heads, "
+        f"8 s clips, T = 240, f32, TF32 off), 2 ranks on one card (gloo over CUDA tensors), "
+        f"{steps} steps a layout from one state, each held against the one-process step from "
+        f"the same state on the same global batch with the same global masks (SpecAugment and "
+        f"dropout drawn for the global batch), beside that step computed in another order "
+        f"[{time.perf_counter() - t_phase:.1f} s]")
+    for layout in layouts:
+        log(f"phase 37 {check_face_layout('phase 37', ranks, layout, steps, layout == '1x2')} "
+            f"[{card}]")
+    fault = ranks[0]["face_fault"]["errors"][0]
+    if not sc.step_failures(ranks[0]["face_fault"]):
+        raise AssertionError(f"phase 37: the planted fault passed the check: {fault}")
+    log("phase 37 planted fault (1x2, the last tp rank puts its parameter slices back), failed "
+        "as it must: " + ", ".join(f"{k} {fault['mesh'][k]:.1e} (spread {fault['f32'][k]:.1e})"
+                                   for k in ("update_l2", "masters")))
+    k3 = sum(r["face"]["1x2"]["k3"] for r in ranks)
+    # the train CLI under torchrun, config.parallel tp 2, both ranks on this card
+    cfg = os.path.join(tmp, "dist_face.json")
+    write_stage_config(cfg, "s2g_face", 1)
+    with open(cfg) as f:
+        raw = json.load(f)
+    raw["parallel"] = {"dp": 1, "tp": 2}
+    with open(cfg, "w") as f:
+        json.dump(raw, f)
+    run_dir = os.path.join(tmp, "dist_face_run")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+                          "--master_port", str(sc.free_port()),
+                          "-m", "talkshow_torch.train", "--config_file", cfg, "--synthetic",
+                          "--epochs", "1", "--run_dir", run_dir, "--device", dev.type],
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, OMP_NUM_THREADS="2"))
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 37 torchrun: exit {res.returncode}\n{res.stderr[-4000:]}")
+    vals = logged_values(run_dir)
+    ckpt_path = os.path.join(run_dir, "ckpt-0.pt")
+    if not (os.path.exists(ckpt_path) and vals and np.isfinite(vals).all()):
+        raise AssertionError(f"phase 37 torchrun: files {os.listdir(run_dir)}, values {vals}")
+    # the whole checkpoint on one device: a strict load, then one more step
+    init, step = make_face_step(FaceGenerator())
+    state = init(torch.Generator().manual_seed(0), dev)
+    ckpt = torch.load(ckpt_path, map_location="cpu")
+    state.load_state_dict(ckpt["state"])
+    batch = next(iter(synthetic_face_dataset(4, 240).face_batches()))
+    state, m = step(state, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+                    torch.Generator(device=dev).manual_seed(1))
+    if not (ckpt["global_step"] == 4 and state.step == 5 and math.isfinite(float(m["loss"]))):
+        raise AssertionError(f"phase 37 torchrun checkpoint: step {ckpt['global_step']}, "
+                             f"{state.step}, loss {float(m['loss'])}")
+    import re
+    line = re.search(r"rank 0 of \d+: \w+ on [\w:]+", res.stdout)
+    log(f"phase 37 torchrun: `torchrun --nproc_per_node 2 -m talkshow_torch.train` s2g_face "
+        f"with parallel tp 2 at full width on the synthetic 8 s clips, 1 epoch (4 whole-clip "
+        f"steps): {line[0] if line else res.stdout[-200:]}; finite logs; rank 0's whole "
+        f"ckpt-0.pt loads strictly into a one-device FaceState, whose next step's loss is "
+        f"{float(m['loss']):.4f}; {cli_s:.1f} s of wall time")
+    log(f"phase 37 wall time {time.perf_counter() - t_phase:.1f} s; ranks sharing one card "
+        f"measure correctness, not scaling [{card}]")
+    return {"wav2vec_extractor": k3}
+
+
 def multi_device_phases(dev, tmp: str, wav10: str, card: str) -> dict:
-    """Phases 34-36; returns their kernels' launches."""
+    """Phases 34-37; returns their kernels' launches."""
     from talkshow_torch.pipeline import Pipeline
     train = phase34(dev, tmp, card)
     pipe = Pipeline.create(seed=0, device=dev)
     sampled = phase35(pipe, dev, wav10, card)
     served = phase36(pipe, dev, wav10, card)
-    launches = {k: sampled.get(k, 0) + served.get(k, 0) for k in KERNELS}
+    del pipe
+    face = phase37(dev, tmp, card)
+    launches = {k: sampled.get(k, 0) + served.get(k, 0) + face.get(k, 0) for k in KERNELS}
     launches["nearest_code"] += train["nearest_code"]
-    log("launches in phases 34-36: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    log("launches in phases 34-37: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     return launches
 
 
@@ -3776,7 +3919,8 @@ def main() -> int:
         path_launches[k] += new[k]
     k4_launches += new["nearest_code"]
 
-    # ---- phases 34-36: dp x tp training, sharded sampling, the mesh server ----
+    # ---- phases 34-37: dp x tp training, sharded sampling, the mesh server,
+    # the face step on the mesh --------------------------------------------------
     multi = multi_device_phases(torch.device("cuda", torch.cuda.current_device()), tmp, wav10,
                                 card)
     for k in KERNELS[:3]:

@@ -19,11 +19,28 @@ object stays, so the optimizer's references hold), and its module computes
 with the slice:
 - Conv1d / Conv2d / Linear (dim 0 = output channels), column-parallel:
   y = gather(conv(copy_to(x), W_r)) + b;
+- a grouped Conv1d / Conv2d (wav2vec's positional conv: 768 channels in
+  16 groups), column-parallel too: rank r's rows [a, b) are zero-padded
+  out to the whole groups they touch, those groups' input channels are
+  convolved with them, and the output is narrowed back to [a, b) before
+  the gather.  When tp divides the groups the rows are whole groups and
+  nothing is padded; otherwise (768 over tp = 3: 256 rows, 16 groups of 48)
+  a rank computes up to two groups' worth of rows it throws away, and no
+  other collective is needed;
 - ConvTranspose1d (dim 0 = input channels), row-parallel:
   y = reduce_from(conv_transpose(copy_to(x)[:, rows_r], W_r)) + b;
 - Embedding (dim 0 = rows): masked lookup of this rank's rows, reduce_from.
 Biases stay whole and replicated, as in JAX.  Modules reach this through
 `models.layers.dense` / `conv` / `embed` and their own forward.
+
+Frozen parameters (`requires_grad=False`: the face step's wav2vec conv
+extractor) stay whole on every rank and their modules keep their plain
+forward, although `param_spec` would split the 512-channel extractor
+convs and JAX does shard them.  They have no gradient and no optimizer
+moment, so a split saves only their own bytes; K3 (the frozen extractor of
+a whole-clip face step) reads whole tables, packed from the module; and
+the masked extractor of a bucketed batch would gather every split layer's
+output, seven gathers a step, for the same numbers.
 
 `unsharded(state)` gathers the whole parameters and optimizer moments for
 the length of a `with` block (checkpoints are written and read whole) and
@@ -127,6 +144,37 @@ def _column_forward(m: nn.Module, mesh: Mesh, x: torch.Tensor, dtype=None) -> to
     return y + m.bias.to(y.dtype).reshape((-1,) + (1,) * (y.dim() - 2))
 
 
+def _grouped_column_forward(m: nn.Module, mesh: Mesh, x: torch.Tensor,
+                            dtype=None) -> torch.Tensor:
+    """A grouped Conv1d / Conv2d with this rank's output channels [a, b):
+    the rows padded with zeros out to the groups they touch, those groups'
+    input channels convolved, the output narrowed back to [a, b) and
+    gathered; the input's gradient sums over tp."""
+    w = m.weight
+    n = w.shape[0]
+    out_per_group = n * mesh.tp // m.groups
+    a = mesh.tp_rank * n
+    g0, g1 = a // out_per_group, -(-(a + n) // out_per_group)
+    lead = a - g0 * out_per_group
+    w = F.pad(w, [0, 0] * (w.dim() - 1) + [lead, g1 * out_per_group - a - n])
+    in_per_group = w.shape[1]
+    x = copy_to(x, mesh.tp_group).narrow(1, g0 * in_per_group, (g1 - g0) * in_per_group)
+    conv = F.conv1d if isinstance(m, nn.Conv1d) else F.conv2d
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+    if dtype is not None and x.device.type == "cpu":
+        # as models.layers.conv: PyTorch's CPU bf16 grouped convolution is
+        # wrong at a few channels a group; sum the rounded operands in f32
+        y = conv(x.float(), w.float(), None, m.stride, m.padding, m.dilation,
+                 g1 - g0).to(dtype)
+    else:
+        y = conv(x, w, None, m.stride, m.padding, m.dilation, g1 - g0)
+    y = gather(y.narrow(1, lead, n), 1, mesh)
+    if m.bias is None:
+        return y
+    return y + m.bias.to(y.dtype).reshape((-1,) + (1,) * (y.dim() - 2))
+
+
 def _row_transpose_forward(m: nn.ConvTranspose1d, mesh: Mesh, x: torch.Tensor,
                            dtype=None) -> torch.Tensor:
     """ConvTranspose1d with this rank's input channels: partial outputs
@@ -153,9 +201,13 @@ def _row_lookup(m: nn.Embedding, mesh: Mesh, idx: torch.Tensor) -> torch.Tensor:
 def _shard_module(m: nn.Module, mesh: Mesh) -> None:
     """Route the module's compute through its tp slice (see module doc)."""
     if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
-        if getattr(m, "groups", 1) != 1:
-            raise NotImplementedError(f"tensor parallelism of a grouped {type(m).__name__}")
-        m.tp_forward = functools.partial(_column_forward, m, mesh)
+        if getattr(m, "groups", 1) == 1:
+            m.tp_forward = functools.partial(_column_forward, m, mesh)
+        elif m.padding_mode == "zeros":
+            m.tp_forward = functools.partial(_grouped_column_forward, m, mesh)
+        else:
+            raise NotImplementedError(f"tensor parallelism of a grouped {type(m).__name__} "
+                                      f"with padding_mode {m.padding_mode!r}")
     elif isinstance(m, nn.ConvTranspose1d):
         m.tp_forward = functools.partial(_row_transpose_forward, m, mesh)
     elif isinstance(m, nn.Embedding):
@@ -207,8 +259,9 @@ def shard_state(mesh: Mesh, state):
     """Put a train state on the mesh, in place: every train-mode
     BatchNorm takes its statistics over the global batch, every VQ-VAE its
     EMA sums, and the steps and optimizers reduce over the mesh
-    (`state.mesh`, `optimizer.mesh`); with tp > 1 every parameter that
-    `param_spec` splits keeps this rank's slice (optimizer moments too)."""
+    (`state.mesh`, `optimizer.mesh`); with tp > 1 every trained
+    parameter that `param_spec` splits keeps this rank's slice (optimizer
+    moments too); frozen ones stay whole (see the module doc)."""
     from talkshow_torch.models.layers import FlaxBatchNorm1d
     from talkshow_torch.models.vqvae import VQVAE
     modules, optimizers = state_parts(state)
@@ -223,7 +276,7 @@ def shard_state(mesh: Mesh, state):
             continue
         for name, m in list(model.named_modules()):
             for pname, p in list(m.named_parameters(recurse=False)):
-                if not param_spec(pname, p, mesh.tp):
+                if not (p.requires_grad and param_spec(pname, p, mesh.tp)):
                     continue
                 _shard_module(m, mesh)
                 with torch.no_grad():

@@ -15,7 +15,11 @@ as JAX's `reshape(dp, tp)` lays devices out.
   convolution's input channels) is dim 0 of the torch weight, and an
   embedding table's rows are dim 0 of both.  So a weight of two or more
   dims whose dim 0 is >= 512 and divisible by tp is split on dim 0;
-  everything else (biases, norms, narrow weights) is replicated.
+  everything else (biases, norms, narrow weights) is replicated.  The
+  exception is wav2vec's attention: flax's query / key / value kernels are
+  (C, heads, head_dim), whose last axis (64) JAX never splits, so the
+  port's q_proj / k_proj / v_proj weights stay whole (out_proj, whose flax
+  kernel is (heads, head_dim, C), splits as any Linear).
   `collectives.shard_state` applies it.
 
 A mesh without a process group (`make_mesh`) is a plain device grid: the
@@ -160,8 +164,11 @@ def param_spec(name: str, x: torch.Tensor, tp: int) -> tuple:
     """JAX's `_param_spec` on a torch parameter: ("tp", None, ...) when
     the tensor splits over tp on dim 0, else () (replicated)."""
     shape = tuple(getattr(x, "shape", ()))
-    if tp == 1 or len(shape) < 2 or name.split(".")[-1] != "weight":
+    parts = name.split(".")
+    if tp == 1 or len(shape) < 2 or parts[-1] != "weight":
         return ()
+    if len(parts) >= 3 and parts[-3] == "attention" and parts[-2] in ("q_proj", "k_proj", "v_proj"):
+        return ()       # flax's kernel is (C, heads, head_dim): its last axis is head_dim
     if shape[0] % tp == 0 and shape[0] >= TP_MIN_WIDTH:
         return ("tp",) + (None,) * (len(shape) - 1)
     return ()

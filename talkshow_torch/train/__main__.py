@@ -56,9 +56,14 @@ torchrun, which sets WORLD_SIZE, RANK and LOCAL_RANK:
 
 The process group's backend follows the devices: "nccl" when this host has
 a card for every rank (rank i on card LOCAL_RANK), "gloo" for CPU ranks or
-for ranks sharing fewer cards (a line says which).  The s2g_body_vq,
-s2g_body_pixel (token cache included), s2g_body_ae and s2g_LS3DCG steps
-run on the mesh; s2g_face raises NotImplementedError there.
+for ranks sharing fewer cards (a line says which).  Every stage runs on
+the mesh.  s2g_face takes whole clips (one a batch, K3 on every rank)
+under tp alone; with dp > 1 it needs `--face_bucket N --face_batch_size B`
+with B a multiple of dp, and every bucket's batches full (a batch whose
+rows do not split over dp raises ValueError, as JAX's device_put does):
+
+    torchrun --nproc_per_node 2 -m talkshow_torch.train \
+        --config_file face_tp2.json --synthetic     # "parallel": {"dp": 1, "tp": 2}
 
 Data: the SHOW layout under `--data_root` (or Data.data_root), the train
 split of `--speakers`, through `ShowDataset.from_root` with its cache at

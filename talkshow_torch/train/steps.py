@@ -51,16 +51,19 @@ optimizer, and a step updates them in place.
 
 On a dp x tp mesh (`state.mesh`, set by `parallel.collectives.shard_state`;
 JAX's sharded steps compute what its one-device step computes on the
-global batch) the body-VQ, body-pixel, body-AE and LS3DCG steps take this
-rank's rows and compute the one-process step on the global batch: each
-loss is this rank's term of the global mean (`Mesh.dp_mean`; the velocity
-and commitment terms count B x T elements), BatchNorm and the EMA
-quantizer reduce their statistics over dp, the optimizer sums the
-gradients over dp, the metrics are the global values (one all-reduce),
-and the body-pixel step's audio dropout is drawn for the global batch and
-sliced to this rank's rows.  The face step raises NotImplementedError on a
-mesh of more than one device: its SpecAugment and dropout masks are not
-yet sliced so.
+global batch) every step takes this rank's rows and computes the
+one-process step on the global batch: each loss is this rank's term of
+the global mean (`Mesh.dp_mean`; the velocity and commitment terms count
+B x T elements; the face step's masked losses divide by the real frames
+summed over dp), BatchNorm and the EMA quantizer reduce their statistics
+over dp, the optimizer sums the gradients over dp, the metrics are the
+global values (one all-reduce), and the random masks (the body-pixel
+step's audio dropout, the face step's SpecAugment starts and dropout) are
+drawn for the global batch and sliced to this rank's rows, so every rank,
+seeded alike, draws the one-process step's bits.  The face step's frozen
+extractor stays whole on every rank (`shard_state` splits no frozen
+weight), so K3 runs on whole tables there; a bucketed batch runs the plain
+masked extractor, as on one device.
 """
 from __future__ import annotations
 
@@ -414,7 +417,9 @@ class FaceState:
     requires_grad off, no optimizer state), the optimizer of the rest and
     the step.  `tables`: K3's tables of the frozen extractor, packed on
     first use after each weight load: f32, or bf16 when the wav2vec
-    config computes in bf16 (`--bf16`), the tables inference uses."""
+    config computes in bf16 (`--bf16`), the tables inference uses.  On a
+    tp mesh the extractor stays whole, so the tables are whole on every
+    rank."""
     face: FaceGenerator
     optimizer: SkipNonfiniteSGD
     step: int = 0
@@ -454,17 +459,36 @@ class FaceState:
         return self
 
 
-def face_losses(pred: torch.Tensor, gt: torch.Tensor, valid_frames=None):
+def face_losses(pred: torch.Tensor, gt: torch.Tensor, valid_frames=None, mesh=None):
     """(L1 of the first 6 channels, MSE of the last 100), means over every
     frame, or over real frames only when valid_frames (B,) is given
-    (steps.py:287-297)."""
+    (steps.py:287-297); on a mesh, this rank's terms of the global means
+    (the real frames counted over every dp rank)."""
     d6, d100 = pred[..., :6] - gt[..., :6], pred[..., -100:] - gt[..., -100:]
     if valid_frames is None:
-        return d6.abs().mean(), (d100 * d100).mean()
+        return global_mean(d6.abs(), mesh), global_mean(d100 * d100, mesh)
     m = (torch.arange(gt.shape[1], device=gt.device)[None, :, None]
          < valid_frames.to(gt.device)[:, None, None]).to(pred.dtype)
     n = m.sum()
+    if mesh is not None:
+        n = mesh.dp_sum_(n)
     return (d6.abs() * m).sum() / (n * 6), (d100 * d100 * m).sum() / (n * 100)
+
+
+def draw_face_masks(B: int, T: int, width: int, generator: torch.Generator, device,
+                    mesh=None, spec=None, keep=None) -> tuple:
+    """The stochastic face step's SpecAugment starts (B, num_masks) and
+    dropout keep mask (B, T, width) of this rank's B rows: each one not
+    given is drawn (starts first) for the global batch of B x dp rows, as
+    JAX draws for the global batch shape (steps.py:266-273), and sliced to
+    this dp rank's rows."""
+    dp, rank = (1, 0) if mesh is None else (mesh.dp, mesh.dp_rank)
+    rows = slice(rank * B, (rank + 1) * B)
+    if spec is None:
+        spec = draw_spec_starts(B * dp, T, generator, device)[rows]
+    if keep is None:
+        keep = draw_drop_keep((B * dp, T, width), generator, device)[rows]
+    return spec, keep
 
 
 def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: float = 0.9,
@@ -474,10 +498,12 @@ def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: f
     batch: 'waveform' (B, N), 'id_onehot' (B, classes), 'gt' (B, T, >= 106);
     optional 'valid_samples' / 'valid_frames' (B,) for length-bucketed
     batches; in stochastic mode optional 'spec_starts' (B, num_masks) and
-    'drop_keep' (B, T, 256) bool, else drawn from `generator`.
-    stochastic=False turns dropout and SpecAugment off, as in JAX.  Metrics:
-    MSELoss (the L1 term, the reference's name), exp_loss, loss, grad (the
-    global norm before the clip; 0-dim tensors), nonfinite_skips (int)."""
+    'drop_keep' (B, T, 256) bool, else drawn from `generator`
+    (`draw_face_masks`).  On a mesh these are this rank's rows of the
+    global batch.  stochastic=False turns dropout and SpecAugment off, as in
+    JAX.  Metrics: MSELoss (the L1 term, the reference's name), exp_loss,
+    loss, grad (the global norm before the clip; 0-dim tensors; global on a
+    mesh), nonfinite_skips (int)."""
 
     def init_state(generator: torch.Generator, device="cuda") -> FaceState:
         init_weights_(face, generator)
@@ -491,10 +517,6 @@ def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: f
         return FaceState(face, SkipNonfiniteSGD(params, learning_rate, momentum, max_grad_norm))
 
     def step(state: FaceState, batch, generator: torch.Generator | None = None):
-        if state.mesh is not None and state.mesh.size > 1:
-            raise NotImplementedError("make_face_step: the face step does not run on a dp x tp "
-                                      "mesh yet (its SpecAugment and dropout masks are not "
-                                      "drawn for the global batch)")
         gt = batch["gt"]
         B, T = gt.shape[:2]
         vs, vf = batch.get("valid_samples"), batch.get("valid_frames")
@@ -505,24 +527,22 @@ def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: f
                 raise ValueError("the stochastic face step draws SpecAugment and dropout from "
                                  "a generator: pass one, or batch['spec_starts'] and "
                                  "batch['drop_keep']")
-            if spec is None:
-                spec = draw_spec_starts(B, T, generator, gt.device)
-            if keep is None:
-                keep = draw_drop_keep((B, T, face.audio_feature_map.out_features), generator,
-                                      gt.device)
+            spec, keep = draw_face_masks(B, T, face.audio_feature_map.out_features, generator,
+                                         gt.device, state.mesh, spec, keep)
         model = state.face.train()
         feats = frozen_features(model.audio_encoder, batch["waveform"], vs, tables=state.tables)
         opt = state.optimizer
         opt.zero_grad()
         pred = model.train_forward(feats, batch["id_onehot"], T, vs, vf, spec, keep)
-        l1, mse = face_losses(pred, gt, vf)
+        l1, mse = face_losses(pred, gt, vf, state.mesh)
         loss = l1 + mse
         loss.backward()
         norm = opt.grad_norm()
+        metrics = _global({"MSELoss": l1.detach(), "exp_loss": mse.detach(),
+                           "loss": loss.detach()}, state.mesh)
         opt.step(norm)
         state.step += 1
-        return state, {"MSELoss": l1.detach(), "exp_loss": mse.detach(), "loss": loss.detach(),
-                       "grad": norm.detach(), "nonfinite_skips": opt.nonfinite_count}
+        return state, {**metrics, "grad": norm.detach(), "nonfinite_skips": opt.nonfinite_count}
 
     return init_state, step
 

@@ -48,10 +48,16 @@ rows on its device; the step generator is seeded alike on every rank.
 The token cache holds the grids this rank encoded (its rows of each
 missed batch, and at the end of epoch 1 every window, in batches of its
 share of the step); whether a batch hits is agreed over the ranks by one
-all-reduce of the miss flag, so every rank runs the same step.  Rank 0
-alone writes config.json, the log, history.json and the checkpoints,
-which hold whole parameters (`collectives.unsharded`); `resume` loads on
-every rank.  The metrics are the global ones.
+all-reduce of the miss flag, so every rank runs the same step.  The face
+stage's batches split over dp as any other (`valid_samples` and
+`valid_frames` too); a batch whose rows do not split raises ValueError in
+`batch_rows`, as JAX's `device_put` raises for it: whole clips (one a
+batch) under dp > 1, which `setup` refuses at once, or a bucket's short
+last batch.  Under tp alone whole clips run, and with them K3 on every
+rank.  Rank 0 alone writes config.json, the log, history.json and the
+checkpoints, which hold whole parameters (`collectives.unsharded`), so a
+checkpoint resumes on a mesh or on one device; `resume` loads on every
+rank.  The metrics are the global ones.
 """
 from __future__ import annotations
 
@@ -148,9 +154,10 @@ class Trainer:
             self.mesh = global_mesh(pc.dp, pc.tp, device=self.device)
         if self.mesh is not None:
             self.device = self.mesh.device
-            if self.batch_mode == "face_clips":
-                raise NotImplementedError("make_face_step (s2g_face) does not run on a dp x tp "
-                                          "mesh yet: train the face stage on one device")
+            if self.batch_mode == "face_clips" and not self.face_bucket_frames and self.mesh.dp > 1:
+                raise ValueError(f"whole-clip face batches hold one clip, which does not split "
+                                 f"over dp={self.mesh.dp}: pass --face_bucket and a "
+                                 f"--face_batch_size that is a multiple of dp")
         os.makedirs(self.run_dir, exist_ok=True)
         if self.lead:
             with open(os.path.join(self.run_dir, "config.json"), "w") as f:

@@ -3,8 +3,11 @@ sampling of pipeline.py and serving.py, the trainer's config.parallel)
 against the JAX package on the CPU, whose tests run on 8 virtual devices.
 
 - `param_spec` splits exactly the tensors JAX's `_param_spec` shards, on
-  the 512-hidden VQ-VAE and a prior over 512 codes (names matched through
-  `talkshow_torch.convert`: each flax leaf is 1 where JAX shards it).
+  the 512-hidden VQ-VAE, a prior over 512 codes and the face model at the
+  widths of tests/test_torch_parallel_face.py (tp 2 and 4; names matched
+  through `talkshow_torch.convert`: each flax leaf is 1 where JAX shards
+  it): wav2vec's out_proj, FFN, feature projection, positional conv and
+  first extractor conv, never its q / k / v projections.
 - `make_mesh` / `global_mesh` raise where JAX's do.
 - `generate_body_sharded` on a (dp 4, tp 2) mesh of CPU devices, fed JAX's
   per-shard gumbel blocks (shard i: split(PRNGKey(seed), 4)[i]): tokens
@@ -15,8 +18,10 @@ against the JAX package on the CPU, whose tests run on 8 virtual devices.
   column within 1e-4 (the serving tests' motion bound); a flush
   reproduces per seed; ValueError at max_batch 3.
 - `Trainer` with config.parallel dp * tp > 1 and no process group raises,
-  naming torchrun; the face step, not yet ported to a mesh, raises
-  NotImplementedError there.
+  naming torchrun.  A face batch whose rows do not split over dp raises
+  ValueError: whole clips under dp 2 at `setup`, a bucket's 3-row batch in
+  `device_batch`, as JAX's device_put of such a batch raises.  (The face
+  step on a mesh itself: tests/test_torch_parallel_face.py.)
 """
 import numpy as np
 import jax
@@ -88,6 +93,36 @@ def test_param_spec_matches_jax_on_a_prior():
     _assert_same_split(GatedPixelCNN(input_dim=512, dim=16, n_layers=3), split)
     assert {"embedding.weight", "out_hidden.weight", "out_logits.weight"} <= set(
         k for k, v in split.items() if bool((v == 1).all()))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_param_spec_matches_jax_on_the_face_model(tp):
+    from talkshow_tpu.models import face as jface
+    from talkshow_tpu.models import wav2vec as jw2v
+    from talkshow_torch.models.face import FaceGenerator
+    from talkshow_torch.models.wav2vec import Wav2Vec2Config
+    from torch_dist_check import FACE_WIDTHS
+    cfg = FACE_WIDTHS["toy"]["cfg"]
+    jm = jface.FaceGenerator(wav2vec_cfg=jw2v.Wav2Vec2Config(**cfg))
+    variables = jax.jit(jm.init, static_argnums=3)(jax.random.PRNGKey(0), jnp.zeros((1, 16000)),
+                                                    jnp.zeros((1, 4)), 30)
+
+    def leaf(path, x):
+        keys = tuple(str(k.key) for k in path)
+        return np.full(x.shape, 1.0 if jmesh._param_spec(keys, x, tp) != P() else 0.0,
+                       np.float32)
+
+    split_sd = convert.convert_face({"params": jax.tree_util.tree_map_with_path(
+        leaf, variables["params"])})
+    split = {name for name, t in split_sd.items() if t.numel() and bool((t == 1).all())}
+    module = FaceGenerator(Wav2Vec2Config(**cfg))
+    assert {name for name, p in module.named_parameters() if param_spec(name, p, tp)} == split
+    enc = "audio_encoder.encoder."
+    assert {enc + "pos_conv_embed.conv.weight", enc + "layers.0.attention.out_proj.weight",
+            enc + "layers.1.feed_forward.intermediate_dense.weight",
+            "audio_encoder.feature_extractor.conv_layers.0.conv.weight",
+            "audio_encoder.feature_projection.projection.weight"} <= split
+    assert not any(n.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight")) for n in split)
 
 
 def test_meshes_raise_where_jax_raises(monkeypatch):
@@ -212,14 +247,34 @@ def test_trainer_without_process_group_raises(tmp_path):
         Trainer(cfg, ds, init, step, run_dir=str(tmp_path / "run"), device="cpu").setup()
 
 
-def test_face_step_on_a_mesh_raises():
+def test_face_batch_that_does_not_split_over_dp_raises(tmp_path):
+    """Whole clips (one a batch) under dp 2 raise at `setup`, naming
+    --face_bucket; a bucket's 3-row batch raises in `device_batch`
+    (`batch_rows`); JAX's device_put of the same (1, N) batch over dp 2
+    raises ValueError too."""
+    from talkshow_torch.config import face_config
+    from talkshow_torch.data.dataset import synthetic_face_dataset
     from talkshow_torch.models.face import FaceGenerator
     from talkshow_torch.models.wav2vec import Wav2Vec2Config
-    from talkshow_torch.parallel.collectives import shard_state
     from talkshow_torch.train.steps import make_face_step
     from test_torch_harness import TINY
+    cfg = face_config()
+    cfg.parallel.dp = 2
+    ds = synthetic_face_dataset(num_clips=3, frames=30, bucketed=True)
     init, step = make_face_step(FaceGenerator(Wav2Vec2Config(**TINY)))
-    state = init(torch.Generator().manual_seed(0), "cpu")
-    shard_state(make_mesh(dp=2, devices=[torch.device("cpu")] * 2), state)
-    with pytest.raises(NotImplementedError, match="make_face_step"):
-        step(state, {"gt": torch.zeros(2, 6, 106)}, torch.Generator())
+    mesh = make_mesh(dp=2, devices=[torch.device("cpu")] * 2)
+    whole = Trainer(cfg, ds, init, step, run_dir=str(tmp_path / "whole"), device="cpu",
+                    needs_rng=True, batch_mode="face_clips", mesh=mesh)
+    with pytest.raises(ValueError, match="--face_bucket"):
+        whole.setup()
+    bucketed = Trainer(cfg, ds, init, step, run_dir=str(tmp_path / "bucketed"), device="cpu",
+                       needs_rng=True, batch_mode="face_clips", face_bucket_frames=64,
+                       face_batch_size=4, mesh=mesh).setup()
+    batch = next(iter(bucketed.batch_iter(0)))
+    assert batch["waveform"].shape[0] == 3 and "valid_frames" in batch
+    with pytest.raises(ValueError, match="does not split over dp=2"):
+        bucketed.device_batch(batch, [])
+    clip = next(iter(synthetic_face_dataset(num_clips=1, frames=30).face_batches()))
+    jm = jmesh.make_mesh(dp=2, tp=4)
+    with pytest.raises(ValueError, match="divisible by 2"):
+        jax.device_put(jnp.asarray(clip["waveform"]), jmesh.batch_sharding(jm, 2))

@@ -1,6 +1,6 @@
 """Multi-process checks of the port's dp x tp training steps, and their
-launcher (tests/test_torch_parallel_dist.py and chip_smoke.py's phase 34
-run them).
+launcher (tests/test_torch_parallel_dist.py, tests/test_torch_parallel_face.py
+and chip_smoke.py's phases 34 and 37 run them).
 
     python tests/torch_dist_check.py --world 4 --layouts 4x1 2x2 \\
         --out DIR [--device cpu] [--width toy|full]
@@ -26,6 +26,28 @@ body-AE and one LS3DCG step against their one-process steps
 (`other_steps_case`), then the body-pixel trainer with the token cache for
 two epochs (`pixel_case`).  `--nccl_probe` checks one all_reduce in a
 one-rank NCCL group.
+
+The face step (stage 3; tests/test_torch_parallel_face.py and chip_smoke.py's
+phase 37):
+
+    python tests/torch_dist_check.py --world 4 --face 4x1 1x4 \\
+        --face_fault 2x2 --face_extra 2x2 --face_trainer 1x4 --out DIR \\
+        [--device cpu] [--face_width toy|full] [--face_state S] [--face_data D]
+
+`--face` runs `face_case` on each layout "DxP", `--face_steps` steps from
+one state (`--face_state`: a converted JAX face state) on global batches:
+one whole clip a step where D = 1, else a bucketed batch of clips split
+over dp; `--face_data` gives those batches with JAX's masks, else the
+masks are drawn in the step from a generator seeded alike on every rank.
+Rank 0 holds each step against the one-process step on the global batch
+with the same global masks, beside that step computed in another order
+(`face_spread_run`), and every rank writes its losses, its K3 and plain
+extractor calls, fingerprints of its whole state and of its frozen
+extractor.  `--face_fault LAYOUT` plants the fault above for one step;
+`--face_extra LAYOUT` runs one `--bf16` face step there and then the
+grouped column-parallel conv at tp 2 and 3 against the whole conv
+(`grouped_conv_case`); `--face_trainer LAYOUT` the face trainer's epoch,
+its checkpoint (<out>/face_run) and a resume on the mesh.
 """
 from __future__ import annotations
 
@@ -140,13 +162,21 @@ def body_vq_state(width: dict, device, state_path: str | None = None):
     return state, step
 
 
+def models_of(state) -> dict:
+    """{part: module} of a train state: a body state's `models`, or the
+    face state's generator as "face"."""
+    return state.models if hasattr(state, "models") else {"face": state.face}
+
+
 def grads_of(state) -> dict:
-    """{part: {name: gradient}} on the host (whole on a tp mesh)."""
+    """{part: {name: gradient}} on the host (whole on a tp mesh) of every
+    parameter that has one (a frozen one has none)."""
     from talkshow_torch.parallel.collectives import whole
     mesh = getattr(state, "mesh", None)
     return {part: {k: (whole(p.grad, mesh) if getattr(p, "tp_sharded", False)
-                       else p.grad).detach().cpu().clone() for k, p in m.named_parameters()}
-            for part, m in state.models.items()}
+                       else p.grad).detach().cpu().clone() for k, p in m.named_parameters()
+                   if p.grad is not None}
+            for part, m in models_of(state).items()}
 
 
 def fingerprint(sd: dict) -> str:
@@ -163,9 +193,10 @@ def fingerprint(sd: dict) -> str:
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor, scale: float | None = None) -> float:
-    """max|a - b| over the scale (default max|b|; 1 for an all-zero b)."""
+    """max|a - b| over the scale (default max|b|; 1 for an all-zero b),
+    in f64 on a's device."""
     scale = scale if scale is not None else b.abs().max().item()
-    return (a.double().cpu() - b.double().cpu()).abs().max().item() / (scale or 1.0)
+    return (a.double() - b.to(a.device).double()).abs().max().item() / (scale or 1.0)
 
 
 #: the EMA quantizer's decay (ops/vq.quantize_train)
@@ -189,10 +220,12 @@ def state_errors(before: dict, after: dict, want: dict, names: dict, lr: float) 
       batch-statistics BatchNorm), which Adam moves by lr with either sign;
     - update_l2: the largest over parts of |change - reference's| over
       |reference's change| in L2."""
-    out = {"bn": max(_rel(after["models"][part][k], v) for part, sd in want["models"].items()
-                     for k, v in sd.items() if k.endswith(("running_mean", "running_var"))),
-           "vq": max(_rel(after["vq"][part][k], v) for part, st in want["vq"].items()
-                     for k, v in st.items() if torch.is_tensor(v) and v.is_floating_point())}
+    out = {"bn": max((_rel(after["models"][part][k], v) for part, sd in want["models"].items()
+                      for k, v in sd.items() if k.endswith(("running_mean", "running_var"))),
+                     default=0.0),
+           "vq": max((_rel(after["vq"][part][k], v) for part, st in want["vq"].items()
+                      for k, v in st.items() if torch.is_tensor(v) and v.is_floating_point()),
+                     default=0.0)}
     off = n = 0
     out["update_l2"] = 0.0
     for part, ks in names.items():
@@ -217,7 +250,9 @@ def _errors(ref: tuple, before: dict, after: dict, losses: dict, grads: dict,
     against the reference step's (state_dict, losses, grads)."""
     ref_sd, ref_losses, ref_grads = ref
     out = {"losses": max(_rel(torch.tensor(losses[k]), torch.tensor(v))
-                         for k, v in ref_losses.items())}
+                         for k, v in ref_losses.items() if k != "grad"),
+           "grad_norm": (_rel(torch.tensor(losses["grad"]), torch.tensor(ref_losses["grad"]))
+                         if "grad" in ref_losses else 0.0)}
     out["grads"] = 0.0
     sq = ref_sq = 0.0
     for part, gs in ref_grads.items():
@@ -245,7 +280,9 @@ def _stats(sd: dict) -> dict:
 
 
 def param_names(state) -> dict:
-    return {part: [k for k, _ in m.named_parameters()] for part, m in state.models.items()}
+    """{part: names of the trained parameters}."""
+    return {part: [k for k, p in m.named_parameters() if p.requires_grad]
+            for part, m in models_of(state).items()}
 
 
 def reference_runs(before: dict, ref_state, ref_step, batch: torch.Tensor) -> list:
@@ -279,7 +316,8 @@ def step_errors(before: dict, after: dict, losses: dict, grads: dict, runs: list
 
     Returns {"mesh": errors, "f32": the reordered run's errors}, errors
     being `state_errors`' and:
-    - losses: relative;
+    - losses: relative (the gradients' global norm, where the step reports
+      one, apart as grad_norm);
     - grads: over the part's largest gradient (a conv bias under
       batch-statistics BatchNorm has a true gradient of 0, so its own
       largest is rounding noise); grads_l2, the relative L2 error;
@@ -386,8 +424,8 @@ def one_process_case(width: dict, device, state_path: str, jax_paths: list) -> l
 
 
 #: the bound of each error where twice the row-order spread is smaller
-FLOORS = dict(losses=1e-5, bn=1e-5, vq=1e-5, grads=1e-5, grads_l2=1e-5, update_off=1e-3,
-              update_l2=1e-2)
+FLOORS = dict(losses=1e-5, grad_norm=1e-5, bn=1e-5, vq=1e-5, grads=1e-5, grads_l2=1e-5,
+              update_off=1e-3, update_l2=1e-2)
 
 #: a step that moved rows to other codes: at most this share of the rows
 #: moved, its losses within 1e-3, and the L2 error of its parameters'
@@ -398,10 +436,27 @@ FLOORS = dict(losses=1e-5, bn=1e-5, vq=1e-5, grads=1e-5, grads_l2=1e-5, update_o
 MOVED = dict(rows=1e-2, losses=1e-3, update_l2=2e-1)
 
 
+#: a face step in which a ReLU input within rounding of 0 took the other
+#: branch on the mesh than in the reference (a tp slice's GEMM or a dp
+#: rank's one-row batch sums in another order): the function is continuous
+#: there, so the losses stay at their floor, but that element's gradient,
+#: and so the gradients' norm, moves.  The face loss is a mean over a few
+#: thousand elements, so one element's gradient weighs far more than in
+#: the body-VQ step's mean.  Seen: one flip in the expression head of the
+#: toy model moved the gradients by 8.7e-5 of the largest (5.9e-5 in L2) on
+#: the CPU; at full width on the card, the fourth (dp 1, tp 2) step read
+#: 1.2e-3 (9.9e-4 in L2, its norm 8.7e-5), the same step computed in
+#: another order 6.7e-4 (3.9e-4), with the losses within 1.2e-7.  A tp
+#: slice left un-updated reads 0.33 (toy) and 0.63 (full) in update_l2
+KINKS = dict(losses=FLOORS["losses"], grad_norm=1e-2, grads=1e-2, grads_l2=1e-2,
+             update_off=FLOORS["update_off"], update_l2=1e-2)
+
+
 def step_failures(result: dict) -> list:
     """The steps of one layout's result that miss their bounds: every error
     within twice the row-order spread or its FLOORS entry; a step that
-    moved rows to other codes within MOVED."""
+    moved rows to other codes within MOVED; a face step (`result["relu"]`)
+    that misses those bounds within KINKS."""
     bad = []
     for s, errors in enumerate(result["errors"]):
         e, spread = errors["mesh"], errors["f32"]
@@ -410,6 +465,8 @@ def step_failures(result: dict) -> list:
                   and e["update_l2"] <= MOVED["update_l2"])
         else:
             ok = all(e[k] <= max(floor, 2 * spread[k]) for k, floor in FLOORS.items())
+            if not ok and result.get("relu"):
+                ok = all(e[k] <= max(bound, 2 * spread[k]) for k, bound in KINKS.items())
         if not ok:
             bad.append(f"step {s}: mesh {e}, row-order spread {spread}")
     return bad
@@ -525,6 +582,316 @@ def pixel_case(run_dir: str, device, dp: int, tp: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the face step (stage 3)
+# ---------------------------------------------------------------------------
+
+#: face-step widths: toy (CPU tests: 512 hidden, 8 heads, FFN 1024, a
+#: 512-channel first extractor conv and a 512-wide positional conv of 16
+#: taps in 16 groups, so that tp splits what JAX shards, a frozen weight
+#: included; 1 s clips) and full (wav2vec 2.0 base with the face heads on
+#: 8 s clips).  `batch`: the global batch of a bucketed layout (dp > 1),
+#: padded to `bucket` frames; whole clips run at batch 1.
+FACE_WIDTHS = {
+    "toy": dict(cfg=dict(hidden_size=512, num_layers=2, num_heads=8, intermediate_size=1024,
+                         conv_dim=(512, 64), conv_kernel=(10, 3), conv_stride=(5, 2),
+                         num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=16),
+                seconds=1.0, batch=4, bucket=32, lr=1e-3, max_norm=1.0),
+    "full": dict(cfg={}, seconds=8.0, batch=2, bucket=32, lr=1e-3, max_norm=5.0),
+}
+#: audio samples per frame, rounded up (data/dataset.face_batches)
+SAMPLES_PER_FRAME = -(-16000 // 30)
+#: the seed of step s's mask generator is FACE_SEED + s
+FACE_SEED = 100
+
+
+def face_state(width: dict, device, state_path: str | None = None, dtype=None):
+    """(state, step) of the stochastic face stage at these widths (compute
+    dtype `dtype`: None for f32, or bf16 as `--bf16`), from
+    torch.Generator(0), or from a converted JAX state (`state_path`: a
+    torch.save of convert.from_jax_face_state's output)."""
+    from talkshow_torch.models.face import FaceGenerator
+    from talkshow_torch.models.wav2vec import Wav2Vec2Config
+    from talkshow_torch.train.steps import make_face_step
+    init, step = make_face_step(FaceGenerator(Wav2Vec2Config(**width["cfg"], dtype=dtype)),
+                                width["lr"], 0.9, width["max_norm"])
+    state = init(torch.Generator().manual_seed(0), device)
+    if state_path:
+        state.load_converted(torch.load(state_path, map_location="cpu", weights_only=False))
+    return state, step
+
+
+def face_global_batches(width: dict, steps: int, bucketed: bool, seed: int = 7) -> list:
+    """`steps` global face batches (numpy), alike on every rank: one whole
+    clip, or `width["batch"]` clips of 3 frames fewer each padded to the
+    bucket, with valid_samples / valid_frames as face_batches gives them."""
+    rng = np.random.default_rng(seed)
+    N = int(16000 * width["seconds"])
+    T = N * 30 // 16000
+    B = width["batch"] if bucketed else 1
+    out = []
+    for _ in range(steps):
+        ids = np.zeros((B, 4), np.float32)
+        ids[np.arange(B), np.arange(B) % 4] = 1.0
+        wav = rng.standard_normal((B, N)).astype(np.float32)
+        gt = (0.3 * rng.standard_normal((B, T, 265))).astype(np.float32)
+        if not bucketed:
+            out.append({"waveform": wav, "id_onehot": ids, "gt": gt})
+            continue
+        tb = -(-T // width["bucket"]) * width["bucket"]
+        frames = np.array([T - 3 * j for j in range(B)], np.int32)
+        samples = (frames * 16000 // 30).astype(np.int32)
+        pwav = np.zeros((B, tb * SAMPLES_PER_FRAME), np.float32)
+        pgt = np.zeros((B, tb, 265), np.float32)
+        for j in range(B):
+            pwav[j, :samples[j]] = wav[j, :samples[j]]
+            pgt[j, :frames[j]] = gt[j, :frames[j]]
+        out.append({"waveform": pwav, "id_onehot": ids, "gt": pgt, "valid_samples": samples,
+                    "valid_frames": frames})
+    return out
+
+
+def face_stats(state) -> dict:
+    """A copy of a face state's generator and SGD momentum (whole on a tp
+    mesh inside `unsharded`) in the layout `state_errors` reads: parts
+    "face" and "momentum", no codebooks."""
+    sgd = state.optimizer.inner
+    mom = {k: sgd.state[p]["momentum_buffer"] for k, p in state.face.named_parameters()
+           if "momentum_buffer" in sgd.state.get(p, {})}
+    return copy.deepcopy({"models": {"face": state.face.state_dict(), "momentum": mom},
+                          "vq": {}})
+
+
+def _face_extra_errors(after: dict, ref: dict, lr: float) -> dict:
+    """The bounds tests/test_torch_bf16.py reads: the momentum's error over
+    the reference's largest, the parameters' (masters') over lr times it."""
+    top = max((v.abs().max().item() for v in ref["models"]["momentum"].values()), default=0.0)
+    mom = max((_rel(after["models"]["momentum"][k], v, top or 1.0)
+               for k, v in ref["models"]["momentum"].items()), default=0.0)
+    masters = max(_rel(after["models"]["face"][k], v, lr * (top or 1.0))
+                  for k, v in ref["models"]["face"].items())
+    return {"momentum": mom, "masters": masters}
+
+
+def face_spread_run(ref_state, batch: dict) -> tuple:
+    """The one-process face step on the global batch (a dict of tensors
+    with its masks) computed in another order: for several rows, the
+    forward and backward taken one row at a time, last row first, the
+    gradients summed before the clip and the SGD step (one row a forward is
+    what a dp rank of one row runs); for one row, that row twice in one
+    batch (other GEMM shapes).  Both are the same function as the step: its
+    losses are sums over the rows divided by the count of their frames.
+    The distance of this run from the step is what f32 rounding makes of
+    this step; in particular a ReLU whose input lies within rounding of 0
+    may take the other branch here, as on the mesh (one in the expression
+    head moved that conv's gradient by 6.5e-4 of the largest on the CPU at
+    toy width), which reversing the rows of a batch never shows.
+    -> (face_stats, losses, grads)."""
+    from talkshow_torch.models.wav2vec_fused import frozen_features
+    model, opt = ref_state.face.train(), ref_state.optimizer
+    B, T = batch["gt"].shape[:2]
+    chunks = [[r] for r in range(B - 1, -1, -1)] if B > 1 else [[0, 0]]
+    vf = batch.get("valid_frames")
+    n = sum(float(vf[c].sum()) if vf is not None else float(len(c) * T) for c in chunks)
+    opt.zero_grad()
+    l1_sum = mse_sum = 0.0
+    for rows in chunks:
+        x = {k: v[rows] for k, v in batch.items()}
+        vs = x.get("valid_samples")
+        feats = frozen_features(model.audio_encoder, x["waveform"], vs, tables=ref_state.tables)
+        pred = model.train_forward(feats, x["id_onehot"], T, vs, x.get("valid_frames"),
+                                   x["spec_starts"], x["drop_keep"])
+        gt = x["gt"]
+        m = torch.ones_like(gt[..., :1]) if vf is None else (
+            torch.arange(T, device=gt.device)[None, :, None] < x["valid_frames"][:, None, None]
+        ).to(pred.dtype)
+        d6, d100 = pred[..., :6] - gt[..., :6], pred[..., -100:] - gt[..., -100:]
+        l1, mse = (d6.abs() * m).sum() / (n * 6), (d100 * d100 * m).sum() / (n * 100)
+        (l1 + mse).backward()
+        l1_sum, mse_sum = l1_sum + l1.detach(), mse_sum + mse.detach()
+    norm = opt.grad_norm()
+    opt.step(norm)
+    ref_state.step += 1
+    losses = {"MSELoss": float(l1_sum), "exp_loss": float(mse_sum),
+              "loss": float(l1_sum + mse_sum), "grad": float(norm)}
+    return face_stats(ref_state), losses, grads_of(ref_state)
+
+
+def face_reference_runs(before: dict, ref_state, ref_step, batch: dict) -> list:
+    """[the one-process step on the global batch, `face_spread_run`],
+    each from `before` (a whole state_dict): (face_stats, losses, grads)."""
+    ref_state.load_state_dict(copy.deepcopy(before))
+    ref_state, m = ref_step(ref_state, batch)
+    runs = [(face_stats(ref_state), {k: float(v) for k, v in m.items() if k != "nonfinite_skips"},
+             grads_of(ref_state))]
+    ref_state.load_state_dict(copy.deepcopy(before))
+    return runs + [face_spread_run(ref_state, batch)]
+
+
+def face_case(dp: int, tp: int, width: dict, device, steps: int, state_path: str | None = None,
+              data: list | None = None, fault: bool = False, dtype=None) -> dict:
+    """This rank's run of `steps` face steps on a (dp, tp) mesh from one
+    state, on global batches (`data`, numpy with the masks JAX drew,
+    `spec_starts` and `drop_keep`; default `face_global_batches`, bucketed
+    where dp > 1, the masks drawn in the step from a generator seeded
+    FACE_SEED + s on every rank): global losses, K3 and plain-extractor
+    calls, step times, fingerprints of the whole generator and momentum, the
+    frozen extractor's shapes and bytes; rank 0 also holds every step
+    against the one-process step from the same state on the global batch
+    with the global masks (the one-process masks drawn for the global batch
+    from the same seed), beside that step computed in another order
+    (`face_reference_runs`; `step_errors` with `face_spread_run` as the
+    spread), plus `_face_extra_errors`.
+    `fault`: the last tp rank puts its parameter slices back after every
+    optimizer step."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.parallel.collectives import _sharded_params, shard_state, unsharded
+    from talkshow_torch.parallel.multihost import global_mesh, make_global_batch
+    from talkshow_torch.train.steps import draw_face_masks
+    mesh = global_mesh(dp, tp, device=device)
+    state, step = face_state(width, mesh.device, state_path, dtype)
+    ext = state.face.audio_encoder.feature_extractor
+    whole_shapes = {k: tuple(v.shape) for k, v in ext.state_dict().items()}
+    shard_state(mesh, state)
+    ext_bytes = fingerprint({"models": {"ext": ext.state_dict()}, "vq": {}})
+    if mesh.rank == 0:
+        ref_state, ref_step = face_state(width, mesh.device, dtype=dtype)
+    batches = data or face_global_batches(width, steps, dp > 1)
+    width_keep = state.face.audio_feature_map.out_features
+    out = {"losses": [], "ms": [], "errors": [], "fingerprints": [], "k3": 0, "k3_plain": 0,
+           "shape": mesh.shape, "relu": True}
+    for s in range(steps):
+        with unsharded(state):
+            before = copy.deepcopy(state.state_dict()) if mesh.rank == 0 else None
+        gbatch = batches[s]
+        local = make_global_batch(mesh, gbatch)
+        gen = None
+        if "spec_starts" not in gbatch:
+            gen = torch.Generator(device=mesh.device).manual_seed(FACE_SEED + s)
+        planted = fault and mesh.tp_rank == mesh.tp - 1
+        kept = [p.detach().clone() for p in _sharded_params(state)] if planted else []
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        n3, p3, t0 = counts["wav2vec_extractor"], counts["extractor_plain"], time.perf_counter()
+        state, m = step(state, local, gen)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["k3"] += counts["wav2vec_extractor"] - n3
+        out["k3_plain"] += counts["extractor_plain"] - p3
+        with torch.no_grad():
+            for p, k in zip(_sharded_params(state), kept):
+                p.copy_(k)
+        loss = {k: float(v) for k, v in m.items() if k != "nonfinite_skips"}
+        out["losses"].append(loss)
+        grads = grads_of(state)
+        with unsharded(state):
+            after = face_stats(state)
+        out["fingerprints"].append(fingerprint(after))
+        if mesh.rank == 0:
+            ref_batch = {k: torch.as_tensor(v, device=mesh.device) for k, v in gbatch.items()}
+            if gen is not None:
+                B, T = gbatch["gt"].shape[:2]
+                ref_batch["spec_starts"], ref_batch["drop_keep"] = draw_face_masks(
+                    B, T, width_keep, torch.Generator(device=mesh.device).manual_seed(
+                        FACE_SEED + s), mesh.device)
+            runs = face_reference_runs(before, ref_state, ref_step, ref_batch)
+            start = {"models": {"face": before["face"]}, "vq": {}}
+            errors = step_errors(start, after, loss, grads, runs, {"face": param_names(
+                ref_state)["face"]}, width["lr"])
+            errors["mesh"].update(_face_extra_errors(after, runs[0][0], width["lr"]))
+            errors["f32"].update(_face_extra_errors(runs[1][0], runs[0][0], width["lr"]))
+            out["errors"].append(errors)
+    out["extractor"] = {
+        "whole": {k: tuple(v.shape) for k, v in ext.state_dict().items()} == whole_shapes,
+        "unchanged": fingerprint({"models": {"ext": ext.state_dict()}, "vq": {}}) == ext_bytes,
+        "fingerprint": ext_bytes, "requires_grad": any(p.requires_grad for p in ext.parameters())}
+    return out
+
+
+def face_trainer(run_dir: str, width: dict, device, dp: int = 1, tp: int = 1,
+                 state_path: str | None = None):
+    """A face-stage Trainer at these widths from `face_state` (converted
+    from JAX when `state_path` is given), one epoch over four synthetic
+    clips of width["seconds"], a checkpoint at its end, on a (dp, tp) mesh
+    of the process group when dp * tp > 1: whole clips at batch 1, or
+    under dp > 1 the clips in one 64-frame bucket, batches of 2."""
+    from talkshow_torch.config import face_config
+    from talkshow_torch.data.dataset import synthetic_face_dataset
+    from talkshow_torch.train.trainer import Trainer
+    cfg = face_config()
+    cfg.train.epochs = 1
+    cfg.log.print_every, cfg.log.save_every = 1, 1
+    cfg.parallel.dp, cfg.parallel.tp = dp, tp
+    ds = synthetic_face_dataset(num_clips=4, frames=int(30 * width["seconds"]),
+                                bucketed=dp > 1)
+    state, step = face_state(width, device, state_path)
+    return Trainer(cfg, ds, lambda gen, dev: state, step, run_dir=run_dir, device=device,
+                   needs_rng=True, batch_mode="face_clips",
+                   face_bucket_frames=64 if dp > 1 else 0, face_batch_size=2 if dp > 1 else 1
+                   ).setup()
+
+
+def face_trainer_case(run_dir: str, width: dict, device, dp: int, tp: int,
+                      state_path: str | None = None) -> dict:
+    """The face trainer's epoch on a (dp, tp) mesh (its checkpoint written
+    whole by rank 0), then the checkpoint resumed on the mesh: the history,
+    and whether the resumed state equals the trained one bit for bit."""
+    from talkshow_torch.parallel.collectives import unsharded
+    tr = face_trainer(run_dir, width, device, dp, tp, state_path)
+    tr.train()
+    with unsharded(tr.state):
+        trained = fingerprint(face_stats(tr.state))
+    tr.resume(os.path.join(run_dir, "ckpt-0.pt"))
+    with unsharded(tr.state):
+        resumed = fingerprint(face_stats(tr.state))
+    return {"history": tr.history, "steps": tr.global_step, "resumed_equal": trained == resumed}
+
+
+def grouped_conv_case(device) -> dict:
+    """wav2vec's positional conv shape (768 channels in 16 groups, 16
+    taps here) split column-parallel over the first tp ranks, tp 2 (a
+    rank's rows are whole groups) and tp 3 (256 rows a rank, groups of 48),
+    against the whole conv on the same weights and input: the output, the
+    input's gradient, the weight's (gathered) and the bias's, each as its
+    largest difference over the whole conv's largest.  Every rank of the
+    group joins each tp's sub-group; ranks at or past tp sit it out."""
+    import torch.distributed as dist
+    import torch.nn as nn
+    from talkshow_torch.parallel.collectives import _shard_module, _split, whole
+    from talkshow_torch.parallel.mesh import Mesh
+    rank, out = dist.get_rank(), {}
+    for tp in (2, 3):
+        group = dist.new_group(list(range(tp)))
+        if rank >= tp:
+            continue
+        gen = torch.Generator().manual_seed(tp)
+        conv = nn.Conv1d(768, 768, 16, padding=8, groups=16)
+        with torch.no_grad():
+            for p in conv.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        x = torch.randn(2, 768, 20, generator=gen)
+        up = torch.randn(2, 768, 21, generator=gen)
+        conv, x, up = conv.to(device), x.to(device), up.to(device)
+        split = copy.deepcopy(conv)
+        grid = np.empty((1, tp), dtype=object)
+        grid[0, :] = [torch.device(device)] * tp
+        mesh = Mesh(grid, rank=rank, tp_group=group, distributed=True)
+        _shard_module(split, mesh)
+        with torch.no_grad():
+            split.weight.data = _split(split.weight.data, mesh)
+        xr, xt = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        y = conv(xr)
+        (y * up).sum().backward()
+        yt = split(xt)
+        (yt * up).sum().backward()
+        out[tp] = {"forward": _rel(yt.detach(), y.detach()), "input_grad": _rel(xt.grad, xr.grad),
+                   "weight_grad": _rel(whole(split.weight.grad, mesh), conv.weight.grad),
+                   "bias_grad": _rel(split.bias.grad, conv.bias.grad),
+                   "rows": tuple(split.weight.shape)}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python tests/torch_dist_check.py")
@@ -544,6 +911,21 @@ def main(argv=None) -> int:
     p.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
     p.add_argument("--pixel", default=None, help="a layout to run the body-AE, LS3DCG and "
                    "body-pixel cases on (the trainer's run in <out>/pixel)")
+    p.add_argument("--face", nargs="*", default=[],
+                   help="layouts DxP for the face step: bucketed global batches where D > 1, "
+                        "one whole clip a step otherwise")
+    p.add_argument("--face_width", choices=sorted(FACE_WIDTHS), default="toy")
+    p.add_argument("--face_steps", type=int, default=2)
+    p.add_argument("--face_state", default=None, help="a converted JAX face state (torch.save)")
+    p.add_argument("--face_data", default=None,
+                   help="torch.save of {'whole': [...], 'bucketed': [...]}: the global face "
+                        "batches of each kind, one a step, with their masks")
+    p.add_argument("--face_fault", default=None, help="a layout to run the face step on for one "
+                   "step with the planted fault")
+    p.add_argument("--face_extra", default=None, help="a layout for one --bf16 face step; "
+                   "then the grouped conv at tp 2 and 3")
+    p.add_argument("--face_trainer", default=None, help="a layout for the face trainer's epoch "
+                   "(<out>/face_run) and its resume")
     p.add_argument("--nccl_probe", action="store_true")
     p.add_argument("--out", required=True)
     p.add_argument("--timeout", type=float, default=90.0)
@@ -594,6 +976,26 @@ def rank_main(args) -> int:
         dp, tp = (int(v) for v in args.pixel.split("x"))
         result["other"] = other_steps_case(dp, tp, device)
         result["pixel"] = pixel_case(os.path.join(args.out, "pixel"), device, dp, tp)
+    fw = FACE_WIDTHS[args.face_width]
+    data = (torch.load(args.face_data, weights_only=False) if args.face_data else {})
+    for layout in args.face:
+        dp, tp = (int(v) for v in layout.split("x"))
+        result.setdefault("face", {})[layout] = face_case(
+            dp, tp, fw, device, args.face_steps, args.face_state,
+            data.get("bucketed" if dp > 1 else "whole"))
+    if args.face_fault:
+        dp, tp = (int(v) for v in args.face_fault.split("x"))
+        result["face_fault"] = face_case(dp, tp, fw, device, 1, args.face_state,
+                                         data.get("bucketed" if dp > 1 else "whole"), fault=True)
+    if args.face_extra:
+        dp, tp = (int(v) for v in args.face_extra.split("x"))
+        result["face_bf16"] = face_case(dp, tp, fw, device, 1, args.face_state,
+                                        dtype=torch.bfloat16)
+        result["grouped_conv"] = grouped_conv_case(device)
+    if args.face_trainer:
+        dp, tp = (int(v) for v in args.face_trainer.split("x"))
+        result["face_trainer"] = face_trainer_case(os.path.join(args.out, "face_run"), fw,
+                                                   device, dp, tp, args.face_state)
     torch.save(result, os.path.join(args.out, f"rank{args.rank}.pt"))
     if dist.is_initialized():
         dist.destroy_process_group()
