@@ -1442,7 +1442,7 @@ def phase15(pipe, wav10: str, card: str) -> dict:
         out = step()                      # reads the step back: synchronizes
         step_ms.append((time.perf_counter() - t0) * 1e3)
         per_step.append({k: v - before.get(k, 0) for k, v in counts.items()
-                         if v != before.get(k, 0)})
+                         if v != before.get(k, 0) and k != "host_sync"})
         return out
 
     sess._step = timed_step
@@ -2268,7 +2268,8 @@ def phase22(dev, tmp: str, card: str) -> dict:
     seen, steps, t_epoch = dict(counts), trainer.global_step, time.time() - t0
     logged = logged_values(run_a)
     ckpt = os.path.join(run_a, "ckpt-0.pt")
-    if (steps < 10 or any(seen.values()) or not logged
+    launched = any(v for k, v in seen.items() if k != "host_sync")
+    if (steps < 10 or launched or not logged
             or not all(math.isfinite(v) for v in logged) or not os.path.isfile(ckpt)):
         raise AssertionError(f"phase 22: {steps} steps, counts {seen}, logged {logged[:12]}, "
                              f"checkpoint {os.path.isfile(ckpt)}")
@@ -2355,7 +2356,8 @@ def phase23(p20: dict, ls: dict, tmp: str, ae_ckpt: str, wav10: str, card: str) 
     torch.cuda.synchronize()
     seen, values = dict(counts), metric_values(res)
     if not (res["num_clips"] == n and {"fgd_ci", "body_l1_ci"} <= res.keys()
-            and all(math.isfinite(v) for v in values) and not any(seen.values())):
+            and all(math.isfinite(v) for v in values)
+            and not any(v for k, v in seen.items() if k != "host_sync")):
         raise AssertionError(f"phase 23 eval_ls3dcg: {sorted(res)}, counts {seen}")
     total = cuda_ms(lambda: runners.eval_ls3dcg(gen, ae, ds))
     clip = ds.clips[0]

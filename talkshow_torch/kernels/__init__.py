@@ -7,16 +7,16 @@ shared library is built and loaded on first launch (`_build.py`).
 kernel wrapper adds one where it launches its kernel (e.g.
 ``counts["ar_decode"]``), and the plain PyTorch twin adds one under its
 own name (``counts["sample_tokens_plain"]``), so a run can show which path
-it took.  Reset it with ``counts.clear()``.
+it took.  Reset it with ``counts.clear()``.  It is `talkshow_torch.tracing.counts`,
+the program's one counter, which also counts its host syncs and charges
+each increment to the open root span while tracing records.
 
 `TABLE_DTYPES` maps the weight-table types the kernels take to the code
 their C entry points read, and `check` is the wrappers' argument check.
 """
-from collections import Counter
-
 import torch
 
-counts: Counter = Counter()
+from talkshow_torch.tracing import counts
 
 TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -37,6 +37,7 @@ import torch
 
 from talkshow_torch.kernels import TABLE_DTYPES, check, counts
 from talkshow_torch.models.pixelcnn import GatedPixelCNN, check_sampleable, sample_tokens
+from talkshow_torch.tracing import span
 
 #: most sample batch rows one launch takes (the argmax's lanes); at a given
 #: shape the chain's shared memory may hold fewer (`max_batch`), and
@@ -341,14 +342,16 @@ def sample_tokens_fused(model: GatedPixelCNN, label: torch.Tensor,
     (model weights, f32; Philox is not used there: noise comes from
     `generator`).  A launch the card cannot hold (the cluster cannot be
     co-scheduled beside the rest of the grid) raises RuntimeError; a
-    bh_model=False prior raises ValueError on either device."""
+    bh_model=False prior raises ValueError on either device.  Traced as the
+    span ``ar_decode`` (B, H, noise_given)."""
     check_sampleable(model)
-    if audio.device.type == "cpu":
-        return sample_tokens(model, label, audio, noise=noise,
-                             generator=generator, prefix_tokens=prefix_tokens,
-                             prefix_len=prefix_len, return_logits=return_logits)
-    return _decode(model, label, audio, tables, noise, generator, prefix_tokens,
-                   prefix_len, return_logits)
+    with span("ar_decode", B=audio.shape[0], H=audio.shape[1], noise_given=noise is not None):
+        if audio.device.type == "cpu":
+            return sample_tokens(model, label, audio, noise=noise,
+                                 generator=generator, prefix_tokens=prefix_tokens,
+                                 prefix_len=prefix_len, return_logits=return_logits)
+        return _decode(model, label, audio, tables, noise, generator, prefix_tokens,
+                       prefix_len, return_logits)
 
 
 def _decode(model, label, audio, tables, noise, generator, prefix_tokens, prefix_len,

@@ -16,6 +16,11 @@ flux and peak picking on the host in numpy, as the JAX module does.
 `mfcc` takes a waveform (T,) or a batch (N, T); the amplitude_to_db floor
 (`max - top_db`) is taken over each clip on its own, as the reference
 takes it over the one clip it is given.
+
+Traced (`talkshow_torch.tracing`): `load_wav` is the span ``wav_read``,
+`resample` the span ``resample``, `get_mfcc` the span ``mfcc``; the copies
+of the samples and of the numpy tables to the device there go through
+`tracing.to_device`.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from talkshow_torch.tracing import span, to_device
+
 N_FFT = 2048
 N_MELS = 256
 N_MFCC = 64
@@ -36,23 +43,25 @@ AMIN = 1e-10
 
 def load_wav(path: str) -> tuple[np.ndarray, int]:
     """Read a PCM wav file -> (mono float32 in [-1, 1], sample_rate)."""
-    with wave.open(path, "rb") as w:
-        sr = w.getframerate()
-        n = w.getnframes()
-        sw = w.getsampwidth()
-        nch = w.getnchannels()
-        raw = w.readframes(n)
-    if sw == 2:
-        x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
-    elif sw == 4:
-        x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
-    elif sw == 1:
-        x = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
-    else:
-        raise ValueError(f"unsupported sample width {sw}")
-    if nch > 1:
-        x = x.reshape(-1, nch).mean(axis=1)
-    return x, sr
+    with span("wav_read") as sp:
+        with wave.open(path, "rb") as w:
+            sr = w.getframerate()
+            n = w.getnframes()
+            sw = w.getsampwidth()
+            nch = w.getnchannels()
+            raw = w.readframes(n)
+        sp.set(samples=n)
+        if sw == 2:
+            x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+        elif sw == 4:
+            x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+        elif sw == 1:
+            x = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+        else:
+            raise ValueError(f"unsupported sample width {sw}")
+        if nch > 1:
+            x = x.reshape(-1, nch).mean(axis=1)
+        return x, sr
 
 
 # ---------------------------------------------------------------------------
@@ -133,14 +142,15 @@ def resample(x: torch.Tensor, orig_freq: int, new_freq: int) -> torch.Tensor:
     """
     if orig_freq == new_freq:
         return x
-    kernel, width, orig, new = _resample_kernel(orig_freq, new_freq)
-    lead, length = x.shape[:-1], x.shape[-1]
-    xp = F.pad(x.reshape(-1, 1, length), (width, width + orig))
-    w = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
-    y = F.conv1d(xp, w, stride=orig)              # (N, new, n)
-    y = y.transpose(1, 2).reshape(y.shape[0], -1)  # interleave the phases
-    target_len = int(math.ceil(new * length / orig))
-    return y[:, :target_len].reshape(lead + (target_len,))
+    with span("resample", orig=orig_freq, new=new_freq):
+        kernel, width, orig, new = _resample_kernel(orig_freq, new_freq)
+        lead, length = x.shape[:-1], x.shape[-1]
+        xp = F.pad(x.reshape(-1, 1, length), (width, width + orig))
+        w = to_device(kernel, x.device, x.dtype)
+        y = F.conv1d(xp, w, stride=orig)              # (N, new, n)
+        y = y.transpose(1, 2).reshape(y.shape[0], -1)  # interleave the phases
+        target_len = int(math.ceil(new * length / orig))
+        return y[:, :target_len].reshape(lead + (target_len,))
 
 
 def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -155,7 +165,7 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
 def power_spectrogram(x: torch.Tensor, n_fft: int = N_FFT,
                       hop: int = 734) -> torch.Tensor:
     """(..., T) -> (..., num_frames, n_fft//2+1) power (hann, center, reflect)."""
-    window = torch.as_tensor(_hann_window(n_fft), dtype=x.dtype, device=x.device)
+    window = to_device(_hann_window(n_fft), x.device, x.dtype)
     spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * window, dim=-1)
     return spec.real ** 2 + spec.imag ** 2
 
@@ -182,8 +192,8 @@ def mfcc(x: torch.Tensor, sr: int, fps: int = 30, n_mfcc: int = N_MFCC,
     else:
         hop = int(round(sr / fps))
     power = power_spectrogram(x, n_fft, hop)
-    fb = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels), device=x.device)
-    dct = torch.as_tensor(dct_matrix(n_mfcc, n_mels), device=x.device)
+    fb = to_device(mel_filterbank(sr, n_fft, n_mels), x.device)
+    dct = to_device(dct_matrix(n_mfcc, n_mels), x.device)
     return amplitude_to_db(power @ fb) @ dct
 
 
@@ -191,11 +201,14 @@ def get_mfcc(audio_fn: str, sr: int = 22000, fps: int = 30,
              device: torch.device | str = "cuda") -> torch.Tensor:
     """wav path -> (T_frames, 64) float32 on `device`; == the reference's
     get_mfcc_ta(type='mfcc')."""
-    x, sr0 = load_wav(audio_fn)
-    x = torch.as_tensor(x, device=device)
-    if sr0 != sr:
-        x = resample(x, sr0, sr)
-    return mfcc(x, sr, fps=fps)
+    with span("mfcc") as sp:
+        x, sr0 = load_wav(audio_fn)
+        x = to_device(x, device)
+        if sr0 != sr:
+            x = resample(x, sr0, sr)
+        out = mfcc(x, sr, fps=fps)
+        sp.set(frames=out.shape[0])
+        return out
 
 
 def get_mfcc_sepa(audio_fn: str, sr: int = 16000, fps: int = 30,

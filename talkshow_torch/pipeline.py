@@ -22,6 +22,14 @@ shard decodes its rows on its own device (one K1 launch per shard on the
 card), on a copy of the weights and decode tables made once per device
 (`replica`).
 
+Traced (`talkshow_torch.tracing`): `generate` is the root span
+``generate`` (samples, wav_len) over ``wav_read`` and ``resample``
+(`ops/audio`), ``face_stage``, ``mfcc``, ``body_stage`` (``ar_decode``
+under it) and ``assembly``; called alone, `generate_body` is a root
+``body_stage``.  Every read from the device (`tracing.to_host`) and copy to
+it (`tracing.to_device`) on the way is a ``device_wait`` span and one
+``host_sync``.
+
 Weights come from `create` (random, seeded), `load_converted` (the JAX
 package's, through `talkshow_torch.convert.from_jax`),
 `from_torch_checkpoints` (the reference trainer's `.pth` files) or
@@ -49,6 +57,7 @@ from talkshow_torch.ops import audio as audio_ops
 from talkshow_torch.ops import pose as pose_ops
 from talkshow_torch.ops.pose import SPEAKER_ID, SPEAKER_OFFSET
 from talkshow_torch.ops.vq import VQState
+from talkshow_torch.tracing import span, to_device, to_host
 
 _VQ_STATES = ("vq_body_state", "vq_hand_state")
 
@@ -232,13 +241,14 @@ class Pipeline:
         wav16k = np.asarray(wav16k, np.float32).reshape(-1)
         if frame is None:
             frame = int(len(wav16k) * 30 // 16000)
-        # demo path uses a zero one-hot id (smplx_face.py:205-206)
-        id_onehot = torch.zeros((1, self.num_classes), device=self.device)
-        wav = torch.as_tensor(wav16k, device=self.device)[None]
-        return self.face_stage(wav, id_onehot, frame)[0].cpu().numpy()
+        with span("face_stage", frames=frame):
+            # demo path uses a zero one-hot id (smplx_face.py:205-206)
+            id_onehot = torch.zeros((1, self.num_classes), device=self.device)
+            wav = to_device(wav16k, self.device)[None]
+            return to_host(self.face_stage(wav, id_onehot, frame)[0])
 
     def _batch(self, mfcc_feat, speaker: int, num_samples: int):
-        feat = torch.as_tensor(mfcc_feat, dtype=torch.float32, device=self.device)
+        feat = to_device(mfcc_feat, self.device, torch.float32)
         feat = feat[None].expand(num_samples, -1, -1).contiguous()
         ids = torch.full((num_samples,), speaker, dtype=torch.long, device=self.device)
         return feat, ids
@@ -294,13 +304,14 @@ class Pipeline:
         rows."""
         mfcc_feat = np.asarray(mfcc_feat, np.float32)
         T = mfcc_feat.shape[0]
-        if pad_to_bucket:
-            Tp = _round_up(max(T, 4), pad_to_bucket * 4)
-            mfcc_feat = np.pad(mfcc_feat, [[0, Tp - T], [0, 0]])
-        conv, _ = self.generate_conv(mfcc_feat, speaker, num_samples, seed, noise)
-        if pad_to_bucket:
-            conv = conv[:, : (T // 4) * 4]
-        return self._denorm_conv(conv.cpu().numpy())
+        with span("body_stage", samples=num_samples, frames=T):
+            if pad_to_bucket:
+                Tp = _round_up(max(T, 4), pad_to_bucket * 4)
+                mfcc_feat = np.pad(mfcc_feat, [[0, Tp - T], [0, 0]])
+            conv, _ = self.generate_conv(mfcc_feat, speaker, num_samples, seed, noise)
+            if pad_to_bucket:
+                conv = conv[:, : (T // 4) * 4]
+            return self._denorm_conv(to_host(conv))
 
     def generate_conv_sharded(self, mfcc_feat, speaker: int, num_samples: int, mesh,
                               seed: int = 0, axis: str = "dp", noise=None) -> list:
@@ -359,26 +370,28 @@ class Pipeline:
         speaker: dataset id int (0-3) or name ('oliver', ...).  noise: see
         `generate_conv`; with continuity=True, the pair of blocks of
         `generate_conv_continuity`."""
-        if isinstance(speaker, str):
-            speaker = SPEAKER_ID[speaker] - SPEAKER_OFFSET
-        wav, sr0 = audio_ops.load_wav(wav_file)
-        if sr0 != 16000:
-            wav = audio_ops.resample(torch.as_tensor(wav), sr0, 16000).numpy()
-        face_out = self.generate_face(wav)                    # (T, 103)
-        T = face_out.shape[0]
-        if only_face:
-            base = np.zeros((T, 232), np.float32)
-            base[:, :3] = face_out[:, :3]
-            base[:, -100:] = face_out[:, 3:]
-            return pose_ops.part2full(torch.as_tensor(base), stand=True).numpy()[None]
-        if continuity:
-            conv = self.generate_body_continuity(wav_file, speaker, num_samples, seed,
-                                                 sr_body, noise)
-        else:
-            with torch.no_grad():
-                feat = audio_ops.get_mfcc(wav_file, sr=sr_body, fps=30, device=self.device)
-            conv = self.generate_body(feat.cpu().numpy(), speaker, num_samples, seed, noise)
-        return self.assemble_full(face_out, conv, stand)
+        with span("generate", samples=num_samples) as sp:
+            if isinstance(speaker, str):
+                speaker = SPEAKER_ID[speaker] - SPEAKER_OFFSET
+            wav, sr0 = audio_ops.load_wav(wav_file)
+            sp.set(wav_len=len(wav))
+            if sr0 != 16000:
+                wav = audio_ops.resample(torch.as_tensor(wav), sr0, 16000).numpy()
+            face_out = self.generate_face(wav)                    # (T, 103)
+            T = face_out.shape[0]
+            if only_face:
+                base = np.zeros((T, 232), np.float32)
+                base[:, :3] = face_out[:, :3]
+                base[:, -100:] = face_out[:, 3:]
+                return pose_ops.part2full(torch.as_tensor(base), stand=True).numpy()[None]
+            if continuity:
+                conv = self.generate_body_continuity(wav_file, speaker, num_samples, seed,
+                                                     sr_body, noise)
+            else:
+                with torch.no_grad():
+                    feat = audio_ops.get_mfcc(wav_file, sr=sr_body, fps=30, device=self.device)
+                conv = self.generate_body(to_host(feat), speaker, num_samples, seed, noise)
+            return self.assemble_full(face_out, conv, stand)
 
     @staticmethod
     def assemble_full(face_out: np.ndarray, conv: np.ndarray,
@@ -386,17 +399,18 @@ class Pipeline:
         """Face (T, 103) + conv poses (S, Tb, 129) -> (S, T, 265): length-match
         the body to the face, splice jaw+conv+expression, part2full."""
         face_out = np.asarray(face_out, np.float32)
-        jaw, exp = face_out[:, :3], face_out[:, 3:]
         T = face_out.shape[0]
         S, Tb, _ = conv.shape
-        if Tb < T:
-            conv = np.concatenate([conv, np.repeat(conv[:, -1:], T - Tb, axis=1)], axis=1)
-        else:
-            conv = conv[:, :T]
-        pred = np.concatenate([np.broadcast_to(jaw[None], (S, T, 3)), conv,
-                               np.broadcast_to(exp[None], (S, T, 100))], axis=-1)
-        full = pose_ops.part2full(torch.as_tensor(pred.reshape(S * T, -1)), stand)
-        return full.numpy().reshape(S, T, 265)
+        with span("assembly", samples=S, frames=T):
+            jaw, exp = face_out[:, :3], face_out[:, 3:]
+            if Tb < T:
+                conv = np.concatenate([conv, np.repeat(conv[:, -1:], T - Tb, axis=1)], axis=1)
+            else:
+                conv = conv[:, :T]
+            pred = np.concatenate([np.broadcast_to(jaw[None], (S, T, 3)), conv,
+                                   np.broadcast_to(exp[None], (S, T, 100))], axis=-1)
+            full = pose_ops.part2full(torch.as_tensor(pred.reshape(S * T, -1)), stand)
+            return full.numpy().reshape(S, T, 265)
 
 
 # ---------------------------------------------------------------------------

@@ -39,15 +39,21 @@ step's on the global batch.  The global norm counts a parameter split over
 tp once (its slices' squares summed over tp), the finite check reads the
 reduced gradients, and every rank takes the same skip decision (one
 all-reduce of the flag).
+
+`SkipNonfinite.step` is traced as the span ``optimizer``; its two host
+reads (the finite check's flag and the clip's norm) go through
+`tracing.to_host`.
 """
 from __future__ import annotations
 
 import torch
 
+from talkshow_torch.tracing import span, to_host
+
 
 def all_finite(tensors) -> bool:
     """True when every element of every tensor is finite (one host sync)."""
-    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+    return bool(to_host(torch.stack([torch.isfinite(t).all() for t in tensors]).all()))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -108,18 +114,19 @@ class SkipNonfinite:
         """Clip (when max_norm is set; `norm`, the gradients' global norm,
         if the caller has it) and apply the inner step if the gradients are
         finite; returns whether it did."""
-        grads = self.grads()
-        finite = all_finite(grads)
-        if self.mesh is not None:
-            finite = not self.mesh.any(not finite)
-        if finite:
-            if self.max_norm is not None:
-                clip_by_global_norm_(grads, self.max_norm,
-                                     self.grad_norm() if norm is None else norm)
-            self.inner.step()
-        else:
-            self.nonfinite_count += 1
-        return finite
+        with span("optimizer"):
+            grads = self.grads()
+            finite = all_finite(grads)
+            if self.mesh is not None:
+                finite = not self.mesh.any(not finite)
+            if finite:
+                if self.max_norm is not None:
+                    clip_by_global_norm_(grads, self.max_norm,
+                                         self.grad_norm() if norm is None else norm)
+                self.inner.step()
+            else:
+                self.nonfinite_count += 1
+            return finite
 
     def state_dict(self) -> dict:
         return {self.KEY: self.inner.state_dict(), "nonfinite_count": self.nonfinite_count}
@@ -133,7 +140,7 @@ def clip_by_global_norm_(grads: list, max_norm: float, norm: torch.Tensor | None
     """optax.clip_by_global_norm in place: every g becomes g / norm *
     max_norm unless norm < max_norm (one host read of the norm)."""
     norm = global_norm(grads) if norm is None else norm
-    if not float(norm) < max_norm:
+    if not float(to_host(norm)) < max_norm:
         for g in grads:
             g.div_(norm).mul_(max_norm)
 

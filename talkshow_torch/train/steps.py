@@ -45,6 +45,12 @@ The stochastic steps take a `torch.Generator` for their dropout and
 SpecAugment draws; a batch may instead carry the masks (`aud_keep`;
 `spec_starts`, `drop_keep`), which is how the tests hand in JAX's own.
 
+Stages 1 and 2 are traced (`talkshow_torch.tracing`): a step is the root
+span ``train_step`` (batch, frames) over ``forward``, ``backward`` and
+``optimizer`` (in stage 2 also around the clip's norm, which the step
+reports); stage 1's conv-channel index is copied to the card by
+`tracing.to_device`, one host sync a step.
+
 Unlike the JAX package, where the state is an immutable pytree, the state
 here holds the modules (parameters and BatchNorm statistics) and the
 optimizer, and a step updates them in place.
@@ -84,6 +90,7 @@ from talkshow_torch.models.wav2vec_fused import frozen_features
 from talkshow_torch.ops import vq as vq_ops
 from talkshow_torch.ops.pose import BODY_DIM, C_INDEX_3D, C_INDEX_6D, FULL_POSE_DIM, HAND_DIM
 from talkshow_torch.parallel.mesh import global_mean
+from talkshow_torch.tracing import span, to_device
 from talkshow_torch.train.optim import SkipNonfiniteAdam, SkipNonfiniteSGD
 
 def parts(rep6d: bool = False) -> tuple:
@@ -102,7 +109,7 @@ def conv_channels(poses: torch.Tensor, rep6d: bool = False) -> torch.Tensor:
     full, index = (2 * FULL_POSE_DIM, C_INDEX_6D) if rep6d else (FULL_POSE_DIM, C_INDEX_3D)
     if poses.shape[-1] != full:
         return poses
-    return poses[..., torch.as_tensor(index, device=poses.device)]
+    return poses[..., to_device(index, poses.device)]
 
 
 @dataclass
@@ -213,26 +220,30 @@ def make_body_vq_step(vq_body: VQVAE, vq_hand: VQVAE, learning_rate: float = 1e-
         return BodyVQState(models, vq, SkipNonfiniteAdam(params, learning_rate))
 
     def step(state: BodyVQState, batch) -> tuple[BodyVQState, dict]:
-        conv = conv_channels(batch["poses"], rep6d)
-        buffers = _norm_buffers(state.models.values())
-        saved = [b.clone() for b in buffers]
-        state.optimizer.zero_grad()
-        total, metrics, new_vq = 0.0, {}, {}
-        for name, sl in slices:
-            rec, vel, commit, new_vq[name] = part_losses(state.models[name].train(),
-                                                         state.vq[name], conv[..., sl], state.mesh)
-            total = total + rec + vel + commit
-            metrics.update({f"{name}_rec": rec.detach(), f"{name}_vel": vel.detach(),
-                            f"{name}_commit": commit.detach()})
-        total.backward()
-        metrics = _global(metrics, state.mesh)
-        if state.optimizer.step():
-            state.vq = new_vq
-        else:
-            _restore(buffers, saved)
-        state.step += 1
-        metrics["nonfinite_skips"] = state.optimizer.nonfinite_count
-        return state, metrics
+        B, T = batch["poses"].shape[:2]
+        with span("train_step", batch=B, frames=T):
+            with span("forward"):
+                conv = conv_channels(batch["poses"], rep6d)
+                buffers = _norm_buffers(state.models.values())
+                saved = [b.clone() for b in buffers]
+                state.optimizer.zero_grad()
+                total, metrics, new_vq = 0.0, {}, {}
+                for name, sl in slices:
+                    rec, vel, commit, new_vq[name] = part_losses(
+                        state.models[name].train(), state.vq[name], conv[..., sl], state.mesh)
+                    total = total + rec + vel + commit
+                    metrics.update({f"{name}_rec": rec.detach(), f"{name}_vel": vel.detach(),
+                                    f"{name}_commit": commit.detach()})
+            with span("backward"):
+                total.backward()
+            metrics = _global(metrics, state.mesh)
+            if state.optimizer.step():
+                state.vq = new_vq
+            else:
+                _restore(buffers, saved)
+            state.step += 1
+            metrics["nonfinite_skips"] = state.optimizer.nonfinite_count
+            return state, metrics
 
     return init_state, step
 
@@ -375,34 +386,44 @@ def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body:
         return PixelState(models, SkipNonfiniteAdam(params, learning_rate, max_grad_norm))
 
     def step(state: PixelState, batch, generator: torch.Generator | None = None):
-        tokens = batch.get("tokens")
-        if tokens is None:
-            tokens = encode(batch["poses"])
-        tokens = tokens.long()
-        B, H = tokens.shape[:2]
-        keep = batch.get("aud_keep")
-        if keep is None:
-            if generator is None:
-                raise ValueError("the body-pixel step draws its audio dropout from a "
-                                 "generator: pass one, or batch['aud_keep']")
-            # drawn for the global batch; this rank keeps its rows
-            dp, rank = (1, 0) if state.mesh is None else (state.mesh.dp, state.mesh.dp_rank)
-            keep = draw_aud_keep(B * dp, H, generator, tokens.device)[rank * B:(rank + 1) * B]
-        buffers = _norm_buffers([state.models["audio"]])
-        saved = [b.clone() for b in buffers]
-        opt = state.optimizer
-        opt.zero_grad()
-        feat = state.models["audio"].train()(batch["aud_feat"])
-        logits = state.models["prior"].train()(tokens, batch["speaker"].long(), feat, keep)
-        flat = logits.reshape(-1, logits.shape[-1]).float()
-        ce = global_mean(F.cross_entropy(flat, tokens.reshape(-1), reduction="none"), state.mesh)
-        ce.backward()
-        norm = opt.grad_norm()
-        metrics = _global({"ce_loss": ce.detach()}, state.mesh)
-        if not opt.step(norm):
-            _restore(buffers, saved)
-        state.step += 1
-        return state, {**metrics, "grad": norm.detach(), "nonfinite_skips": opt.nonfinite_count}
+        B, T = batch["aud_feat"].shape[:2]
+        with span("train_step", batch=B, frames=T):
+            with span("forward"):
+                tokens = batch.get("tokens")
+                if tokens is None:
+                    tokens = encode(batch["poses"])
+                tokens = tokens.long()
+                B, H = tokens.shape[:2]
+                keep = batch.get("aud_keep")
+                if keep is None:
+                    if generator is None:
+                        raise ValueError("the body-pixel step draws its audio dropout from a "
+                                         "generator: pass one, or batch['aud_keep']")
+                    # drawn for the global batch; this rank keeps its rows
+                    dp, rank = ((1, 0) if state.mesh is None
+                                else (state.mesh.dp, state.mesh.dp_rank))
+                    keep = draw_aud_keep(B * dp, H, generator, tokens.device)[
+                        rank * B:(rank + 1) * B]
+                buffers = _norm_buffers([state.models["audio"]])
+                saved = [b.clone() for b in buffers]
+                opt = state.optimizer
+                opt.zero_grad()
+                feat = state.models["audio"].train()(batch["aud_feat"])
+                logits = state.models["prior"].train()(tokens, batch["speaker"].long(), feat,
+                                                        keep)
+                flat = logits.reshape(-1, logits.shape[-1]).float()
+                ce = global_mean(F.cross_entropy(flat, tokens.reshape(-1), reduction="none"),
+                                 state.mesh)
+            with span("backward"):
+                ce.backward()
+            with span("optimizer"):      # the clip's norm, also reported as a metric
+                norm = opt.grad_norm()
+            metrics = _global({"ce_loss": ce.detach()}, state.mesh)
+            if not opt.step(norm):
+                _restore(buffers, saved)
+            state.step += 1
+            return state, {**metrics, "grad": norm.detach(),
+                           "nonfinite_skips": opt.nonfinite_count}
 
     return init_state, step
 

@@ -1,11 +1,13 @@
 """Runtime utilities (port of talkshow_tpu/utils.py): profiling,
-seeding, step timing, parameter casting and the trainer's batch prefetch.
+seeding, parameter casting and the trainer's batch prefetch.
 
   * `trace(log_dir)`: torch.profiler around a block, written as a Chrome
-    trace under log_dir (the card's kernels included when it runs there);
-    `annotate(name)` names a region inside it;
+    trace under log_dir (the card's kernels included when it runs there).
+    The profiler turns on the program's own spans (`talkshow_torch.tracing`:
+    ``span:generate``, ``span:device_wait``, ``span:optimizer``, ...), so
+    the trace names its phases beside the kernels; `tracing.span(name)`
+    names a region of the caller's own;
   * `seed_everything(seed)` -> (numpy Generator, torch Generator);
-  * `StepTimer`: host wall time per step, skipping warm-up steps;
   * `cast_floats`: cast a module's or a state dict's float tensors,
     normalisation tensors kept f32;
   * `prefetch_iter`: the trainer's background batch producer
@@ -18,15 +20,13 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import numpy as np
 import torch
 
 from talkshow_torch.train.trainer import prefetch_iter
 
-__all__ = ["trace", "annotate", "seed_everything", "StepTimer", "cast_floats",
-           "prefetch_iter"]
+__all__ = ["trace", "seed_everything", "cast_floats", "prefetch_iter"]
 
 
 @contextlib.contextmanager
@@ -47,40 +47,10 @@ def trace(log_dir: str, enabled: bool = True):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named region for traces: `with annotate('decode'): ...`."""
-    return torch.profiler.record_function(name)
-
-
 def seed_everything(seed: int) -> tuple[np.random.Generator, torch.Generator]:
     """-> (np.random.Generator, torch.Generator), both seeded with `seed`;
     no global state changes."""
     return np.random.default_rng(seed), torch.Generator().manual_seed(seed)
-
-
-class StepTimer:
-    """Wall-clock per-step timing with warm-up skip (host side): use as
-    `with timer: step()`; the first `skip` steps are not recorded."""
-
-    def __init__(self, skip: int = 2):
-        self.skip = skip
-        self.times: list[float] = []
-        self._t0 = None
-        self._n = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self._n += 1
-        if self._n > self.skip:
-            self.times.append(dt)
-
-    @property
-    def mean_ms(self) -> float:
-        return 1000.0 * float(np.mean(self.times)) if self.times else 0.0
 
 
 def _is_norm(name: str) -> bool:

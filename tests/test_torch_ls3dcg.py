@@ -292,7 +292,8 @@ def test_ls3dcg_step_matches_jax(jax_run, n_steps):
         for k, v in metrics[i].items():
             _rel(m[k], v)
         _assert_update_close(state, before, states[i], states[i + 1], f"step {i}")
-    assert not any(counts.values())          # no kernel, no plain twin of one
+    # no kernel, no plain twin of one (the optimizer's host reads count as host_sync)
+    assert not any(v for k, v in counts.items() if k != "host_sync")
     _assert_state_close(state, states[n_steps], f"after {n_steps}")
 
 
@@ -400,7 +401,8 @@ def test_ls3dcg_cli_stage_resumes_and_evaluates(tmp_path, monkeypatch, capsys):
     base = ["--config_file", cfg, "--synthetic", "--device", "cpu"]
     counts.clear()
     a = cli.main(base + ["--epochs", "2", "--run_dir", str(tmp_path / "a")])
-    assert a.global_step >= 2 * cli.SYNTHETIC_STEPS and not any(counts.values())
+    assert a.global_step >= 2 * cli.SYNTHETIC_STEPS
+    assert not any(v for k, v in counts.items() if k != "host_sync")
     hist = json.load(open(tmp_path / "a" / "history.json"))
     assert all(np.isfinite(v) for h in hist for v in h.values())
     log = open(tmp_path / "a" / "train.log").read()

@@ -1,5 +1,5 @@
 """talkshow_torch/utils.py against talkshow_tpu/utils.py on the CPU:
-seeding, the step timer, `cast_floats` (which tensors stay f32, and the
+seeding, `cast_floats` (which tensors stay f32, and the
 generate path on a bf16-cast prior and audio encoder against JAX's
 test_extras.py:230 on the same weights and noise, within 1e-4: both sides
 compute in f32 on the bf16-rounded weights), the trace context, and the
@@ -13,6 +13,7 @@ import torch
 
 from talkshow_tpu import pipeline as jpipe
 from talkshow_tpu import utils as jutils
+from talkshow_torch import tracing
 from talkshow_torch import utils as U
 from talkshow_torch.kernels.ar_decode import pack_decode_tables
 from talkshow_torch.models.vqvae import AudioEncoder
@@ -29,15 +30,6 @@ def test_seed_everything_is_deterministic():
     # the numpy stream is JAX's (both are np.random.default_rng(seed))
     assert U.seed_everything(7)[0].integers(1 << 30) == jutils.seed_everything(7)[0].integers(
         1 << 30)
-
-
-def test_step_timer_skips_warmup():
-    timer = U.StepTimer(skip=2)
-    assert timer.mean_ms == 0.0
-    for _ in range(5):
-        with timer:
-            pass
-    assert len(timer.times) == 3 and timer.mean_ms >= 0.0
 
 
 def test_prefetch_iter_is_the_trainers():
@@ -97,10 +89,10 @@ def test_cast_floats_generate_body_matches_jax():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with U.trace(str(tmp_path)) as prof:
-        with U.annotate("region"):
+        with tracing.span("region"):
             torch.ones(4).sum()
     assert prof is not None and os.path.isfile(tmp_path / "trace.json")
-    assert "region" in open(tmp_path / "trace.json").read()
+    assert '"span:region"' in open(tmp_path / "trace.json").read()
     with U.trace(str(tmp_path / "off"), enabled=False) as prof:
         pass
     assert prof is None and not os.path.exists(tmp_path / "off")
