@@ -84,7 +84,8 @@ Phases (one line each; any failure raises and the script exits non-zero):
  11 train    python -m talkshow_torch.train (its main()) for s2g_body_vq at full
              width (batch 128, window 88, num_hiddens 1024) on a synthetic
              dataset, one epoch of >= 10 steps: every logged loss finite,
-             nearest_code launched twice per step, the plain search never; a
+             nearest_code launched twice per step, the plain search never,
+             grad_stats and adam_apply once each a step, their twin never; a
              checkpoint, and resume + one step equal to the uninterrupted run's
              next step bit for bit; one step from one fresh state on CUDA
              against the CPU (B = 8, TF32 off): losses within 1e-4 relative,
@@ -130,6 +131,7 @@ Phases (one line each; any failure raises and the script exits non-zero):
              steps: every logged value finite; K4 twice per batch that missed
              the token cache and per batch of the epoch-end fill (the windows
              no batch brought), none in epoch 2, the plain search never;
+             grad_stats and adam_apply once each a step of both epochs;
              cached token grids (brought and filled) equal a fresh encode bit
              for bit; ckpt-0 + epoch 2 equals
              the uninterrupted run bit for bit; one step from one state on
@@ -141,8 +143,9 @@ Phases (one line each; any failure raises and the script exits non-zero):
              least 99 % within 1e-2 lr
  17 train-face  main() for s2g_face at full width (wav2vec 2.0 base, 12 x 768,
              with the face heads) on the CLI's synthetic 8 s raw clips: whole
-             clips at batch 1 for 2 epochs, K3 (f32 tables) once a step and the
-             plain extractor never; then --face_bucket 32 --face_batch_size 2
+             clips at batch 1 for 2 epochs, K3 (f32 tables) and grad_stats (the
+             SGD step's flag and norm) once a step and the plain extractor
+             never; then --face_bucket 32 --face_batch_size 2
              through the plain masked extractor (extractor_plain counted);
              logged values finite, the extractor's parameters bit-equal to
              their init and without .grad; ckpt-0 + epoch 2 bit-equal to the
@@ -158,8 +161,9 @@ Phases (one line each; any failure raises and the script exits non-zero):
              for the record; each beside the card
  19 train-ae  main() for s2g_body_ae at full width (the AE of 1024 hidden over
              the 129 conv channels, batch 128, window 88) on the synthetic
-             dataset, one epoch of >= 10 steps: every logged loss finite, no
-             kernel launched (the AE has no quantizer); ckpt-0 + one step
+             dataset, one epoch of >= 10 steps: every logged loss finite, none
+             of K1-K4 launched (the AE has no quantizer), grad_stats and
+             adam_apply once each a step; ckpt-0 + one step
              bit-equal to the uninterrupted run; one step from one state on
              CUDA against the CPU (B = 8, TF32 off): losses within 1e-4
              relative; every gradient within 2e-2 of max|g| of an f64 CPU
@@ -194,7 +198,8 @@ Phases (one line each; any failure raises and the script exits non-zero):
  22 train-ls3dcg  main() for s2g_LS3DCG at the stage-1 batch and window
              (B = 128, T = 88; the LS3DCG widths are fixed, 64 ... 1024) on the
              synthetic dataset, one epoch of >= 10 steps: logged values finite,
-             no kernel launched; ckpt-0 + one step bit-equal to the
+             none of K1-K4 launched, the Adam kernels once each an optimizer a
+             step; ckpt-0 + one step bit-equal to the
              uninterrupted run; one step from one state on CUDA against the CPU
              (B = 8, TF32 off): losses within 1e-4 relative, both models'
              gradients within 2e-2 of max|g| (phase 19's tolerance behind
@@ -317,12 +322,26 @@ Phases (one line each; any failure raises and the script exits non-zero):
              --nproc_per_node 2` at tp 2, 1 epoch, its whole ckpt-0.pt loaded
              on one device for one more step; step p50 per layout and the
              phase's wall seconds
+ 38 adam     the Adam steps' two kernels (grad_stats, adam_apply) at the leaf
+             lists of the benchmark's train-prior-3d (198 leaves, 24.1 M
+             elements, clip at 5) and train-vq-6d (212, 71.0 M, no clip) cells:
+             the flag equal, the norm within 1e-5 of the plain twin's and
+             bit-equal over two calls, parameters and moments within 4 ulps (of
+             the largest of the old value, the new and the change) of the plain
+             twin's from the same norm, a NaN leaving every tensor
+             bit-equal and the skip counted; CUDA-event ms of each kernel (on
+             the device from a captured graph, and a call from the host), its
+             plain twin and torch's fused Adam, beside the bytes bound; one
+             launch each a call; the launches of the Adam steps in phases 11-37
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
 continuity, the serve flush, the stream and the eval path (eval_body and
 the eval CLI for K1, eval_face for K2 and K3), summed, K3 in phase 17 and
 phase 25, K1 at dim 512 in phase 24, the entry points of phase 26,
 phases 30-32 and 35-36; K4: phases 11, 16, eval_vq_capacity, 24, 25, 28,
-29, 30, 31 and the ranks of phase 34; K3 also on the ranks of phase 37), the
+29, 30, 31 and the ranks of phase 34; K3 also on the ranks of phase 37;
+grad_stats and adam_apply, which replace no TPU kernel: every Adam step,
+and for grad_stats every SGD step, this process runs in phases 11-37,
+phase 38's own calls left out), the
 nvidia-smi line, the total wall
 time and the result line.  Several ranks on one card measure correctness,
 not scaling.
@@ -997,6 +1016,13 @@ def flat_state(state) -> dict:
     return out
 
 
+def adam_once_a_step(seen: dict, steps: int) -> bool:
+    """The counts of a run of full-width Adam steps: one launch of each
+    Adam kernel a step (every leaf list fits one launch), no plain call."""
+    return (seen.get("grad_stats", 0) == seen.get("adam_apply", 0) == steps
+            and not seen.get("grad_stats_plain") and not seen.get("adam_apply_plain"))
+
+
 def phase11(dev, tmp: str) -> dict:
     """Stage-1 training through `python -m talkshow_torch.train`'s entry
     point at full width; resume; one step CUDA against CPU; the token
@@ -1022,7 +1048,7 @@ def phase11(dev, tmp: str) -> dict:
     seen, steps = dict(counts), trainer.global_step
     width = trainer.state.models["body"].encoder.pre_vq_conv.in_channels
     if (steps < 10 or width != TRAIN["num_hiddens"] or seen.get("nearest_code", 0) != 2 * steps
-            or seen.get("nearest_code_plain", 0)):
+            or seen.get("nearest_code_plain", 0) or not adam_once_a_step(seen, steps)):
         raise AssertionError(f"phase 11: {steps} steps, width {width}, counts {seen}")
     logged = logged_values(run_a)
     ckpt = os.path.join(run_a, "ckpt-0.pt")
@@ -1033,7 +1059,9 @@ def phase11(dev, tmp: str) -> dict:
         f"window {TRAIN['window']}, num_hiddens {TRAIN['num_hiddens']}: {steps} steps in "
         f"{time.time() - t0:.1f} s (first cuDNN calls included); "
         f"{len(logged)} logged values all finite; nearest_code launches "
-        f"{seen['nearest_code']} = 2 x {steps}, plain calls 0; {os.path.basename(ckpt)} written")
+        f"{seen['nearest_code']} = 2 x {steps}, plain calls 0; grad_stats and adam_apply "
+        f"launches {seen['adam_apply']} = {steps}, plain calls 0; {os.path.basename(ckpt)} "
+        f"written")
 
     # resume + one step == the uninterrupted run's next step
     resumed = train_main(argv + ["--run_dir", run_b, "--resume", ckpt])
@@ -1560,7 +1588,8 @@ def phase16(dev, tmp: str, vq_ckpt: str) -> dict:
     fills = -(-(len(keys) - TRAIN["batch"] * steps1) // TRAIN["batch"])
     if (steps1 < 10 or width != (PIXEL["dim"], PIXEL["layers"], PIXEL["codes"], PIXEL["audio"])
             or e1.get("nearest_code", 0) != 2 * (steps1 + fills)
-            or e1.get("nearest_code_plain", 0) or set(trainer._token_cache) != set(keys)):
+            or e1.get("nearest_code_plain", 0) or set(trainer._token_cache) != set(keys)
+            or not adam_once_a_step(e1, steps1)):
         raise AssertionError(f"phase 16 epoch 1: {steps1} steps, widths {width}, counts {e1}, "
                              f"{fills} fill batches")
     seen = set(trainer._token_cache)
@@ -1572,7 +1601,8 @@ def phase16(dev, tmp: str, vq_ckpt: str) -> dict:
     torch.cuda.synchronize()
     e2, steps2, t2 = dict(counts), trainer.global_step - steps1, time.time() - t0
     if (e2.get("nearest_code", 0) != 2 * misses or e2.get("nearest_code_plain", 0)
-            or not e2.get("nearest_code", 0) < e1["nearest_code"]):
+            or not e2.get("nearest_code", 0) < e1["nearest_code"]
+            or not adam_once_a_step(e2, steps2)):
         raise AssertionError(f"phase 16 epoch 2: {misses} batches missed the cache, counts {e2}")
     logged = logged_values(run_a)
     if not (logged and all(math.isfinite(v) for v in logged)):
@@ -1701,6 +1731,8 @@ def phase17(dev, tmp: str) -> dict:
     if (width != FACE_WIDTH or steps != 2 * len(shapes)
             or seen.get("wav2vec_extractor", 0) != steps or seen.get("extractor_plain", 0)
             or seen.get("face_plain", 0) or trainer.state.tables["w0"].dtype != torch.float32
+            or seen.get("grad_stats", 0) != steps or seen.get("grad_stats_plain", 0)
+            or seen.get("adam_apply", 0)
             or not frozen or not all(math.isfinite(v) for v in logged)):
         raise AssertionError(f"phase 17 whole clips: widths {width}, {steps} steps, counts "
                              f"{seen}, extractor frozen {frozen}, logged {logged[:12]}")
@@ -1708,7 +1740,8 @@ def phase17(dev, tmp: str) -> dict:
         f"{width[0]} x {width[1]} with the face heads, {len(shapes)} whole clips of "
         f"{shapes[0][1] / 16000:.2f} s at batch 1, 2 epochs: {steps} steps in {wall:.1f} s; "
         f"wav2vec_extractor (K3, f32 tables) launches {seen['wav2vec_extractor']} = 1 a step, "
-        f"plain extractor calls 0; the extractor's parameters bit-equal to their init, no "
+        f"plain extractor calls 0; grad_stats (the SGD step's flag and norm) "
+        f"{seen['grad_stats']} = 1 a step; the extractor's parameters bit-equal to their init, no "
         f".grad; {len(logged)} logged values all finite")
     counts.clear()
     bucketed = train_main(argv + ["--run_dir", runs["b"], "--epochs", "1", "--face_bucket",
@@ -1887,14 +1920,16 @@ def phase19(dev, tmp: str, card: str) -> dict:
     logged = logged_values(run_a)
     ckpt = os.path.join(run_a, "ckpt-0.pt")
     if (steps < 10 or width != TRAIN["num_hiddens"] or any(seen.get(k) for k in KERNELS)
-            or not logged or not all(math.isfinite(v) for v in logged)
+            or not adam_once_a_step(seen, steps) or not logged
+            or not all(math.isfinite(v) for v in logged)
             or not os.path.isfile(ckpt)):
         raise AssertionError(f"phase 19: {steps} steps, width {width}, counts {seen}, logged "
                              f"{logged[:12]}, checkpoint {os.path.isfile(ckpt)}")
     log(f"phase 19 train-ae: python -m talkshow_torch.train s2g_body_ae, batch {TRAIN['batch']}, "
         f"window {TRAIN['window']}, num_hiddens {TRAIN['num_hiddens']}: {steps} steps in "
         f"{t_epoch:.1f} s (first cuDNN calls included); {len(logged)} logged values all finite; "
-        f"no kernel launched (the AE has no quantizer); {os.path.basename(ckpt)} written")
+        f"none of K1-K4 launched (the AE has no quantizer); grad_stats and adam_apply "
+        f"launches {seen['adam_apply']} = {steps}; {os.path.basename(ckpt)} written")
 
     # resume + one step == the uninterrupted run's next step
     resumed = train_main(argv + ["--run_dir", run_b, "--resume", ckpt])
@@ -2268,15 +2303,19 @@ def phase22(dev, tmp: str, card: str) -> dict:
     seen, steps, t_epoch = dict(counts), trainer.global_step, time.time() - t0
     logged = logged_values(run_a)
     ckpt = os.path.join(run_a, "ckpt-0.pt")
-    launched = any(v for k, v in seen.items() if k != "host_sync")
-    if (steps < 10 or launched or not logged
+    # no kernel of K1-K4; the Adam chain's two kernels once an optimizer a step
+    launched = any(v for k, v in seen.items() if k not in ("host_sync", "grad_stats",
+                                                           "adam_apply"))
+    adam_ok = seen.get("grad_stats") == seen.get("adam_apply") == 2 * steps
+    if (steps < 10 or launched or not adam_ok or not logged
             or not all(math.isfinite(v) for v in logged) or not os.path.isfile(ckpt)):
         raise AssertionError(f"phase 22: {steps} steps, counts {seen}, logged {logged[:12]}, "
                              f"checkpoint {os.path.isfile(ckpt)}")
     log(f"phase 22 train-ls3dcg: python -m talkshow_torch.train s2g_LS3DCG, batch "
         f"{TRAIN['batch']}, window {TRAIN['window']}: {steps} steps in {t_epoch:.1f} s (first "
-        f"cuDNN calls included); {len(logged)} logged values all finite; no kernel launched "
-        f"(the generator and discriminator are convolutions); {os.path.basename(ckpt)} written")
+        f"cuDNN calls included); {len(logged)} logged values all finite; none of K1-K4 "
+        f"launched (the generator and discriminator are convolutions), the Adam kernels "
+        f"{seen['adam_apply']} = 2 x {steps}; {os.path.basename(ckpt)} written")
 
     # resume + one step == the uninterrupted run's next step
     keys = ("poses", "expression", "aud_feat")
@@ -3719,6 +3758,172 @@ def multi_device_phases(dev, tmp: str, wav10: str, card: str) -> dict:
 T_START = time.time()
 
 
+#: the benchmark cells whose steps run the Adam kernels, and their models
+ADAM_CELLS = {"train-prior-3d": ("talkshow-3d", "pixel", 5.0),
+              "train-vq-6d": ("talkshow-6d", "vq", None)}
+
+
+def adam_leaf_shapes(cell: str) -> list:
+    """The shapes of the leaves the cell's optimizer steps, at the widths of
+    benchmark/configs/<config>.json (built on the meta device): the 3-D
+    prior and audio encoder, 198 leaves of 24.1 M elements; the 6-D VQ-VAEs,
+    212 of 71.0 M."""
+    from talkshow_torch.models.pixelcnn import GatedPixelCNN
+    from talkshow_torch.models.vqvae import VQVAE, AudioEncoder
+    config, models, _ = ADAM_CELLS[cell]
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                           f"{config}.json")) as f:
+        cfg = json.load(f)
+    vq, pr, ae = cfg["vq"], cfg["prior"], cfg["audio_encoder"]
+    with torch.device("meta"):
+        if models == "pixel":
+            mods = [GatedPixelCNN(input_dim=pr["input_dim"], dim=pr["dim"],
+                                  n_layers=pr["n_layers"], n_classes=pr["n_classes"],
+                                  audio_channels=ae["num_hiddens"], hidden=pr["hidden"]),
+                    AudioEncoder(ae["in_dim"], num_hiddens=ae["num_hiddens"])]
+        else:
+            mods = [VQVAE(vq[f"{p}_channels"], vq["embedding_dim"], vq["num_hiddens"],
+                          vq["num_residual_layers"]) for p in ("body", "hand")]
+    return [tuple(p.shape) for m in mods for p in m.parameters()]
+
+
+def adam_case(shapes, dev, seed: int) -> dict:
+    """Random parameters, gradients and moments of these shapes, the
+    counts at step 3 with one skip."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda s, scale: scale * torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    return {"params": [rand(s, 0.05) for s in shapes],
+            "grads": [rand(s, 1e-3) for s in shapes],
+            "exp_avgs": [rand(s, 1e-4) for s in shapes],
+            "exp_avg_sqs": [rand(s, 1e-4).square() for s in shapes],
+            "step": torch.full((), 3.0, device=dev),
+            "skipped": torch.ones((), dtype=torch.int64, device=dev)}
+
+
+def adam_copy(case: dict) -> dict:
+    return {k: ([t.clone() for t in v] if isinstance(v, list) else v.clone())
+            for k, v in case.items()}
+
+
+def adam_call(fn, case: dict, stats, finite, max_norm, **kw) -> None:
+    fn(case["params"], case["grads"], case["exp_avgs"], case["exp_avg_sqs"], stats, finite,
+       case["step"], case["skipped"], 1e-4, max_norm, (0.9, 0.999), 1e-8, **kw)
+
+
+#: the Adam kernels' largest gap from their plain twin, in ulps (adam_gap):
+#: v's multiply-add may be fused on one side (1 ulp), which reaches the
+#: update through a square root and two divisions, and the sum rounds once
+ADAM_ULPS = 4
+
+
+def adam_gap(got: list, want: list, before: list) -> float:
+    """The largest |got - want| over every element, in f32 ulps of the
+    largest of |want|, the value before the step and the step's change
+    (where the update cancels the old value, want is near 0 and the
+    update's own rounding is the error)."""
+    worst, f32 = 0.0, torch.finfo(torch.float32)
+    for a, b, c in zip(got, want, before):
+        scale = torch.maximum(torch.maximum(b.abs(), c.abs()), (b - c).abs())
+        worst = max(worst, float(((a - b).abs() / (f32.eps * scale.clamp_min(f32.tiny))).max()))
+    return worst
+
+
+def phase38(dev, card: str) -> list:
+    """The Adam kernels at the two training cells' leaf lists against their
+    plain twin; their times beside the bytes bound.  Returns the kernel
+    rows: (name, shape, launches, max error, (ms, plain ms), bound, library
+    ms) of each kernel at train-prior-3d's list."""
+    from talkshow_torch.kernels import adam as adam_kernels
+    from talkshow_torch.kernels import counts
+    rows = []
+    for cell, (_, _, max_norm) in ADAM_CELLS.items():
+        shapes = adam_leaf_shapes(cell)
+        n_el = sum(math.prod(s) for s in shapes)
+        case = adam_case(shapes, dev, 38)
+        work = adam_kernels.workspace(len(shapes), dev)
+        counts.clear()
+        stats, finite = adam_kernels.grad_stats_kernel(case["grads"], work)
+        again, _ = adam_kernels.grad_stats_kernel(case["grads"], work)
+        plain, plain_finite = adam_kernels.grad_stats_plain(case["grads"])
+        norm_gap = float((stats[1] - plain[1]).abs() / plain[1])
+        if not (bool(finite) and bool(plain_finite) and torch.equal(stats, again)
+                and norm_gap <= 1e-5 and counts["grad_stats"] == 2):
+            raise AssertionError(f"phase 38 {cell} grad_stats: finite {bool(finite)}, "
+                                 f"norm {float(stats[1])} vs plain {float(plain[1])}, reruns "
+                                 f"equal {torch.equal(stats, again)}, counts {dict(counts)}")
+        gaps = {}     # at the cell's max_norm, and clipped at half the norm
+        for label, mn in (("cell", max_norm), ("clipped", 0.5 * float(stats[1]))):
+            k, q = adam_copy(case), adam_copy(case)
+            adam_call(adam_kernels.adam_apply_kernel, k, stats, finite, mn, work=work)
+            adam_call(adam_kernels.adam_apply_plain, q, stats, finite, mn)
+            gaps[label] = [adam_gap(k[key], q[key], case[key])
+                           for key in ("params", "exp_avgs", "exp_avg_sqs")]
+            if (max(gaps[label]) > ADAM_ULPS or float(k["step"]) != 4.0
+                    or int(k["skipped"]) != 1):
+                raise AssertionError(f"phase 38 {cell} adam_apply ({label}): {gaps[label]} "
+                                     f"ulps (p, m, v) from the plain twin, step "
+                                     f"{float(k['step'])}, skipped {int(k['skipped'])}")
+        bad = adam_copy(case)
+        bad["grads"][len(shapes) // 2].view(-1)[7] = float("nan")
+        before = adam_copy(bad)
+        s_bad, f_bad = adam_kernels.grad_stats_kernel(bad["grads"], work)
+        adam_call(adam_kernels.adam_apply_kernel, bad, s_bad, f_bad, max_norm, work=work)
+        same = all(torch.equal(a, b) for key in ("params", "exp_avgs", "exp_avg_sqs")
+                   for a, b in zip(bad[key], before[key]))
+        if bool(f_bad) or not same or float(bad["step"]) != 3.0 or int(bad["skipped"]) != 2:
+            raise AssertionError(f"phase 38 {cell} NaN step: finite {bool(f_bad)}, unchanged "
+                                 f"{same}, step {float(bad['step'])}, skipped "
+                                 f"{int(bad['skipped'])}")
+        del bad, before
+        # times: the kernels on the device (replayed from a captured graph) and
+        # per call from the host (the leaf tables built too), their plain twin,
+        # torch's fused Adam (no clip, no skip)
+        k = adam_copy(case)
+        gs_call = lambda: adam_kernels.grad_stats_kernel(k["grads"], work)  # noqa: E731
+        aa_call = lambda: adam_call(adam_kernels.adam_apply_kernel, k, stats,  # noqa: E731
+                                    finite, max_norm, work=work)
+        gs_ms, aa_ms = graph_ms(gs_call, 50), graph_ms(aa_call, 50)
+        gs_host, aa_host = cuda_ms(gs_call, 50), cuda_ms(aa_call, 50)
+        gs_plain = cuda_ms(lambda: adam_kernels.grad_stats_plain(k["grads"]), 5)
+        aa_plain = cuda_ms(lambda: adam_call(adam_kernels.adam_apply_plain, k, stats, finite,
+                                             max_norm), 5)
+        fused = adam_fused_ms(k)
+        gs_bound = bound(4.0 * n_el, 0.0)
+        aa_bound = bound(28.0 * n_el, 0.0)
+        log(f"phase 38 adam {cell}: {len(shapes)} leaves, {n_el / 1e6:.2f} M elements; "
+            f"grad_stats {gs_ms:.4f} ms on the device (bound {gs_bound[0]:.4f} ms, bytes: "
+            f"{gs_bound[0] / gs_ms:.1%}), {gs_host:.4f} ms a call from the host, plain twin "
+            f"{gs_plain:.3f} ms; adam_apply {aa_ms:.4f} ms (bound {aa_bound[0]:.4f} ms: "
+            f"{aa_bound[0] / aa_ms:.1%}), {aa_host:.4f} ms a call, plain twin {aa_plain:.3f} "
+            f"ms, torch's fused Adam {fused[0]:.4f} ms on the device, {fused[1]:.4f} ms a "
+            f"call; norm {norm_gap:.1e} "
+            f"from the plain twin, bit-equal reruns; adam_apply (p, m, v) "
+            f"{', '.join(f'{g:.2f}' for g in gaps['cell'])} / "
+            f"{', '.join(f'{g:.2f}' for g in gaps['clipped'])} ulps from the plain twin (the "
+            f"cell's clip / clipped); a NaN left every tensor bit-equal [{card}]")
+        if cell == "train-prior-3d":
+            rows = [("grad_stats", f"{len(shapes)} leaves", 1, norm_gap, (gs_ms, gs_plain),
+                     gs_bound, None),
+                    ("adam_apply", f"{len(shapes)} leaves", 1, max(gaps["cell"]),
+                     (aa_ms, aa_plain), aa_bound, fused[0])]
+        del case, k, work
+        torch.cuda.empty_cache()
+    return rows
+
+
+def adam_fused_ms(case: dict) -> tuple[float, float]:
+    """torch.optim.Adam(fused=True, capturable=True)'s step over the case's
+    leaves (its own moments; no clip, no skip): (device ms from a captured
+    graph, ms a call from the host), the library yardstick."""
+    params = [torch.nn.Parameter(p.clone()) for p in case["params"]]
+    for p, g in zip(params, case["grads"]):
+        p.grad = g
+    opt = torch.optim.Adam(params, lr=1e-4, fused=True, capturable=True)
+    ms = graph_ms(opt.step, 50), cuda_ms(opt.step, 50)
+    del opt, params
+    return ms
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -3738,15 +3943,25 @@ def main() -> int:
                                         wav2vec_extractor, wav2vec_layers)
     from talkshow_torch import native
     t0 = time.time()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    from talkshow_torch.kernels import adam as adam_kernels
+    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
         rasterizer = pool.submit(_build.build_shared, native.SOURCE, native.GXX)
-        sos = list(pool.map(_build.build, KERNELS)) + [rasterizer.result()]
-    for mod in (ar_decode, wav2vec_layers, wav2vec_extractor, nearest_code):
+        sos = list(pool.map(_build.build, KERNELS + ("adam",))) + [rasterizer.result()]
+    for mod in (ar_decode, wav2vec_layers, wav2vec_extractor, nearest_code, adam_kernels):
         mod._lib()
     native.load_library()
     log(f"phase 2 build: {', '.join(os.path.relpath(so) for so in sos)} built (nvcc for the "
-        f"four kernels, g++ for the rasterizer, all started together) and loaded in "
+        f"five kernel sources, g++ for the rasterizer, all started together) and loaded in "
         f"{time.time() - t0:.1f} s")
+
+    # the Adam kernels' launches over every phase that trains in this process
+    adam_launches, launched = {"grad_stats": 0, "adam_apply": 0}, adam_kernels._launched
+
+    def tally(name, err, n):
+        launched(name, err, n)
+        adam_launches[name] += n.value
+
+    adam_kernels._launched = tally
 
     # ---- phase 3: K1 against its plain version -------------------------------
     max_err = phase3(dev)
@@ -3929,6 +4144,17 @@ def main() -> int:
         path_launches[k] += multi[k]
     k4_launches += multi["nearest_code"]
 
+    # ---- phase 38: the Adam steps' kernels ------------------------------------------
+    in_steps = dict(adam_launches)
+    adam_rows = phase38(dev, card)
+    log(f"launches of the Adam kernels in the steps this process ran in phases 11-37: "
+        f"grad_stats {in_steps['grad_stats']} (once an Adam or SGD step), adam_apply "
+        f"{in_steps['adam_apply']} (once an Adam step; phases 11, 16, 17 and 19 check "
+        f"those counts); "
+        f"{adam_launches['grad_stats'] - in_steps['grad_stats']} and "
+        f"{adam_launches['adam_apply'] - in_steps['adam_apply']} in phase 38's own calls, "
+        f"left out of the kernels line")
+
     # bounds at B = 1 (K4: N = 2816, one quantizer's rows of a training batch)
     # from the timed inputs
     t1 = ar_decode.pack_decode_tables(prior_case(1, 41, dev)[0], torch.bfloat16)
@@ -3952,7 +4178,8 @@ def main() -> int:
         # the two-call argmin(addmm) yardstick)
         ("nearest_code", f"N={N4}", nearest_code, k4_launches, err_k4, (k4_ms, k4_plain),
          bound(k4_bytes, 2.0 * (N4 + 1) * K4 * D4, F32_FLOP_S), None),
-    ]
+    ] + [(name, shape, adam_kernels, in_steps[name], err, times_, bnd, lib)
+         for name, shape, _, err, times_, bnd, lib in adam_rows]
     for name, shape, _, n, _, (ms, plain_ms), (bms, by), _ in rows:
         log(f"bound {name} {shape}: {bms:.4f} ms ({by}); kernel {ms:.4f} ms = {bms / ms:.1%} "
             f"of the bound's rate; launches on the main path {n}")

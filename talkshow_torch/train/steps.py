@@ -53,7 +53,10 @@ reports); stage 1's conv-channel index is copied to the card by
 
 Unlike the JAX package, where the state is an immutable pytree, the state
 here holds the modules (parameters and BatchNorm statistics) and the
-optimizer, and a step updates them in place.
+optimizer, and a step updates them in place.  The Adam steps (stages 1
+and 2, the body AE, LS3DCG) read nothing back from the card: the
+optimizer's skip decision stays a device flag, and a skipped step's
+BatchNorm statistics and VQ states are put back by a select on it.
 
 On a dp x tp mesh (`state.mesh`, set by `parallel.collectives.shard_state`;
 JAX's sharded steps compute what its one-device step computes on the
@@ -178,11 +181,26 @@ def _global(metrics: dict, mesh) -> dict:
     return metrics if mesh is None else mesh.reduce_metrics(metrics)
 
 
-def _restore(buffers: list, saved: list) -> None:
-    """Put back the BatchNorm statistics of a skipped step (JAX's tree_select)."""
+def _restore(applied, buffers: list, saved: list) -> None:
+    """Put back the BatchNorm statistics of a skipped step (JAX's
+    tree_select): `applied` is the optimizer step's result, a 0-dim bool
+    tensor (selected on the device, no host read) or a bool."""
+    if applied is True:
+        return
     with torch.no_grad():
         for b, s in zip(buffers, saved):
-            b.copy_(s)
+            if applied is False:
+                b.copy_(s)
+            else:
+                torch.where(applied, b, s, out=b)
+
+
+def _select(applied, new: vq_ops.VQState, old: vq_ops.VQState) -> vq_ops.VQState:
+    """tree_select(applied, new, old) of a VQState, as `_restore` takes
+    `applied`."""
+    if isinstance(applied, bool):
+        return new if applied else old
+    return vq_ops.VQState(*(torch.where(applied, a, b) for a, b in zip(new, old)))
 
 
 def recon_losses(recon: torch.Tensor, gt: torch.Tensor, mesh=None):
@@ -207,7 +225,8 @@ def make_body_vq_step(vq_body: VQVAE, vq_hand: VQVAE, learning_rate: float = 1e-
 
     batch: {'poses': (B, T, 165) or the 129 conv channels; with rep6d (B, T,
     330) or the 258}.  step returns (state, metrics) with metrics
-    {body,hand}_{rec,vel,commit} (0-dim tensors) and nonfinite_skips (int)."""
+    {body,hand}_{rec,vel,commit} (0-dim tensors) and nonfinite_skips (the
+    skip count after the step, a 0-dim int64 tensor)."""
     models = {"body": vq_body, "hand": vq_hand}
     slices = parts(rep6d)
 
@@ -237,12 +256,11 @@ def make_body_vq_step(vq_body: VQVAE, vq_hand: VQVAE, learning_rate: float = 1e-
             with span("backward"):
                 total.backward()
             metrics = _global(metrics, state.mesh)
-            if state.optimizer.step():
-                state.vq = new_vq
-            else:
-                _restore(buffers, saved)
+            applied = state.optimizer.step()
+            state.vq = {k: _select(applied, new_vq[k], state.vq[k]) for k in new_vq}
+            _restore(applied, buffers, saved)
             state.step += 1
-            metrics["nonfinite_skips"] = state.optimizer.nonfinite_count
+            metrics["nonfinite_skips"] = state.optimizer.nonfinite.clone()
             return state, metrics
 
     return init_state, step
@@ -302,7 +320,8 @@ def make_body_ae_step(ae: AE, learning_rate: float = 1e-4):
     reconstruction + L1 velocity (body_ae.py:112-140); Adam with the
     non-finite skip, which also keeps the BatchNorm statistics of a skipped
     step, as JAX's tree_select.  Metrics: rec_loss, velocity_loss (0-dim
-    tensors), nonfinite_skips (int)."""
+    tensors), nonfinite_skips (the skip count after the step, a 0-dim
+    int64 tensor)."""
 
     def init_state(generator: torch.Generator, device="cuda") -> BodyAEState:
         init_weights_(ae, generator).to(device)
@@ -316,10 +335,9 @@ def make_body_ae_step(ae: AE, learning_rate: float = 1e-4):
         rec, vel = recon_losses(state.model.train()(gt), gt, state.mesh)
         (rec + vel).backward()
         metrics = _global({"rec_loss": rec.detach(), "velocity_loss": vel.detach()}, state.mesh)
-        if not state.optimizer.step():
-            _restore(buffers, saved)
+        _restore(state.optimizer.step(), buffers, saved)
         state.step += 1
-        return state, {**metrics, "nonfinite_skips": state.optimizer.nonfinite_count}
+        return state, {**metrics, "nonfinite_skips": state.optimizer.nonfinite.clone()}
 
     return init_state, step
 
@@ -372,7 +390,8 @@ def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body:
     330 or 258, as `make_token_encoder`); optional
     'aud_keep' (B, T/4) bool, the audio dropout's keep mask, else drawn from
     `generator`.  Metrics: ce_loss and grad (the gradients' global norm
-    before the clip; 0-dim tensors), nonfinite_skips (int)."""
+    before the clip; 0-dim tensors), nonfinite_skips (the skip count after
+    the step, a 0-dim int64 tensor)."""
     models = {"prior": prior, "audio": audio_enc}
     encode = make_token_encoder(vq_body, vq_hand, frozen_vq_states, rep6d)
 
@@ -419,11 +438,10 @@ def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body:
             with span("optimizer"):      # the clip's norm, also reported as a metric
                 norm = opt.grad_norm()
             metrics = _global({"ce_loss": ce.detach()}, state.mesh)
-            if not opt.step(norm):
-                _restore(buffers, saved)
+            _restore(opt.step(norm), buffers, saved)
             state.step += 1
             return state, {**metrics, "grad": norm.detach(),
-                           "nonfinite_skips": opt.nonfinite_count}
+                           "nonfinite_skips": opt.nonfinite.clone()}
 
     return init_state, step
 
@@ -524,7 +542,8 @@ def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: f
     global batch.  stochastic=False turns dropout and SpecAugment off, as in
     JAX.  Metrics: MSELoss (the L1 term, the reference's name), exp_loss,
     loss, grad (the global norm before the clip; 0-dim tensors; global on a
-    mesh), nonfinite_skips (int)."""
+    mesh), nonfinite_skips (the skip count after the step, a 0-dim int64
+    tensor)."""
 
     def init_state(generator: torch.Generator, device="cuda") -> FaceState:
         init_weights_(face, generator)
@@ -563,7 +582,7 @@ def make_face_step(face: FaceGenerator, learning_rate: float = 1e-3, momentum: f
                            "loss": loss.detach()}, state.mesh)
         opt.step(norm)
         state.step += 1
-        return state, {**metrics, "grad": norm.detach(), "nonfinite_skips": opt.nonfinite_count}
+        return state, {**metrics, "grad": norm.detach(), "nonfinite_skips": opt.nonfinite.clone()}
 
     return init_state, step
 
@@ -647,8 +666,7 @@ def make_ls3dcg_step(gen: LS3DCGGenerator, disc: LS3DCGDiscriminator,
         mesh = state.mesh
         d_loss = global_mean((real - 1.0) ** 2, mesh) + global_mean(fake ** 2, mesh)
         d_loss.backward()
-        if not d_opt.step():
-            _restore(d_buffers, d_saved)
+        _restore(d_opt.step(), d_buffers, d_saved)
         # the generator, against the refreshed discriminator in eval mode
         g_buffers = _norm_buffers([g])
         g_saved = [b.clone() for b in g_buffers]
@@ -665,13 +683,12 @@ def make_ls3dcg_step(gen: LS3DCGGenerator, disc: LS3DCGDiscriminator,
             (keypoint_w * l1 + gan_w * gen_err).backward()
         finally:
             d.requires_grad_(True)
-        if not g_opt.step():
-            _restore(g_buffers, g_saved)
+        _restore(g_opt.step(), g_buffers, g_saved)
         state.step += 1
         metrics = {"jaw_loss": jaw_loss, "face_loss": face_loss, "body_loss": body_loss,
                    "hand_loss": hand_loss, "gen": gen_err, "dis": d_loss}
         metrics = _global({k: v.detach() for k, v in metrics.items()}, mesh)
-        metrics["nonfinite_skips"] = g_opt.nonfinite_count + d_opt.nonfinite_count
+        metrics["nonfinite_skips"] = g_opt.nonfinite + d_opt.nonfinite
         return state, metrics
 
     return init_state, step

@@ -42,13 +42,13 @@ TREE = {"generate", "generate/wav_read", "generate/resample", "generate/face_sta
         "generate/body_stage/ar_decode", "generate/body_stage/device_wait",
         "generate/assembly"}
 #: the new metrics of each toy cell, and its host syncs a request or step on
-#: the CPU: the face, MFCC and body readbacks; the body readback; the finite
-#: check and the clip's norm; the finite check (the conv-channel index is
-#: copied to the card only on the card)
+#: the CPU: the face, MFCC and body readbacks; the body readback; none in
+#: the Adam steps, whose skip decision stays on the device (the conv-channel
+#: index is copied to the card only on the card)
 NEW = {"toy-gen": (("host_syncs.lat", "host_ms.lat", "audio_io_ms.lat"), 3.0),
        "toy-body": (("host_syncs.batch", "host_ms.batch"), 1.0),
-       "toy-pixel": (("host_syncs.train", "host_ms.train", "optimizer_ms.train"), 2.0),
-       "toy-vq": (("host_syncs.train", "host_ms.train", "optimizer_ms.train"), 1.0)}
+       "toy-pixel": (("host_syncs.train", "host_ms.train", "optimizer_ms.train"), 0.0),
+       "toy-vq": (("host_syncs.train", "host_ms.train", "optimizer_ms.train"), 0.0)}
 SYNCS = {"toy-gen": "host_syncs.lat", "toy-body": "host_syncs.batch",
          "toy-pixel": "host_syncs.train", "toy-vq": "host_syncs.train"}
 

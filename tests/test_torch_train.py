@@ -213,6 +213,9 @@ def test_body_vq_step_matches_jax(jax_run, n_steps):
                                        err_msg=f"step {i} {k}")
         _assert_update_close(state, before, states[i], states[i + 1], f"step {i}")
     assert counts["nearest_code_plain"] == 2 * n_steps
+    # the Adam chain's plain twin once a step, and no read back from the device
+    assert counts["grad_stats_plain"] == counts["adam_apply_plain"] == n_steps
+    assert counts["host_sync"] == 0
     _assert_state_close(state, states[n_steps], f"after {n_steps}")
 
 

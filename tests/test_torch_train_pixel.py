@@ -18,6 +18,7 @@ Token grids, masks and cached batches are equal exactly.  The same step
 tests hold the vertical-only prior (bh_model=False) to JAX's, and the CLI
 trains it; the CLI's codebook sizing (code_num codes of width
 vq_embedding_dim in both stages) is pinned on a non-default config."""
+import io
 import json
 
 import numpy as np
@@ -32,6 +33,8 @@ from talkshow_tpu.models import pixelcnn as jp
 from talkshow_tpu.models import vqvae as jv
 from talkshow_tpu.ops import vq as jvq
 from talkshow_tpu.train import steps as jsteps
+from talkshow_tpu.utils import skip_nonfinite_updates
+from benchmark import faults
 from talkshow_torch import config as tconfig
 from talkshow_torch import convert
 from talkshow_torch.data import dataset as tdata
@@ -217,16 +220,22 @@ def _grad_trees(seed, n, scale):
             for _ in range(n)]
 
 
+@pytest.mark.parametrize("skip", [False, True], ids=["finite", "skipped"])
 @pytest.mark.parametrize("scale", [0.05, 3.0], ids=["below_max_norm", "clipped"])
 @pytest.mark.parametrize("inner", ["adam", "sgd"])
-def test_optimizer_chain_matches_optax(inner, scale):
+def test_optimizer_chain_matches_optax(inner, scale, skip):
     """skip_nonfinite(chain(clip_by_global_norm(1), adam | sgd(momentum
-    0.9))) over four steps: parameters and moments within 1e-6."""
+    0.9))) over four steps, the second one's gradient holding a NaN when
+    `skip`: parameters and moments within 1e-6, the skip counted as JAX
+    counts it, both chains' global norm its, and one host read a step of
+    the SGD chain (its flag and norm together), none of the Adam chain's."""
     grads = _grad_trees(3, 4, scale)
+    if skip:
+        grads[1][2][1, 2, 3] = np.nan
     params0 = [g * 0 + 0.5 for g in grads[0]]
     tx_inner = (optax.adam(1e-2, b1=0.9, b2=0.999) if inner == "adam"
                 else optax.sgd(1e-2, momentum=0.9))
-    tx = optax.chain(optax.clip_by_global_norm(1.0), tx_inner)
+    tx = skip_nonfinite_updates(optax.chain(optax.clip_by_global_norm(1.0), tx_inner))
     jparams = [jnp.asarray(p) for p in params0]
     jstate = tx.init(jparams)
     tparams = [torch.nn.Parameter(torch.tensor(p)) for p in params0]
@@ -240,16 +249,105 @@ def test_optimizer_chain_matches_optax(inner, scale):
         jparams = optax.apply_updates(jparams, upd)
         for p, x in zip(tparams, g):
             p.grad = torch.tensor(x)
-        assert abs(float(topt.global_norm(opt.grads())) - norms[-1]) <= 1e-6 * norms[-1]
-        assert opt.step()
+        finite = np.isfinite(norms[-1])
+        syncs = counts["host_sync"]
+        norm = opt.grad_norm()
+        stepped = opt.step(norm)
+        assert counts["host_sync"] - syncs == (1 if inner == "sgd" else 0)
+        if finite:
+            assert abs(float(norm) - norms[-1]) <= 1e-6 * norms[-1]
+        assert bool(stepped) == finite
         for p, q in zip(tparams, jparams):
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(q), rtol=0, atol=1e-6)
+    assert opt.nonfinite_count == int(jstate["nonfinite_count"]) == int(skip)
+    norms = [n for n in norms if np.isfinite(n)]
     assert (min(norms) > 1.0) if scale > 1 else (max(norms) < 1.0)
+    inner_state = jstate["inner"][1]
     if inner == "sgd":     # the momentum buffer is optax's trace
-        trace = jstate[1][0].trace
-        for p, t in zip(tparams, trace):
+        for p, t in zip(tparams, inner_state[0].trace):
             np.testing.assert_allclose(opt.inner.state[p]["momentum_buffer"].numpy(),
                                        np.asarray(t), rtol=0, atol=1e-6)
+    else:                  # the moments and the count are optax's
+        for p, mu, nu in zip(tparams, inner_state[0].mu, inner_state[0].nu):
+            st = opt.adam.state[p]
+            np.testing.assert_allclose(st["exp_avg"].numpy(), np.asarray(mu), rtol=0, atol=1e-6)
+            np.testing.assert_allclose(st["exp_avg_sq"].numpy(), np.asarray(nu), rtol=0,
+                                       atol=1e-6)
+            assert st["step"] is opt.step_count
+        assert int(opt.step_count) == int(inner_state[0].count) == 4 - int(skip)
+
+
+def test_step_is_defined_once_for_the_frozen_fault():
+    """`SkipNonfinite.step` alone defines the step, so the benchmark's
+    `frozen` fault (which patches it to return True) freezes every Adam
+    step: the parameters and moments stay as they were."""
+    assert "step" not in topt.SkipNonfiniteAdam.__dict__
+    assert "step" not in topt.SkipNonfiniteSGD.__dict__
+    p = torch.nn.Parameter(torch.ones(5))
+    opt = topt.SkipNonfiniteAdam([p], 1e-2, max_norm=1.0)
+    p.grad = torch.full((5,), 0.3)
+    undo = faults.plant("frozen")
+    try:
+        assert opt.step() is True
+    finally:
+        undo()
+    assert torch.equal(p.detach(), torch.ones(5)) and p not in opt.adam.state
+    assert bool(opt.step()) and not torch.equal(p.detach(), torch.ones(5))
+
+
+def _adam_pair():
+    """Two Adam chains over equal leaves of ragged sizes."""
+    shapes = [(5, 3), (7,), (2, 3, 4)]
+    make = lambda: [torch.nn.Parameter(torch.full(s, 0.5)) for s in shapes]  # noqa: E731
+    a, b = make(), make()
+    return (a, topt.SkipNonfiniteAdam(a, 1e-2, max_norm=1.0),
+            b, topt.SkipNonfiniteAdam(b, 1e-2, max_norm=1.0))
+
+
+def _adam_steps(params, opt, grads):
+    for g in grads:
+        for p, x in zip(params, g):
+            p.grad = torch.tensor(x)
+        opt.step()
+
+
+@pytest.mark.parametrize("via", ["state_dict", "load_adam"])
+def test_adam_state_round_trips_the_device_counts(via):
+    """The device step count and the skip count survive state_dict ->
+    load_state_dict (through torch.save) and `_load_adam` (a converted JAX
+    state's layout): the loaded chain reads the same counts and steps on
+    from them as the original does."""
+    grads = _grad_trees(4, 5, 0.5)
+    grads[1][0][0, 0] = np.inf
+    a, opt_a, b, opt_b = _adam_pair()
+    _adam_steps(a, opt_a, grads[:3])
+    assert opt_a.nonfinite_count == 1 and int(opt_a.step_count) == 2
+    if via == "state_dict":
+        buf = io.BytesIO()
+        torch.save(opt_a.state_dict(), buf)
+        buf.seek(0)
+        opt_b.load_state_dict(torch.load(buf))
+    else:
+        model = torch.nn.ParameterList(b)
+        name = dict(model.named_parameters())
+        weights = {"nonfinite_count": 1, "adam_step": 2,
+                   "exp_avg": {"m": {n: opt_a.adam.state[a[int(n)]]["exp_avg"] for n in name}},
+                   "exp_avg_sq": {"m": {n: opt_a.adam.state[a[int(n)]]["exp_avg_sq"]
+                                        for n in name}}}
+        tsteps._load_adam(opt_b, {"m": model}, weights)
+    with torch.no_grad():
+        for p, q in zip(b, a):
+            p.copy_(q)
+    assert opt_b.nonfinite_count == 1
+    _adam_steps(a, opt_a, grads[3:])
+    _adam_steps(b, opt_b, grads[3:])
+    assert int(opt_b.step_count) == int(opt_a.step_count) == 4
+    assert opt_b.nonfinite_count == 1
+    for p, q in zip(b, a):
+        assert torch.equal(p, q)
+        assert opt_b.adam.state[p]["step"] is opt_b.step_count
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt_b.adam.state[p][k], opt_a.adam.state[q][k])
 
 
 def test_clip_is_optax_formula_not_clip_grad_norm():
@@ -356,6 +454,9 @@ def _steps_match_jax(run, n_steps):
         _assert_update_close(state, before, states[i], states[i + 1], f"step {i}", bh)
     assert metrics[0]["grad"] > MAX_NORM     # the first step took the clip branch
     assert counts["nearest_code_plain"] == 2 * n_steps
+    # the Adam chain's plain twin once a step, and no read back from the device
+    assert counts["grad_stats_plain"] == counts["adam_apply_plain"] == n_steps
+    assert counts["host_sync"] == 0
     _assert_state_close(state, states[n_steps], f"after {n_steps}", bh)
 
 
@@ -394,7 +495,13 @@ def test_tokens_given_equal_frozen_encode(jax_run):
             assert torch.equal(v, w), (part, k)
 
 
-def test_nonfinite_pixel_step_is_skipped(jax_run):
+@pytest.mark.parametrize("bad", ["nan_input", "inf_gradient"])
+def test_nonfinite_pixel_step_is_skipped(jax_run, bad):
+    """A NaN in the audio features (every gradient non-finite) or one inf
+    in one leaf's gradient: the step changes no parameter, BatchNorm
+    statistic, moment or step count, counts the skip, reads nothing back
+    from the device, and the next step from there is JAX's from the same
+    state (batch 1 and its keep mask, JAX's second step)."""
     state, step, _ = _port(jax_run["jvars"], jax_run["sts"], state=jax_run["states"][1])
     gen = torch.Generator().manual_seed(1)
     batch = _torch_batch(jax_run["batches"][0])
@@ -402,9 +509,19 @@ def test_nonfinite_pixel_step_is_skipped(jax_run):
               for part, m in state.models.items()}
     moments = {id(p): {k: v.clone() for k, v in s.items()}
                for p, s in state.optimizer.adam.state.items()}
-    bad = dict(batch, aud_feat=batch["aud_feat"].clone())
-    bad["aud_feat"][0, 0, 0] = float("nan")
-    state, m = step(state, bad, gen)
+    hook = None
+    if bad == "nan_input":
+        batch = dict(batch, aud_feat=batch["aud_feat"].clone())
+        batch["aud_feat"][0, 0, 0] = float("nan")
+    else:
+        leaf = next(state.models["prior"].parameters())
+        hook = leaf.register_hook(lambda g: g.flatten().index_put(
+            (torch.tensor([0]),), torch.tensor(float("inf"))).view_as(g))
+    counts.clear()
+    state, m = step(state, batch, gen)
+    assert counts["host_sync"] == 0 and counts["adam_apply_plain"] == 1
+    if hook is not None:
+        hook.remove()
     assert m["nonfinite_skips"] == 1 and state.step == 2
     for part, model in state.models.items():   # parameters and BatchNorm statistics
         for k, v in model.state_dict().items():
@@ -412,8 +529,16 @@ def test_nonfinite_pixel_step_is_skipped(jax_run):
     for p, s in state.optimizer.adam.state.items():   # moments and Adam's step count
         for k, v in s.items():
             assert torch.equal(v, moments[id(p)][k]), k
-    state, m = step(state, batch, gen)
+    state.step = 1
+    params = {part: {k: p.detach().clone() for k, p in m.named_parameters()}
+              for part, m in state.models.items()}
+    good = dict(_torch_batch(jax_run["batches"][1]), aud_keep=torch.as_tensor(jax_run["keeps"][1]))
+    state, m = step(state, good)
     assert m["nonfinite_skips"] == 1 and np.isfinite(float(m["ce_loss"]))
+    for k, v in jax_run["metrics"][1].items():
+        if k != "nonfinite_skips":     # JAX's state skipped nothing
+            np.testing.assert_allclose(float(m[k]), v, rtol=TOL, atol=1e-7, err_msg=k)
+    _assert_update_close(state, params, jax_run["states"][1], jax_run["states"][2], "after skip")
 
 
 # ---------------------------------------------------------------------------
