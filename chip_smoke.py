@@ -333,6 +333,16 @@ Phases (one line each; any failure raises and the script exits non-zero):
              the device from a captured graph, and a call from the host), its
              plain twin and torch's fused Adam, beside the bytes bound; one
              launch each a call; the launches of the Adam steps in phases 11-37
+ 39 wavlm    WavLM Large's modes at full width (24 x 1024, 16 heads, FFN 4096,
+             320 buckets to distance 800; seven 512-wide convs): K2's pre-norm
+             mode with the gated relative bias at T = 150 and 900 frames and
+             K3's LayerNorm mode on 5 s and 30 s clips, B = 1, bf16 tables,
+             against their plain twins (within 1e-2 of max|out|); K2 on
+             tables with each planted fault of benchmark/wavlm_faults.py (the
+             gate held at 1, the bias dropped) must miss the twin by more
+             than that; CUDA-event ms of each and of its twin beside the
+             bound.  `python3
+             chip_smoke.py --wavlm` runs phases 1, 2 and 39 alone
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
 continuity, the serve flush, the stream and the eval path (eval_body and
 the eval CLI for K1, eval_face for K2 and K3), summed, K3 in phase 17 and
@@ -3828,6 +3838,61 @@ def adam_gap(got: list, want: list, before: list) -> float:
     return worst
 
 
+def phase39(dev, card: str) -> list:
+    """WavLM Large's K2 and K3 modes against their twins, and K2 on faulted
+    tables (each must fail the same check); rows for the log."""
+    from benchmark.wavlm_faults import TABLE_FAULTS
+    from talkshow_torch.kernels import wav2vec_extractor as k3
+    from talkshow_torch.kernels import wav2vec_layers as k2
+    from talkshow_torch.models.layers import init_weights_
+    from talkshow_torch.models.wav2vec import Wav2Vec2Config, Wav2Vec2Encoder
+    cfg = Wav2Vec2Config(hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
+                         do_stable_layer_norm=True, feat_extract_norm="layer",
+                         num_buckets=320, max_bucket_distance=800)
+    gen = torch.Generator().manual_seed(39)
+    enc = init_weights_(Wav2Vec2Encoder(cfg), gen)
+    with torch.no_grad():
+        for p in enc.parameters():
+            if p.dim() == 1 or p.shape[0] == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    enc = enc.to(dev).eval()
+    enc_t = k2.pack_encoder_tables(enc, torch.bfloat16)
+    ext_t = k3.pack_extractor_tables(enc.feature_extractor, torch.bfloat16)
+    rows = []
+    for T in (150, 900):
+        x = torch.randn((1, T, 1024), generator=gen).to(dev)
+        out = k2.encoder_layers_kernel(enc_t, x)
+        want = k2.encoder_layers_plain(enc_t, x)
+        err = check_close(f"phase 39 K2 pre-norm T={T}", out, want, [T], torch.bfloat16)
+        for fault, plant in TABLE_FAULTS.items():
+            bad = plant({k: v.clone() if torch.is_tensor(v) else v for k, v in enc_t.items()})
+            gap = float((k2.encoder_layers_kernel(bad, x) - want).abs().max() / want.abs().max())
+            log(f"phase 39 K2 pre-norm T={T} fault {fault}: max|d|/max|out| {gap:.3e}")
+            if not gap > 1e-2:
+                raise AssertionError(f"phase 39: the {fault} fault passes the check ({gap})")
+        ms = cuda_ms(lambda: k2.encoder_layers_kernel(enc_t, x), 20)
+        plain = cuda_ms(lambda: k2.encoder_layers_plain(enc_t, x), 3)
+        hd = 64
+        ops = k2_ops([T], T, enc_t) + 24 * 4.0 * T * 16 * hd
+        by = nbytes(*(v for v in enc_t.values() if torch.is_tensor(v))) + 2 * nbytes(x)
+        rows.append(("K2 pre-norm", f"T={T}", err, ms, plain, bound(by, ops)))
+    for sec in (5, 30):
+        wave = speech(1, sec, 39, dev)
+        out = k3.extractor_kernel(ext_t, wave)
+        err = check_close(f"phase 39 K3 LayerNorm {sec} s", out, k3.extractor_plain(ext_t, wave),
+                          [out.shape[1]], torch.bfloat16)
+        ms = cuda_ms(lambda: k3.extractor_kernel(ext_t, wave), 20)
+        plain = cuda_ms(lambda: k3.extractor_plain(ext_t, wave), 3)
+        by = nbytes(ext_t["w0"], ext_t["ws"], ext_t["ln"], wave) + out.shape[1] * 512 * 4
+        rows.append(("K3 LayerNorm", f"{sec} s", err, ms, plain,
+                     bound(by, k3_ops(1, wave.shape[1], ext_t))))
+    for name, shape, err, ms, plain, (bms, bby) in rows:
+        log(f"phase 39 {name} {shape} B=1 bf16: max|d|/max|out| {err:.3e} <= 1e-2; kernel "
+            f"{ms:.4f} ms, plain twin {plain:.3f} ms; bound {bms:.4f} ms ({bby}) = "
+            f"{bms / ms:.1%} [{card}]")
+    return rows
+
+
 def phase38(dev, card: str) -> list:
     """The Adam kernels at the two training cells' leaf lists against their
     plain twin; their times beside the bytes bound.  Returns the kernel
@@ -3953,6 +4018,11 @@ def main() -> int:
     log(f"phase 2 build: {', '.join(os.path.relpath(so) for so in sos)} built (nvcc for the "
         f"five kernel sources, g++ for the rasterizer, all started together) and loaded in "
         f"{time.time() - t0:.1f} s")
+
+    if "--wavlm" in sys.argv[1:]:
+        phase39(dev, card)
+        log(f"total wall time {time.time() - T_START:.1f} s")
+        return 0
 
     # the Adam kernels' launches over every phase that trains in this process
     adam_launches, launched = {"grad_stats": 0, "adam_apply": 0}, adam_kernels._launched
@@ -4147,6 +4217,7 @@ def main() -> int:
     # ---- phase 38: the Adam steps' kernels ------------------------------------------
     in_steps = dict(adam_launches)
     adam_rows = phase38(dev, card)
+    phase39(dev, card)
     log(f"launches of the Adam kernels in the steps this process ran in phases 11-37: "
         f"grad_stats {in_steps['grad_stats']} (once an Adam or SGD step), adam_apply "
         f"{in_steps['adam_apply']} (once an Adam step; phases 11, 16, 17 and 19 check "

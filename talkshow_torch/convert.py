@@ -557,8 +557,17 @@ def config_from_hf(hf) -> Wav2Vec2Config:
     copy of talkshow_tpu/convert/wav2vec.py:config_from_hf).  `hf` is a
     config object or a plain dict of its fields (as
     tests/fixtures/golden/meta.json holds them); a missing
-    `layer_norm_eps` takes Hugging Face's default, 1e-5."""
+    `layer_norm_eps` takes Hugging Face's default, 1e-5.  WavLM's (and
+    wav2vec 2.0 large's) keys `do_stable_layer_norm`, `feat_extract_norm`,
+    `conv_bias`, `num_buckets` and `max_bucket_distance` are read where
+    present and take base's values where absent; `conv_bias` true raises
+    (the port's extractor has no conv bias).  A WavLM state dict's
+    names are the port's (`rel_attn_embed`, `gru_rel_pos_const`,
+    `gru_rel_pos_linear`, each conv's `layer_norm`), so `reference_wav2vec`
+    maps it as it maps base's."""
     get = hf.get if isinstance(hf, dict) else (lambda k, d=None: getattr(hf, k, d))
+    if get("conv_bias", False):
+        raise ValueError("conv_bias true: the port's extractor has no conv bias")
     return Wav2Vec2Config(
         hidden_size=get("hidden_size"),
         num_layers=get("num_hidden_layers"),
@@ -570,4 +579,8 @@ def config_from_hf(hf) -> Wav2Vec2Config:
         num_conv_pos_embeddings=get("num_conv_pos_embeddings"),
         num_conv_pos_embedding_groups=get("num_conv_pos_embedding_groups"),
         layer_norm_eps=get("layer_norm_eps", 1e-5),
+        do_stable_layer_norm=bool(get("do_stable_layer_norm", False)),
+        feat_extract_norm=get("feat_extract_norm", "group"),
+        num_buckets=get("num_buckets", 0),
+        max_bucket_distance=get("max_bucket_distance", 0),
     )

@@ -401,7 +401,9 @@ struct WgArgs {
   int splits, kt_per;   // split-K: `splits` CTAs of one cluster share an output tile
 };
 
-template <int WG, typename TO>
+// kSite only names the kernel: the WavLM modes of K2 (2) and K3 (3) launch
+// their own instances, so a device trace can tell their GEMMs apart.
+template <int WG, typename TO, int kSite = 0>
 __global__ void __launch_bounds__(WgTile<WG>::kThreads)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
                   const WgArgs g) {
@@ -555,11 +557,11 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank, const cuuint
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
 }
 
-template <int WG, typename TO>
+template <int WG, typename TO, int kSite = 0>
 int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tw, const WgArgs& g, dim3 grid,
                  cudaStream_t st) {
   constexpr int smem = WgTile<WG>::kSmem;
-  const cudaError_t e = cudaFuncSetAttribute(wgmma_gemm_kernel<WG, TO>,
+  const cudaError_t e = cudaFuncSetAttribute(wgmma_gemm_kernel<WG, TO, kSite>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
@@ -574,13 +576,13 @@ int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tw, const WgArgs& g, 
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, wgmma_gemm_kernel<WG, TO>, ta, tw, g);
+  return cudaLaunchKernelEx(&cfg, wgmma_gemm_kernel<WG, TO, kSite>, ta, tw, g);
 }
 
 // C = epi(A W^T), bf16 A (z, M, K) with rows lda apart and batches a_batch
 // apart, bf16 W (N, K), C of TO.  Returns a cudaError_t, or kErrTensorMap +
-// the CUresult when a tensor map is refused.
-template <typename TO>
+// the CUresult when a tensor map is refused.  kSite: see wgmma_gemm_kernel.
+template <typename TO, int kSite = 0>
 int gemm_bf16(const bf16* a, long long lda, long long a_batch, const bf16* w, int M, int N,
               int K, int Z, const Epi& e, cudaStream_t st, int force_splits = 0) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
@@ -598,8 +600,8 @@ int gemm_bf16(const bf16* a, long long lda, long long a_batch, const bf16* w, in
   if (r != 0) return r;
   const WgArgs g{e, M, N, K, p.splits, p.kt_per};
   const dim3 grid((N + kBN - 1) / kBN, (M + 64 * p.wg - 1) / (64 * p.wg), Z * p.splits);
-  return p.wg == 2 ? launch_wgmma<2, TO>(ta, tw, g, grid, st)
-                   : launch_wgmma<1, TO>(ta, tw, g, grid, st);
+  return p.wg == 2 ? launch_wgmma<2, TO, kSite>(ta, tw, g, grid, st)
+                   : launch_wgmma<1, TO, kSite>(ta, tw, g, grid, st);
 }
 
 }  // namespace w2v

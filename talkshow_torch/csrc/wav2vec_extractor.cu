@@ -41,6 +41,20 @@
 //   cancellation over 32 000 frames (the TPU kernel's :364-365).  Apply:
 //   32 frames a block, the tile normalised, gelu, rounded to the table type
 //   and stored as one 16-byte row segment per frame.
+//
+// WavLM's LayerNorm mode (talkshow_w2v_extractor_ln): every conv (no bias)
+// is followed by a LayerNorm over the channels of each frame, then gelu,
+// rounded as above.
+// - Layer 0 in one pass (conv0_ln_kernel): a block holds 32 frames and one
+//   8 x 8 tile per thread (C / 2 threads at most 1024: C <= 2048), the
+//   tile in registers; a frame's mean and then its squared deviations are
+//   summed in a fixed order, 8 channels in a thread and the threads' sums
+//   in shared memory in channel order.  No statistics across blocks.
+// - Layers 1..: the same GEMM (instance 3) writes the f32 pre-norm
+//   activations, and ln_gelu_kernel (one warp
+//   a frame, the row in registers, two passes) normalises, applies gelu and
+//   rounds.  The f32 pass costs a write and a read of each layer's output
+//   (~0.1 GB at 30 s), small beside the GEMMs.
 
 #include "w2v_common.cuh"
 
@@ -245,9 +259,131 @@ conv0_apply_kernel(const float* wave, const TW* w0, const float* stats, const fl
   }
 }
 
+// ---- LayerNorm mode ------------------------------------------------------------
+
+constexpr int kLnFrames = 32;   // layer-0 frames per block: kGroups groups of 8
+
+size_t conv0_ln_smem(const Conv0& c) {
+  return sizeof(float) * ((size_t)c.k0 * c.C + (size_t)(kLnFrames - 1) * c.s0 + c.k0 +
+                          (size_t)kLnFrames * (c.C / 8) + 2 * kLnFrames);
+}
+
+// h0 (B, T0, C) of TW = gelu(LayerNorm_C(conv(wave)) * ln[0] + ln[1]),
+// rounded.  One 8-frame x 8-channel tile per thread.
+template <typename TW>
+__global__ void conv0_ln_kernel(const float* wave, const TW* w0, const float* ln, TW* h0, Conv0 c,
+                                float eps) {
+  extern __shared__ __align__(16) float sm0[];
+  const int oct = c.C / 8;
+  float* wt = sm0;
+  float* win = wt + c.k0 * c.C;
+  float* part = win + (kLnFrames - 1) * c.s0 + c.k0;   // [kLnFrames][oct]
+  float* stat = part + kLnFrames * oct;                 // [kLnFrames][2]: mean, rstd
+  const int blk = blockIdx.x, b = blockIdx.y;
+  const int t0 = blk * kLnFrames, nt = min(kLnFrames, c.T0 - t0);
+  load_conv0<TW>(wave, w0, wt, win, b, t0, kLnFrames, c);
+  __syncthreads();
+  const int it = threadIdx.x, f0 = (it / oct) * 8, q8 = it % oct, ch0 = 8 * q8;
+  const bool mine = it < kGroups * oct;
+  float v[8][8];
+  if (mine) {
+    conv_tile(win, wt, f0, ch0, c, v);
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sum += v[f][q];
+      part[(f0 + f) * oct + q8] = sum;
+    }
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < kLnFrames; f += blockDim.x) {
+    float sum = 0.f;
+    for (int k = 0; k < oct; ++k) sum += part[f * oct + k];
+    stat[2 * f] = sum / c.C;
+  }
+  __syncthreads();
+  if (mine) {
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      const float m = stat[2 * (f0 + f)];
+      float sq = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sq = fmaf(v[f][q] - m, v[f][q] - m, sq);
+      part[(f0 + f) * oct + q8] = sq;
+    }
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < kLnFrames; f += blockDim.x) {
+    float sq = 0.f;
+    for (int k = 0; k < oct; ++k) sq += part[f * oct + k];
+    stat[2 * f + 1] = rsqrtf(sq / c.C + eps);
+  }
+  __syncthreads();
+  if (!mine) return;
+  TW* dst = h0 + ((size_t)b * c.T0 + t0 + f0) * c.C + ch0;
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    if (f0 + f >= nt) break;
+    const float m = stat[2 * (f0 + f)], r = stat[2 * (f0 + f) + 1];
+    float o[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      o[q] = gelu((v[f][q] - m) * r * ln[ch0 + q] + ln[c.C + ch0 + q]);
+    store8<TW>(dst + (size_t)f * c.C, o);
+  }
+}
+
+constexpr int kLnWarps = 4;     // frames (warps) per ln_gelu block
+constexpr int kLnChunks = 16;   // float4s per lane: rows up to 2048 channels
+
+// y (M, C) of TO = gelu(LayerNorm_C(x) * ln[0] + ln[1]) rounded to TW; one
+// warp per frame, the row in registers.
+template <typename TW, typename TO>
+__global__ void __launch_bounds__(kLnWarps * 32)
+ln_gelu_kernel(const float* x, const float* ln, TO* y, int M, int C, float eps) {
+  const int row = blockIdx.x * kLnWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const int n4 = C / 4;
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * C);
+  float4 v[kLnChunks];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLnChunks; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < n4 ? xr[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    s += (v[j].x + v[j].y) + (v[j].z + v[j].w);
+  }
+  const float mean = warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLnChunks; ++j) {
+    if (lane + 32 * j < n4) {
+      const float a = v[j].x - mean, b = v[j].y - mean, c = v[j].z - mean, d = v[j].w - mean;
+      q = fmaf(a, a, fmaf(b, b, fmaf(c, c, fmaf(d, d, q))));
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(q) / C + eps);
+  const float4* gs = reinterpret_cast<const float4*>(ln);
+  const float4* bs = reinterpret_cast<const float4*>(ln + C);
+#pragma unroll
+  for (int j = 0; j < kLnChunks; ++j) {
+    const int c = lane + 32 * j;
+    if (c >= n4) continue;
+    const float4 gg = gs[c], bb = bs[c];
+    const float4 r = make_float4(
+        round_to<TW>(gelu((v[j].x - mean) * rstd * gg.x + bb.x)),
+        round_to<TW>(gelu((v[j].y - mean) * rstd * gg.y + bb.y)),
+        round_to<TW>(gelu((v[j].z - mean) * rstd * gg.z + bb.z)),
+        round_to<TW>(gelu((v[j].w - mean) * rstd * gg.w + bb.w)));
+    store4<TO>(y + (size_t)row * C + 4 * c, r);
+  }
+}
+
 struct Plan {   // frame counts and scratch layout for one call
   int n_layers, T[16], k[16], s[16], C[16], nblk;
   size_t part, stats, buf[2], total;
+  size_t pre;     // LayerNorm mode: the f32 pre-norm activations of layers 1..
 };
 
 size_t align256(size_t n) { return (n + 255) / 256 * 256; }
@@ -278,6 +414,19 @@ bool make_plan(int dtype, int B, int N, int n_layers, const int* dims, Plan* p) 
   p->buf[0] = p->stats + align256((size_t)B * p->C[0] * 2 * sizeof(float));
   p->buf[1] = p->buf[0] + buf[0];
   p->total = p->buf[1] + buf[1];
+  p->pre = p->total;
+  return true;
+}
+
+// make_plan and, past its scratch, the LayerNorm mode's f32 buffer.
+bool make_plan_ln(int dtype, int B, int N, int n_layers, const int* dims, Plan* p) {
+  if (!make_plan(dtype, B, N, n_layers, dims, p)) return false;
+  size_t pre = 0;
+  for (int l = 1; l < n_layers; ++l)
+    pre = std::max(pre, align256((size_t)B * p->T[l] * p->C[l] * sizeof(float)));
+  p->total = p->pre + pre;
+  for (int l = 0; l < n_layers; ++l)
+    if (p->C[l] % 8 || p->C[l] > 4 * 32 * kLnChunks) return false;
   return true;
 }
 
@@ -328,6 +477,52 @@ int run(const Plan& p, int B, int N, float eps, const TW* w0, const TW* ws, cons
   return cudaSuccess;
 }
 
+// The LayerNorm mode's stack.  ln: every layer's (2, C_l), concatenated.
+template <typename TW>
+int run_ln(const Plan& p, int B, int N, float eps, const TW* w0, const TW* ws, const float* ln,
+           const float* wave, float* out, char* scratch, cudaStream_t st) {
+  float* pre = reinterpret_cast<float*>(scratch + p.pre);
+  TW* buf[2] = {reinterpret_cast<TW*>(scratch + p.buf[0]),
+                reinterpret_cast<TW*>(scratch + p.buf[1])};
+  const Conv0 c{N, p.T[0], p.k[0], p.s[0], p.C[0]};
+  const size_t sm = conv0_ln_smem(c);
+  if (sm > 232448) return cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(conv0_ln_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)sm)) != cudaSuccess)
+    return e;
+  const int threads = (kGroups * c.C / 8 + 31) / 32 * 32;
+  conv0_ln_kernel<TW><<<dim3((c.T0 + kLnFrames - 1) / kLnFrames, B), threads, sm, st>>>(
+      wave, w0, ln, buf[0], c, eps);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  const TW* w = ws;
+  size_t loff = 2 * (size_t)p.C[0];
+  for (int l = 1; l < p.n_layers; ++l) {
+    const int cin = p.C[l - 1], tin = p.T[l - 1], K = p.k[l] * cin;
+    const long long lda = (long long)p.s[l] * cin, a_batch = (long long)tin * cin;
+    const int M = B * p.T[l];
+    Epi ep{};
+    ep.c = pre; ep.ldc = p.C[l]; ep.c_batch = (long long)p.T[l] * p.C[l];
+    int r;
+    if constexpr (sizeof(TW) == 2)
+      r = gemm_bf16<float, 3>(buf[(l - 1) % 2], lda, a_batch, w, p.T[l], p.C[l], K, B, ep, st);
+    else
+      r = gemm_f32(FmaArgs{buf[(l - 1) % 2], lda, a_batch, w, p.T[l], p.C[l], K}, ep, B, st);
+    if (r != 0) return r;
+    const dim3 grid((M + kLnWarps - 1) / kLnWarps);
+    if (l + 1 == p.n_layers)
+      ln_gelu_kernel<TW, float><<<grid, kLnWarps * 32, 0, st>>>(pre, ln + loff, out, M, p.C[l], eps);
+    else
+      ln_gelu_kernel<TW, TW><<<grid, kLnWarps * 32, 0, st>>>(pre, ln + loff, buf[l % 2], M, p.C[l],
+                                                             eps);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    w += (size_t)p.C[l] * K;
+    loff += 2 * (size_t)p.C[l];
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -358,6 +553,30 @@ int talkshow_w2v_extractor(int table_dtype, int B, int N, int n_layers, const in
                       static_cast<const float*>(ws), gn, wave, out, s, st);
   return run<bf16>(p, B, N, eps, static_cast<const bf16*>(w0), static_cast<const bf16*>(ws),
                    gn, wave, out, s, st);
+}
+
+// The LayerNorm mode (WavLM): scratch bytes (-1 for a bad shape) and the
+// stack, the arguments of the group-norm entry but for `ln` (every layer's
+// (2, C) LayerNorm, concatenated) in place of gn.  C_0 a multiple of 8 up to 2048,
+// the last C up to 2048.
+long long talkshow_w2v_extractor_ln_scratch(int table_dtype, int B, int N, int n_layers,
+                                            const int* dims) {
+  Plan p;
+  return make_plan_ln(table_dtype, B, N, n_layers, dims, &p) ? (long long)p.total : -1;
+}
+
+int talkshow_w2v_extractor_ln(int table_dtype, int B, int N, int n_layers, const int* dims,
+                              float eps, const void* w0, const void* ws, const float* ln,
+                              const float* wave, float* out, void* scratch, void* stream) {
+  Plan p;
+  if (B < 1 || !make_plan_ln(table_dtype, B, N, n_layers, dims, &p)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  char* s = static_cast<char*>(scratch);
+  if (table_dtype == 0)
+    return run_ln<float>(p, B, N, eps, static_cast<const float*>(w0),
+                         static_cast<const float*>(ws), ln, wave, out, s, st);
+  return run_ln<bf16>(p, B, N, eps, static_cast<const bf16*>(w0), static_cast<const bf16*>(ws),
+                      ln, wave, out, s, st);
 }
 
 }  // extern "C"

@@ -44,6 +44,22 @@
 //   loads for the mean, the variance and the output.
 // f32 tables (the exact comparison mode) keep plain FMA products, the
 // scalar attention below with its (16, T) score tile, and f32 buffers.
+//
+// WavLM's pre-norm mode (talkshow_w2v_layers_prenorm), per layer:
+//   u   = LN1(x); g[b,h,i] = a (b' c_h - 1) + 2, (a, b') = sigmoid(u_h wg^T + bg)
+//   x   = x + softmax(q k^T / sqrt(hd) + g[b,h,i] E[bucket(j - i), h]) v Wo^T + bo
+//   x   = x + gelu(LN2(x) W1^T + b1) W2^T + b2
+// and LN_final(x) after the last layer.  wg (2, hd) and bg (2) are the sums
+// of the 8-output gate projection's rows and biases in its two groups of 4
+// (a sum of linear maps is one).  The gate comes out of LN1's kernel: each
+// lane dots its 4 normalised values with wg's, and the lanes of a head sum
+// by shuffles.  The bias never exists as an (H, T, T) tensor: the packed
+// table relb (heads, 2R + 1) holds E[bucket(d), h] for d in [-R, R]
+// (R = max_bucket_distance: every |d| >= R is the last bucket), and each
+// attention block stages its head's row in shared memory and adds
+// g * relb[clamp(j - i, -R, R) + R] to every score before the key mask, in
+// both passes.  The base mode's kernels are the <false> instances, whose
+// code is the one above; the mode's GEMMs are instance 2 of the shared GEMM.
 
 #include "w2v_common.cuh"
 
@@ -88,14 +104,28 @@ __device__ __forceinline__ void load_kv_tile(const float* base, int ld, int off,
   }
 }
 
+// The gated relative bias of WavLM's mode: gate (B, heads, T) f32, table
+// (heads, 2R + 1) f32 (see the top of this file).
+struct GateArgs {
+  const float* gate;
+  const float* relb;
+  int R;
+};
+
+__device__ __forceinline__ float rel_bias(const float* tab, int R, int key, int row) {
+  return tab[min(max(key - row, -R), R) + R];
+}
+
 size_t attn_f32_smem(int T, int hd) {
   return sizeof(float) * ((size_t)kTQ * T + (size_t)(kTQ + kTK) * (hd + 1));
 }
 
 // qkv (B, T, 3H) f32 = [q | k | v], head h at columns h*hd.  ctx (B, T, H).
+// kGated: WavLM's gated bias added to the scores (ga).
+template <bool kGated>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_f32_kernel(const float* qkv, const int* valid, float* ctx, int T, int H, int hd,
-                     float scale) {
+                     float scale, GateArgs ga) {
   extern __shared__ float sm[];
   float* S = sm;                       // [kTQ][T] scores, then probabilities
   float* Q = S + (size_t)kTQ * T;      // [kTQ][hd + 1]
@@ -133,6 +163,11 @@ attention_f32_kernel(const float* qkv, const int* valid, float* ctx, int T, int 
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = c16 + 16 * j;
+        if constexpr (kGated) {
+          if (c < nk && r2 + i < nq)
+            s[i][j] += ga.gate[((size_t)b * gridDim.y + h) * T + q0 + r2 + i] *
+                       rel_bias(ga.relb + (size_t)h * (2 * ga.R + 1), ga.R, k0 + c, q0 + r2 + i);
+        }
         if (c < nk) S[(size_t)(r2 + i) * T + k0 + c] = k0 + c < tv ? s[i][j] : -1e30f;
       }
   }
@@ -236,10 +271,12 @@ __device__ __forceinline__ void load_rows(bf16* s, const bf16* base, int ld, int
 
 // qkv (B, T, 3H) bf16 = [q * scale | k | v], also as the tensor map tkv
 // {3H, T, B} read in (64 rows x kLd) boxes; ctx (B, T, H) bf16.
-template <int KB>
+// kGated: WavLM's gated bias added to the scores (ga; the head's table row
+// staged after the tiles).
+template <int KB, bool kGated>
 __global__ void __launch_bounds__(kAttTcThreads)
 attention_tc_kernel(const __grid_constant__ CUtensorMap tkv, const bf16* qkv, const int* valid,
-                    bf16* ctx, int T, int H, int hd) {
+                    bf16* ctx, int T, int H, int hd, GateArgs ga) {
   using A = AttTile<KB>;
   constexpr int LD = A::kLd;
   extern __shared__ unsigned char att_raw[];
@@ -260,6 +297,17 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tkv, const bf16* qkv, co
     Qs[(idx / pad) * LD + hd + idx % pad] = __float2bfloat16_rn(0.f);
   load_rows<KB>(Qs, base, ld, h * hd, q0, T, hd);
   cp_async_commit();
+  float* tab = reinterpret_cast<float*>(att_sm + A::kTiles * A::kElems);
+  float gv[2] = {0.f, 0.f};   // the gate of this thread's rows g and g + 8
+  if constexpr (kGated) {
+    const float* row = ga.relb + (size_t)h * (2 * ga.R + 1);
+    for (int i = threadIdx.x; i < 2 * ga.R + 1; i += kAttTcThreads) tab[i] = row[i];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = q0 + warp * 16 + g + 8 * r;
+      gv[r] = q < T ? ga.gate[((size_t)b * gridDim.y + h) * T + q] : 0.f;
+    }
+  }
   if (threadIdx.x == 0) {
     for (int i = 0; i < kAttStages; ++i) mbar_init(&full[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -317,6 +365,8 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tkv, const bf16* qkv, co
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = kt * kAttK + 8 * nb + 2 * t + (e & 1);
+        if constexpr (kGated)
+          s[nb][e] += gv[e >> 1] * rel_bias(tab, ga.R, key, q0 + warp * 16 + g + 8 * (e >> 1));
         s[nb][e] = key >= T ? -INFINITY : key < tv ? s[nb][e] : -1e30f;
       }
     if (i < nt) {
@@ -377,34 +427,37 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tkv, const bf16* qkv, co
   }
 }
 
-template <int KB>
+template <int KB, bool kGated>
 int attention_tc(const bf16* qkv, const int* valid, bf16* ctx, int B, int T, int H, int heads,
-                 cudaStream_t st) {
-  constexpr int smem = AttTile<KB>::kSmem + 128;   // + alignment of the TMA boxes
+                 cudaStream_t st, GateArgs ga) {
+  // + alignment of the TMA boxes, + the gated mode's table row
+  const int smem = AttTile<KB>::kSmem + 128 + (kGated ? (2 * ga.R + 1) * (int)sizeof(float) : 0);
   CUtensorMap tkv;
   const cuuint64_t dims[3] = {(cuuint64_t)3 * H, (cuuint64_t)T, (cuuint64_t)B};
   const long long strides[2] = {3LL * H, 3LL * H * T};
   int e = encode_map(&tkv, qkv, 3, dims, strides, AttTile<KB>::kLd, kAttK, false);
   if (e != 0) return e;
-  if ((e = cudaFuncSetAttribute(attention_tc_kernel<KB>,
+  if ((e = cudaFuncSetAttribute(attention_tc_kernel<KB, kGated>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
     return e;
   const dim3 grid((T + kAttQ - 1) / kAttQ, heads, B);
-  attention_tc_kernel<KB><<<grid, kAttTcThreads, smem, st>>>(tkv, qkv, valid, ctx, T, H, H / heads);
+  attention_tc_kernel<KB, kGated><<<grid, kAttTcThreads, smem, st>>>(tkv, qkv, valid, ctx, T, H,
+                                                                     H / heads, ga);
   return cudaGetLastError();
 }
 
+template <bool kGated>
 int attention_bf16(const bf16* qkv, const int* valid, bf16* ctx, int B, int T, int H, int heads,
-                   cudaStream_t st) {
+                   cudaStream_t st, GateArgs ga = GateArgs{}) {
   switch ((H / heads + 15) / 16) {
-    case 1: return attention_tc<1>(qkv, valid, ctx, B, T, H, heads, st);
-    case 2: return attention_tc<2>(qkv, valid, ctx, B, T, H, heads, st);
-    case 3: return attention_tc<3>(qkv, valid, ctx, B, T, H, heads, st);
-    case 4: return attention_tc<4>(qkv, valid, ctx, B, T, H, heads, st);
-    case 5: return attention_tc<5>(qkv, valid, ctx, B, T, H, heads, st);
-    case 6: return attention_tc<6>(qkv, valid, ctx, B, T, H, heads, st);
-    case 7: return attention_tc<7>(qkv, valid, ctx, B, T, H, heads, st);
-    case 8: return attention_tc<8>(qkv, valid, ctx, B, T, H, heads, st);
+    case 1: return attention_tc<1, kGated>(qkv, valid, ctx, B, T, H, heads, st, ga);
+    case 2: return attention_tc<2, kGated>(qkv, valid, ctx, B, T, H, heads, st, ga);
+    case 3: return attention_tc<3, kGated>(qkv, valid, ctx, B, T, H, heads, st, ga);
+    case 4: return attention_tc<4, kGated>(qkv, valid, ctx, B, T, H, heads, st, ga);
+    case 5: return attention_tc<5, kGated>(qkv, valid, ctx, B, T, H, heads, st, ga);
+    case 6: return attention_tc<6, kGated>(qkv, valid, ctx, B, T, H, heads, st, ga);
+    case 7: return attention_tc<7, kGated>(qkv, valid, ctx, B, T, H, heads, st, ga);
+    case 8: return attention_tc<8, kGated>(qkv, valid, ctx, B, T, H, heads, st, ga);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -479,6 +532,95 @@ __global__ void cast_bf16_kernel(const float* x, bf16* y, long long n4) {
   }
 }
 
+// WavLM's gate, from the LayerNorm that precedes attention: w (2, hd) and
+// bias (2) the summed gate projection, c (heads) the gate constant, g
+// (B, heads, T) the output; rows are b * T + t.
+struct LnGate {
+  const float *w, *bias, *c;
+  float* g;
+  int T, hd;
+};
+
+// y = LayerNorm(x) * gb[0:H] + gb[H:2H] into y (f32) and yb (bf16), each
+// unless null; with lg.g, WavLM's gate of the row's heads too.  One warp per
+// row, the row in registers; the lanes of a head (hd / 4 of them, hd a
+// power of two from 4 to 128) sum its two gate dots by shuffles.  In place
+// (y == x) is safe: a warp has read its row before it writes.
+__global__ void __launch_bounds__(kLnWarps * 32)
+ln_gate_kernel(const float* x, const float* gb, float* y, bf16* yb, int M, int H, float eps,
+               LnGate lg) {
+  const int row = blockIdx.x * kLnWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const int n4 = H / 4;
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * H);
+  float4 v[kLnChunks];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLnChunks; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < n4 ? xr[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    s += (v[j].x + v[j].y) + (v[j].z + v[j].w);
+  }
+  const float mean = warp_sum(s) / H;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLnChunks; ++j) {
+    if (lane + 32 * j < n4) {
+      const float a = v[j].x - mean, b = v[j].y - mean, c = v[j].z - mean, d = v[j].w - mean;
+      q = fmaf(a, a, fmaf(b, b, fmaf(c, c, fmaf(d, d, q))));
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(q) / H + eps);
+  const float4* gs = reinterpret_cast<const float4*>(gb);
+  const float4* bs = reinterpret_cast<const float4*>(gb + H);
+  const int seg = lg.hd / 4;   // lanes per head
+#pragma unroll
+  for (int j = 0; j < kLnChunks; ++j) {
+    if (32 * j >= n4) break;   // uniform over the warp
+    const int c = lane + 32 * j;
+    float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < n4) {
+      const float4 gg = gs[c], bb = bs[c];
+      r = make_float4((v[j].x - mean) * rstd * gg.x + bb.x, (v[j].y - mean) * rstd * gg.y + bb.y,
+                      (v[j].z - mean) * rstd * gg.z + bb.z, (v[j].w - mean) * rstd * gg.w + bb.w);
+      if (y) reinterpret_cast<float4*>(y + (size_t)row * H)[c] = r;
+      if (yb) {
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(yb + (size_t)row * H + 4 * c);
+        p[0] = __floats2bfloat162_rn(r.x, r.y);
+        p[1] = __floats2bfloat162_rn(r.z, r.w);
+      }
+    }
+    if (lg.g) {
+      const int off = (4 * c) % lg.hd;
+      float pa = 0.f, pb = 0.f;
+      if (c < n4) {
+        const float4 wa = *reinterpret_cast<const float4*>(lg.w + off);
+        const float4 wb = *reinterpret_cast<const float4*>(lg.w + lg.hd + off);
+        pa = r.x * wa.x + r.y * wa.y + r.z * wa.z + r.w * wa.w;
+        pb = r.x * wb.x + r.y * wb.y + r.z * wb.z + r.w * wb.w;
+      }
+      for (int o = 1; o < seg; o <<= 1) {
+        pa += __shfl_xor_sync(0xffffffffu, pa, o);
+        pb += __shfl_xor_sync(0xffffffffu, pb, o);
+      }
+      if (c < n4 && lane % seg == 0) {
+        const int head = 4 * c / lg.hd, heads = H / lg.hd;
+        const float a = 1.f / (1.f + expf(-(pa + lg.bias[0])));
+        const float bq = 1.f / (1.f + expf(-(pb + lg.bias[1])));
+        const int bi = row / lg.T, t = row % lg.T;
+        lg.g[((size_t)bi * heads + head) * lg.T + t] = a * (bq * lg.c[head] - 1.f) + 2.f;
+      }
+    }
+  }
+}
+
+cudaError_t ln_gate(const float* x, const float* gb, float* y, bf16* yb, int M, int H, float eps,
+                    cudaStream_t st, LnGate lg = LnGate{}) {
+  ln_gate_kernel<<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, st>>>(x, gb, y, yb, M, H, eps,
+                                                                          lg);
+  return cudaGetLastError();
+}
+
 // ---- the stack ------------------------------------------------------------------
 
 struct Dims {
@@ -532,7 +674,7 @@ int run_f32(const Dims& d, const Tables& t, const int* valid, const float* x, fl
   float* hb = reinterpret_cast<float*>(scratch + lo.hb);
   const size_t smem = attn_f32_smem(T, hd);
   if (hd > kMaxHd || hd % 4 || smem > 232448) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel,
+  cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<false>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 attn_grid((T + kTQ - 1) / kTQ, d.heads, B);
@@ -548,7 +690,8 @@ int run_f32(const Dims& d, const Tables& t, const int* valid, const float* x, fl
     ep.bias = t.bqkv + (size_t)l * 3 * H; ep.c = qkv; ep.ldc = 3 * H;
     if ((e = gemm_f32(FmaArgs{cur, H, 0, wqkv, M, 3 * H, H}, ep, 1, st)) != cudaSuccess) return e;
 
-    attention_f32_kernel<<<attn_grid, kAttnThreads, smem, st>>>(qkv, valid, ctx, T, H, hd, scale);
+    attention_f32_kernel<false><<<attn_grid, kAttnThreads, smem, st>>>(qkv, valid, ctx, T, H, hd,
+                                                                       scale, GateArgs{});
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
     ep = Epi{};
@@ -600,7 +743,7 @@ int run_bf16(const Dims& d, const Tables& t, const int* valid, const float* x, f
     ep.scale_cols = H; ep.scale = scale;
     if ((e = gemm_bf16<bf16>(xb, H, 0, wqkv, M, 3 * H, H, 1, ep, st)) != 0) return e;
 
-    if ((e = attention_bf16(qkv, valid, ctx, B, T, H, d.heads, st)) != 0) return e;
+    if ((e = attention_bf16<false>(qkv, valid, ctx, B, T, H, d.heads, st)) != 0) return e;
 
     ep = Epi{};
     ep.bias = t.bo + (size_t)l * H; ep.resid = cur; ep.ldr = H; ep.c = y; ep.ldc = H;
@@ -621,6 +764,131 @@ int run_bf16(const Dims& d, const Tables& t, const int* valid, const float* x, f
     cur = out;
   }
   return cudaSuccess;
+}
+
+// WavLM's tables besides the base ones: the gate's (L, 2, hd) summed rows,
+// (L, 2) summed biases and (L, heads) constants, the bias table (heads,
+// 2R + 1) and the final LayerNorm (2, H).
+struct PreTables {
+  const float *gw, *gbias, *gc, *relb, *lnf;
+  int R;
+};
+
+size_t gate_offset(int dtype, int B, int T, int H, int F) { return layout(dtype, B, T, H, F).total; }
+
+size_t prenorm_scratch(int dtype, int B, int T, int H, int F, int heads) {
+  return gate_offset(dtype, B, T, H, F) + align256((size_t)B * heads * T * sizeof(float));
+}
+
+LnGate layer_gate(const Dims& d, const PreTables& p, int l, float* g) {
+  const int hd = d.H / d.heads;
+  return LnGate{p.gw + (size_t)l * 2 * hd, p.gbias + (size_t)l * 2, p.gc + (size_t)l * d.heads, g,
+                d.T, hd};
+}
+
+int run_f32_prenorm(const Dims& d, const Tables& t, const PreTables& p, const int* valid,
+                    const float* x, float* out, char* scratch, cudaStream_t st) {
+  const int B = d.B, T = d.T, H = d.H, F = d.F, hd = H / d.heads, M = B * T;
+  const Layout lo = layout(0, B, T, H, F);
+  float* qkv = reinterpret_cast<float*>(scratch + lo.qkv);
+  float* ctx = reinterpret_cast<float*>(scratch + lo.ctx);
+  float* y = reinterpret_cast<float*>(scratch + lo.y);
+  float* xn = reinterpret_cast<float*>(scratch + lo.xn);
+  float* hb = reinterpret_cast<float*>(scratch + lo.hb);
+  float* gate = reinterpret_cast<float*>(scratch + gate_offset(0, B, T, H, F));
+  const size_t smem = attn_f32_smem(T, hd);
+  if (hd > kMaxHd || hd % 4 || smem > 232448) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 attn_grid((T + kTQ - 1) / kTQ, d.heads, B);
+  const float scale = (float)(1.0 / sqrt((double)hd));
+  const GateArgs ga{gate, p.relb, p.R};
+  const float* cur = x;
+  for (int l = 0; l < d.L; ++l) {
+    const float* wqkv = static_cast<const float*>(t.wqkv) + (size_t)l * 3 * H * H;
+    const float* wo = static_cast<const float*>(t.wo) + (size_t)l * H * H;
+    const float* w1 = static_cast<const float*>(t.w1) + (size_t)l * F * H;
+    const float* w2 = static_cast<const float*>(t.w2) + (size_t)l * H * F;
+
+    if ((e = ln_gate(cur, t.ln1 + (size_t)l * 2 * H, xn, nullptr, M, H, d.eps, st,
+                     layer_gate(d, p, l, gate))) != cudaSuccess)
+      return e;
+    Epi ep{};
+    ep.bias = t.bqkv + (size_t)l * 3 * H; ep.c = qkv; ep.ldc = 3 * H;
+    if ((e = gemm_f32(FmaArgs{xn, H, 0, wqkv, M, 3 * H, H}, ep, 1, st)) != cudaSuccess) return e;
+
+    attention_f32_kernel<true><<<attn_grid, kAttnThreads, smem, st>>>(qkv, valid, ctx, T, H, hd,
+                                                                      scale, ga);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+    ep = Epi{};
+    ep.bias = t.bo + (size_t)l * H; ep.resid = cur; ep.ldr = H; ep.c = y; ep.ldc = H;
+    if ((e = gemm_f32(FmaArgs{ctx, H, 0, wo, M, H, H}, ep, 1, st)) != cudaSuccess) return e;
+    if ((e = ln_gate(y, t.ln2 + (size_t)l * 2 * H, xn, nullptr, M, H, d.eps, st)) != cudaSuccess)
+      return e;
+
+    ep = Epi{};
+    ep.bias = t.b1 + (size_t)l * F; ep.gelu = 1; ep.c = hb; ep.ldc = F;
+    if ((e = gemm_f32(FmaArgs{xn, H, 0, w1, M, F, H}, ep, 1, st)) != cudaSuccess) return e;
+
+    ep = Epi{};
+    ep.bias = t.b2 + (size_t)l * H; ep.resid = y; ep.ldr = H; ep.c = out; ep.ldc = H;
+    if ((e = gemm_f32(FmaArgs{hb, F, 0, w2, M, H, F}, ep, 1, st)) != cudaSuccess) return e;
+    cur = out;
+  }
+  return ln_gate(out, p.lnf, out, nullptr, M, H, d.eps, st);
+}
+
+int run_bf16_prenorm(const Dims& d, const Tables& t, const PreTables& p, const int* valid,
+                     const float* x, float* out, char* scratch, cudaStream_t st) {
+  const int B = d.B, T = d.T, H = d.H, F = d.F, hd = H / d.heads, M = B * T;
+  if (hd > kMaxHd || hd % 8) return cudaErrorInvalidValue;
+  const Layout lo = layout(1, B, T, H, F);
+  bf16* qkv = reinterpret_cast<bf16*>(scratch + lo.qkv);
+  bf16* ctx = reinterpret_cast<bf16*>(scratch + lo.ctx);
+  float* y = reinterpret_cast<float*>(scratch + lo.y);
+  bf16* xnb = reinterpret_cast<bf16*>(scratch + lo.xnb);
+  bf16* hb = reinterpret_cast<bf16*>(scratch + lo.hb);
+  bf16* xb = reinterpret_cast<bf16*>(scratch + lo.xb);
+  float* gate = reinterpret_cast<float*>(scratch + gate_offset(1, B, T, H, F));
+  const float scale = (float)(1.0 / sqrt((double)hd));
+  const GateArgs ga{gate, p.relb, p.R};
+  int e;
+  const float* cur = x;
+  for (int l = 0; l < d.L; ++l) {
+    const bf16* wqkv = static_cast<const bf16*>(t.wqkv) + (size_t)l * 3 * H * H;
+    const bf16* wo = static_cast<const bf16*>(t.wo) + (size_t)l * H * H;
+    const bf16* w1 = static_cast<const bf16*>(t.w1) + (size_t)l * F * H;
+    const bf16* w2 = static_cast<const bf16*>(t.w2) + (size_t)l * H * F;
+
+    // LN1's output feeds only products and the gate: bf16 alone
+    if ((e = ln_gate(cur, t.ln1 + (size_t)l * 2 * H, nullptr, xb, M, H, d.eps, st,
+                     layer_gate(d, p, l, gate))) != cudaSuccess)
+      return e;
+    Epi ep{};
+    ep.bias = t.bqkv + (size_t)l * 3 * H; ep.c = qkv; ep.ldc = 3 * H;
+    ep.scale_cols = H; ep.scale = scale;
+    if ((e = gemm_bf16<bf16, 2>(xb, H, 0, wqkv, M, 3 * H, H, 1, ep, st)) != 0) return e;
+
+    if ((e = attention_bf16<true>(qkv, valid, ctx, B, T, H, d.heads, st, ga)) != 0) return e;
+
+    ep = Epi{};
+    ep.bias = t.bo + (size_t)l * H; ep.resid = cur; ep.ldr = H; ep.c = y; ep.ldc = H;
+    if ((e = gemm_bf16<float, 2>(ctx, H, 0, wo, M, H, H, 1, ep, st)) != 0) return e;
+    if ((e = ln_gate(y, t.ln2 + (size_t)l * 2 * H, nullptr, xnb, M, H, d.eps, st)) != cudaSuccess)
+      return e;
+
+    ep = Epi{};
+    ep.bias = t.b1 + (size_t)l * F; ep.gelu = 1; ep.c = hb; ep.ldc = F;
+    if ((e = gemm_bf16<bf16, 2>(xnb, H, 0, w1, M, F, H, 1, ep, st)) != 0) return e;
+
+    ep = Epi{};
+    ep.bias = t.b2 + (size_t)l * H; ep.resid = y; ep.ldr = H; ep.c = out; ep.ldc = H;
+    if ((e = gemm_bf16<float, 2>(hb, F, 0, w2, M, H, F, 1, ep, st)) != 0) return e;
+    cur = out;
+  }
+  return ln_gate(out, p.lnf, out, nullptr, M, H, d.eps, st);
 }
 
 }  // namespace
@@ -651,6 +919,38 @@ int talkshow_w2v_layers(int table_dtype, int B, int T, int H, int heads, int F, 
   char* s = static_cast<char*>(scratch);
   if (table_dtype == 0) return run_f32(d, t, valid, x, out, s, st);
   if (table_dtype == 1) return run_bf16(d, t, valid, x, out, s, st);
+  return cudaErrorInvalidValue;
+}
+
+// Bytes of scratch that talkshow_w2v_layers_prenorm needs.
+long long talkshow_w2v_layers_prenorm_scratch(int table_dtype, int B, int T, int H, int F,
+                                              int heads) {
+  return (long long)prenorm_scratch(table_dtype, B, T, H, F, heads);
+}
+
+// WavLM's pre-norm stack (see the top of this file), the arguments of
+// talkshow_w2v_layers and: gw (L, 2, hd), gbias (L, 2), gc (L, heads),
+// relb (heads, 2R + 1), lnf (2, H), all f32 on the device.  hd must be a
+// power of two from 8 (bf16 tables; 4 with f32) to 128.
+int talkshow_w2v_layers_prenorm(int table_dtype, int B, int T, int H, int heads, int F, int L,
+                                float eps, const void* wqkv, const void* wo, const void* w1,
+                                const void* w2, const float* bqkv, const float* bo,
+                                const float* b1, const float* b2, const float* ln1,
+                                const float* ln2, const float* gw, const float* gbias,
+                                const float* gc, const float* relb, int R, const float* lnf,
+                                const int* valid, const float* x, float* out, void* scratch,
+                                void* stream) {
+  const Dims d{B, T, H, heads, F, L, eps};
+  const Tables t{wqkv, wo, w1, w2, bqkv, bo, b1, b2, ln1, ln2};
+  const PreTables p{gw, gbias, gc, relb, lnf, R};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hd = heads > 0 ? H / heads : 0;
+  if (B < 1 || T < 1 || heads < 1 || H % heads || H % 8 || F % 8 || H > kMaxH || R < 1 ||
+      2 * R + 1 > 8192 || hd < 4 || hd > 128 || (hd & (hd - 1)))
+    return cudaErrorInvalidValue;
+  char* s = static_cast<char*>(scratch);
+  if (table_dtype == 0) return run_f32_prenorm(d, t, p, valid, x, out, s, st);
+  if (table_dtype == 1) return run_bf16_prenorm(d, t, p, valid, x, out, s, st);
   return cudaErrorInvalidValue;
 }
 

@@ -16,6 +16,11 @@ the f32 layer-0 output; every layer's output is rounded to the table type
 after its gelu, as the TPU kernel stores its intermediates (:373, :395),
 and the last one comes back as f32.
 
+WavLM's LayerNorm mode (an extractor whose `feat_extract_norm` is
+"layer"; the tables carry ``ln``): every conv is followed by a LayerNorm
+over the channels of each frame (f32 statistics of the f32 conv output), then gelu and the same
+rounding.  Its launches also add one to ``counts["extractor_layernorm"]``.
+
 A CUDA tensor launches the kernel (`extractor_kernel`, one launch of the
 whole stack adds one to ``counts["wav2vec_extractor"]``) or raises; the
 plain version (``counts["extractor_plain"]``) is for CPU tensors and for
@@ -49,6 +54,10 @@ def _lib() -> ctypes.CDLL:
         lib.talkshow_w2v_extractor_scratch.restype = ctypes.c_longlong
         lib.talkshow_w2v_extractor.argtypes = [_I] * 4 + [_P, ctypes.c_float] + [_P] * 7
         lib.talkshow_w2v_extractor.restype = _I
+        lib.talkshow_w2v_extractor_ln_scratch.argtypes = [_I] * 4 + [_P]
+        lib.talkshow_w2v_extractor_ln_scratch.restype = ctypes.c_longlong
+        lib.talkshow_w2v_extractor_ln.argtypes = [_I] * 4 + [_P, ctypes.c_float] + [_P] * 7
+        lib.talkshow_w2v_extractor_ln.restype = _I
         lib._talkshow_typed = True
     return lib
 
@@ -73,13 +82,19 @@ def pack_extractor_tables(extractor, dtype: torch.dtype = torch.bfloat16) -> dic
     w0 = convs[0].weight[:, 0, :]                                   # (C0, k0)
     ws = [c.weight.permute(0, 2, 1).reshape(c.out_channels, -1).flatten()
           for c in convs[1:]]
-    return dict(
+    tables = dict(
         w0=w0.to(dtype).contiguous(),
         ws=torch.cat(ws).to(dtype).contiguous() if ws else w0.new_zeros(0, dtype=dtype),
-        gn=torch.stack([norm.weight, norm.bias]).float().contiguous(),
         layers=tuple((c.kernel_size[0], c.stride[0], c.out_channels) for c in convs),
         eps=float(norm.eps),
     )
+    if getattr(extractor, "layer_norm_all", False):
+        # every layer's (2, C) LayerNorm, concatenated
+        tables["ln"] = torch.cat([torch.stack([l.layer_norm.weight, l.layer_norm.bias]).flatten()
+                                  for l in extractor.conv_layers]).float().contiguous()
+    else:
+        tables["gn"] = torch.stack([norm.weight, norm.bias]).float().contiguous()
+    return tables
 
 
 def out_length(num_samples: int, tables: dict) -> int:
@@ -100,6 +115,8 @@ def extractor_plain(tables: dict, wave: torch.Tensor) -> torch.Tensor:
         return a.to(dt).float()
 
     (k0, s0, c0), rest = tables["layers"][0], tables["layers"][1:]
+    if "ln" in tables:
+        return _ln_plain(tables, rnd(wave), rnd)
     h = F.conv1d(rnd(wave)[:, None, :], tables["w0"].float()[:, None, :], stride=s0)
     mean = h.mean(-1, keepdim=True)
     var = ((h - mean) ** 2).mean(-1, keepdim=True)
@@ -112,6 +129,24 @@ def extractor_plain(tables: dict, wave: torch.Tensor) -> torch.Tensor:
         w = tables["ws"][off:off + n].float().reshape(cout, k, cin).permute(0, 2, 1)
         h = rnd(F.gelu(F.conv1d(h, w, stride=s)))
         off, cin = off + n, cout
+    return h.transpose(1, 2).contiguous()
+
+
+def _ln_plain(tables: dict, wave: torch.Tensor, rnd) -> torch.Tensor:
+    """extractor_plain's LayerNorm mode on the rounded waveform."""
+    h, off, cin = wave[:, None, :], 0, 1
+    lo = 0
+    for i, (k, s, cout) in enumerate(tables["layers"]):
+        if i == 0:
+            w = tables["w0"].float()[:, None, :]
+        else:
+            n = cout * k * cin
+            w = tables["ws"][off:off + n].float().reshape(cout, k, cin).permute(0, 2, 1)
+            off += n
+        h = F.conv1d(h, w, stride=s).transpose(1, 2)
+        g, b = tables["ln"][lo:lo + 2 * cout].view(2, cout)
+        h = rnd(F.gelu(F.layer_norm(h, (cout,), g, b, tables["eps"]))).transpose(1, 2)
+        lo, cin = lo + 2 * cout, cout
     return h.transpose(1, 2).contiguous()
 
 
@@ -138,20 +173,36 @@ def extractor_kernel(tables: dict, wave: torch.Tensor) -> torch.Tensor:
         n_ws, cin = n_ws + cout * k * cin, cout
     check("w0", tables["w0"], (c0, k0), tdtype, dev)
     check("ws", tables["ws"], (n_ws,), tdtype, dev)
-    check("gn", tables["gn"], (2, c0), torch.float32, dev)
+    ln = "ln" in tables
+    n_ch = sum(c for _, _, c in layers)
+    if ln:
+        check("ln", tables["ln"], (2 * n_ch,), torch.float32, dev)
+    else:
+        check("gn", tables["gn"], (2, c0), torch.float32, dev)
     check("wave", wave, (B, N), torch.float32, dev)
     lib = _lib()
     dims = (ctypes.c_int * (3 * len(layers)))(*(v for layer in layers for v in layer))
     out = torch.empty((B, T_out, layers[-1][2]), dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.talkshow_w2v_extractor_scratch(
-        TABLE_DTYPES[tdtype], B, N, len(layers), dims), dtype=torch.uint8, device=dev)
+    sizer = lib.talkshow_w2v_extractor_ln_scratch if ln else lib.talkshow_w2v_extractor_scratch
+    nbytes = sizer(TABLE_DTYPES[tdtype], B, N, len(layers), dims)
+    if nbytes < 0:
+        raise ValueError(f"the kernel does not take the conv layers {layers}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.talkshow_w2v_extractor(
-            TABLE_DTYPES[tdtype], B, N, len(layers), dims, tables["eps"],
-            tables["w0"].data_ptr(), tables["ws"].data_ptr(), tables["gn"].data_ptr(),
-            wave.data_ptr(), out.data_ptr(), scratch.data_ptr(), stream)
+        if ln:
+            err = lib.talkshow_w2v_extractor_ln(
+                TABLE_DTYPES[tdtype], B, N, len(layers), dims, tables["eps"],
+                tables["w0"].data_ptr(), tables["ws"].data_ptr(), tables["ln"].data_ptr(),
+                wave.data_ptr(), out.data_ptr(), scratch.data_ptr(), stream)
+        else:
+            err = lib.talkshow_w2v_extractor(
+                TABLE_DTYPES[tdtype], B, N, len(layers), dims, tables["eps"],
+                tables["w0"].data_ptr(), tables["ws"].data_ptr(), tables["gn"].data_ptr(),
+                wave.data_ptr(), out.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"wav2vec_extractor launch failed: {describe_error(err)}")
     counts["wav2vec_extractor"] += 1
+    if ln:
+        counts["extractor_layernorm"] += 1
     return out

@@ -23,6 +23,14 @@ last bit of exp.
 `gemm_kernel` runs the Hopper GEMM that K2 and K3 share on its own, for its
 tests and the smoke run's shape sweep.
 
+WavLM's pre-norm mode (an encoder with `do_stable_layer_norm`; the tables
+carry ``prenorm``): LN1 before the projections, the raw residual, the
+layer's gate of the relative-position bias from LN1's output and the
+gated bias added to the scores inside the attention (from the packed
+``relb`` rows, no (heads, T, T) tensor), LN2 before the FFN, and the
+encoder's final LayerNorm after the last layer; see the top of the CUDA
+source.  Its launches also add one to ``counts["w2v_layers_prenorm"]``.
+
 A CUDA tensor launches the kernel (`encoder_layers_kernel`, one launch of
 the whole stack adds one to ``counts["wav2vec_layers"]``) or raises; the
 plain version (``counts["encoder_layers_plain"]``) is for CPU tensors and
@@ -65,6 +73,11 @@ def _lib() -> ctypes.CDLL:
         lib.talkshow_w2v_gemm_plan.restype = None
         lib.talkshow_w2v_gemm.argtypes = [_P, _L, _L, _P] + [_I] * 5 + [_P] * 2
         lib.talkshow_w2v_gemm.restype = _I
+        lib.talkshow_w2v_layers_prenorm_scratch.argtypes = [_I] * 6
+        lib.talkshow_w2v_layers_prenorm_scratch.restype = ctypes.c_longlong
+        lib.talkshow_w2v_layers_prenorm.argtypes = ([_I] * 7 + [ctypes.c_float] + [_P] * 14
+                                                    + [_I] + [_P] * 6)
+        lib.talkshow_w2v_layers_prenorm.restype = _I
         lib._talkshow_typed = True
     return lib
 
@@ -110,7 +123,48 @@ def pack_encoder_tables(encoder, dtype: torch.dtype = torch.bfloat16) -> dict:
     )
     tables["heads"] = encoder.cfg.num_heads
     tables["eps"] = float(encoder.cfg.layer_norm_eps)
+    if encoder.cfg.do_stable_layer_norm:
+        tables.update(prenorm_tables(encoder))
     return tables
+
+
+#: WavLM's tables (f32), beside the base ones
+_PRE = ("gw", "gbias", "gc", "relb", "lnf")
+
+
+@torch.no_grad()
+def prenorm_tables(encoder) -> dict:
+    """The pre-norm mode's tables of a `do_stable_layer_norm` encoder:
+    ``prenorm`` True; the final LayerNorm lnf (2, H); and with relative
+    buckets, each layer's gate, gw (L, 2, hd) and gbias (L, 2) (the sums of
+    the 8-output projection's rows and biases in its two groups of 4) and
+    gc (L, heads), and relb (heads, 2R + 1) = E[bucket(d), h] for d in
+    [-R, R], R = max_bucket_distance (every |d| >= R is the last bucket).
+    Without buckets the table is zeros: no bias."""
+    from talkshow_torch.models.wav2vec import bucket_of
+    cfg, layers = encoder.cfg, encoder.encoder.layers
+    dev = encoder.encoder.layer_norm.weight.device
+    L, nh, hd = len(layers), cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    out = {"prenorm": True,
+           "lnf": torch.stack([encoder.encoder.layer_norm.weight,
+                               encoder.encoder.layer_norm.bias]).float().contiguous()}
+    if cfg.num_buckets:
+        att = [layer.attention for layer in layers]
+        R = cfg.max_bucket_distance
+        d = torch.arange(-R, R + 1, device=dev)
+        table = att[0].rel_attn_embed.weight.float()
+        out.update(
+            gw=torch.stack([a.gru_rel_pos_linear.weight.float().reshape(2, 4, hd).sum(1)
+                            for a in att]).contiguous(),
+            gbias=torch.stack([a.gru_rel_pos_linear.bias.float().reshape(2, 4).sum(1)
+                               for a in att]).contiguous(),
+            gc=torch.stack([a.gru_rel_pos_const.float().reshape(nh) for a in att]).contiguous(),
+            relb=table[bucket_of(d, cfg.num_buckets, R)].t().contiguous(),
+            R=R)
+    else:
+        out.update(gw=torch.zeros(L, 2, hd, device=dev), gbias=torch.zeros(L, 2, device=dev),
+                   gc=torch.zeros(L, nh, device=dev), relb=torch.zeros(nh, 3, device=dev), R=1)
+    return out
 
 
 def _valid(x: torch.Tensor, valid_frames) -> torch.Tensor:
@@ -145,6 +199,8 @@ def encoder_layers_plain(tables: dict, x: torch.Tensor, valid_frames=None) -> to
         return a.reshape(B, T, nh, hd).transpose(1, 2)              # (B, nh, T, hd)
 
     x = x.float()
+    if tables.get("prenorm"):
+        return _prenorm_plain(tables, x, key_ok, rnd, dot, ln, heads)
     for l in range(tables["wqkv"].shape[0]):
         qkv = dot(x, tables["wqkv"][l]) + tables["bqkv"][l]
         q, k, v = (heads(t) for t in qkv.split(H, dim=-1))
@@ -155,6 +211,36 @@ def encoder_layers_plain(tables: dict, x: torch.Tensor, valid_frames=None) -> to
         hb = F.gelu(dot(xn, tables["w1"][l]) + tables["b1"][l])
         x = ln(xn + dot(hb, tables["w2"][l]) + tables["b2"][l], tables["ln2"][l])
     return x
+
+
+def plain_gate(tables: dict, l: int, u: torch.Tensor) -> torch.Tensor:
+    """Layer l's gate (B, heads, T) from LN1's output u (B, T, H), f32."""
+    B, T, H = u.shape
+    nh = tables["heads"]
+    z = u.reshape(B, T, nh, H // nh) @ tables["gw"][l].T + tables["gbias"][l]
+    a, b = torch.sigmoid(z).unbind(-1)
+    return (a * (b * tables["gc"][l] - 1.0) + 2.0).transpose(1, 2)
+
+
+def _prenorm_plain(tables, x, key_ok, rnd, dot, ln, heads):
+    """encoder_layers_plain's pre-norm mode (see the module docstring)."""
+    B, T, H = x.shape
+    hd = H // tables["heads"]
+    R = tables["R"]
+    pos = torch.arange(T, device=x.device)
+    bias = tables["relb"][:, (pos[None, :] - pos[:, None]).clamp(-R, R) + R]   # (nh, T, T)
+    for l in range(tables["wqkv"].shape[0]):
+        u = ln(x, tables["ln1"][l])
+        qkv = dot(u, tables["wqkv"][l]) + tables["bqkv"][l]
+        q, k, v = (heads(t) for t in qkv.split(H, dim=-1))
+        s = rnd(q * (1.0 / math.sqrt(hd))) @ rnd(k).transpose(-1, -2)
+        s = s + plain_gate(tables, l, u)[..., None] * bias
+        p = torch.softmax(torch.where(key_ok, s, -1e30), dim=-1)
+        ctx = (rnd(p) @ rnd(v)).transpose(1, 2).reshape(B, T, H)
+        x = x + dot(ctx, tables["wo"][l]) + tables["bo"][l]
+        hb = F.gelu(dot(ln(x, tables["ln2"][l]), tables["w1"][l]) + tables["b1"][l])
+        x = x + dot(hb, tables["w2"][l]) + tables["b2"][l]
+    return ln(x, tables["lnf"])
 
 
 @torch.no_grad()
@@ -184,17 +270,37 @@ def encoder_layers_kernel(tables: dict, x: torch.Tensor, valid_frames=None) -> t
     valid = _valid(x, valid_frames)
     lib = _lib()
     out = torch.empty_like(x)
-    scratch = torch.empty(lib.talkshow_w2v_layers_scratch(TABLE_DTYPES[tdtype], B, T, H, F_),
-                          dtype=torch.uint8, device=dev)
+    prenorm = bool(tables.get("prenorm"))
+    if prenorm:
+        hd = H // nh
+        if hd & (hd - 1) or hd < 4:
+            raise ValueError(f"the pre-norm mode takes heads a power of two wide, not {hd}")
+        R = tables["R"]
+        for k, shape in dict(gw=(L, 2, hd), gbias=(L, 2), gc=(L, nh), relb=(nh, 2 * R + 1),
+                             lnf=(2, H)).items():
+            check(k, tables[k], shape, torch.float32, dev)
+        nbytes = lib.talkshow_w2v_layers_prenorm_scratch(TABLE_DTYPES[tdtype], B, T, H, F_, nh)
+    else:
+        nbytes = lib.talkshow_w2v_layers_scratch(TABLE_DTYPES[tdtype], B, T, H, F_)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.talkshow_w2v_layers(
-            TABLE_DTYPES[tdtype], B, T, H, nh, F_, L, tables["eps"],
-            *(tables[k].data_ptr() for k in _MATS + _VECS),
-            valid.data_ptr(), x.data_ptr(), out.data_ptr(), scratch.data_ptr(), stream)
+        mats = [tables[k].data_ptr() for k in _MATS + _VECS]
+        if prenorm:
+            pre = [tables[k].data_ptr() for k in _PRE]
+            err = lib.talkshow_w2v_layers_prenorm(
+                TABLE_DTYPES[tdtype], B, T, H, nh, F_, L, tables["eps"], *mats, *pre[:4],
+                tables["R"], pre[4], valid.data_ptr(), x.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), stream)
+        else:
+            err = lib.talkshow_w2v_layers(
+                TABLE_DTYPES[tdtype], B, T, H, nh, F_, L, tables["eps"], *mats,
+                valid.data_ptr(), x.data_ptr(), out.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"wav2vec_layers launch failed: {describe_error(err)}")
     counts["wav2vec_layers"] += 1
+    if prenorm:
+        counts["w2v_layers_prenorm"] += 1
     return out
 
 

@@ -228,12 +228,15 @@ class SeqTranslator1D(nn.Module):
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init from `generator`, in parameter-name order: xavier-uniform
     matrices and conv kernels, normal(1) embeddings, zero biases (a GRU's
-    `bias_*` too), unit norm scales.  Running statistics keep their defaults (mean 0, var 1), and
+    `bias_*` too), unit norm scales and WavLM gate constants.  Running statistics keep their defaults (mean 0, var 1), and
     wav2vec's `masked_spec_embed` its own init (drawn from no generator
     here, so adding it moved no other weight)."""
     for name, p in module.named_parameters():
         owner, _, leaf = name.rpartition(".")
         if leaf == "masked_spec_embed":
+            continue
+        if leaf == "gru_rel_pos_const":        # WavLM's gate constant starts at 1
+            p.fill_(1.0)
             continue
         if isinstance(module.get_submodule(owner), nn.Embedding):
             p.copy_(torch.randn(p.shape, generator=generator))

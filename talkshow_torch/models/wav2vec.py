@@ -20,6 +20,28 @@ input with its f32 scale to an f32 output: here they take the input as f32.
 The unmasked 50 -> 30 fps interpolation runs in the compute dtype (JAX's
 grid is weakly typed), the masked one in f32 (JAX's is f32).
 
+WavLM (`microsoft/wavlm-large`; Chen et al., arXiv:2110.13900) is the
+same encoder in Hugging Face's stable order, set by five config keys
+(`do_stable_layer_norm`, `feat_extract_norm`, `conv_bias`, `num_buckets`,
+`max_bucket_distance`; the defaults are wav2vec 2.0 base's, whose
+arithmetic they leave as it was):
+
+- ``feat_extract_norm="layer"``: every conv is followed by a LayerNorm over
+  its channels (per frame, so padded frames change no real one), then
+  gelu; ``conv_bias`` must stay false (WavLM Large's and base's convs have
+  no bias, and no configuration here gives them one);
+- ``do_stable_layer_norm``: pre-norm layers, ``x + Attn(LN1(x))`` then
+  ``x + FFN(LN2(x))``; the stack starts at ``x + posconv(x)`` and ends with
+  the encoder's LayerNorm (post-norm base applies it before the layers);
+- ``num_buckets`` > 0: T5's bidirectional relative-position buckets
+  (`relative_buckets`), layer 0's table `rel_attn_embed` (buckets, heads)
+  looked up once as ``bias[h, i, j] = E[bucket(j - i), h]`` and shared down
+  the stack, and each layer's gate ``g[h, i] = a (b c_h - 1) + 2`` from
+  (a, b) = sigmoid of the 8 outputs of ``gru_rel_pos_linear`` (64 -> 8,
+  shared by the heads) on the head's slice of LN1's output, summed in two
+  groups of 4, ``c`` = ``gru_rel_pos_const``; the scores are
+  ``q k^T / sqrt(hd) + g[h, i] bias[h, i, j]``.  Hugging Face's names.
+
 `valid_samples` / `valid_frames` (B,) select the length-masked path for
 batches padded to a length bucket: masked GroupNorm statistics, per-example
 interpolation, zeroed padded frames before the positional conv and masked
@@ -60,6 +82,16 @@ class Wav2Vec2Config:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    #: pre-norm layers and a final LayerNorm (WavLM, wav2vec 2.0 large)
+    do_stable_layer_norm: bool = False
+    #: "group": a per-channel GroupNorm after conv 0 only; "layer": a
+    #: LayerNorm over channels after every conv
+    feat_extract_norm: str = "group"
+    conv_bias: bool = False
+    #: relative-position buckets (0: no relative bias) and the distance
+    #: from which every bucket is the last
+    num_buckets: int = 0
+    max_bucket_distance: int = 0
     #: compute dtype of the conv / matmul sites (None = float32)
     dtype: torch.dtype | None = None
 
@@ -92,11 +124,14 @@ class ChannelGroupNorm(nn.Module):
 
 
 class _ConvLayer(nn.Module):
-    def __init__(self, cin: int, cout: int, k: int, s: int, norm_eps: float | None):
+    def __init__(self, cin: int, cout: int, k: int, s: int, norm_eps: float | None,
+                 norm: str = "group"):
         super().__init__()
         self.conv = nn.Conv1d(cin, cout, k, s, bias=False)
-        self.layer_norm = (ChannelGroupNorm(cout, norm_eps)
-                           if norm_eps is not None else None)
+        self.layer_norm = None
+        if norm_eps is not None:
+            self.layer_norm = (nn.LayerNorm(cout, eps=norm_eps) if norm == "layer"
+                               else ChannelGroupNorm(cout, norm_eps))
 
 
 #: SpecAugment's time masking (talkshow_tpu/models/wav2vec.py:190-191)
@@ -139,15 +174,23 @@ class FeatureExtractor(nn.Module):
     """Raw waveform (B, T) -> (B, T', conv_dim[-1]).
 
     valid_samples (B,) masks the GroupNorm statistics: the convs are VALID,
-    so feature frame j < valid length depends on real samples only."""
+    so feature frame j < valid length depends on real samples only.  The
+    "layer" norm is per frame and needs no mask."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        if cfg.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"feat_extract_norm must be 'group' or 'layer', "
+                             f"not {cfg.feat_extract_norm!r}")
+        if cfg.conv_bias:
+            raise ValueError("conv_bias: the extractor's convs have no bias here")
         self.dtype = cfg.dtype
+        self.layer_norm_all = cfg.feat_extract_norm == "layer"
         dims = (1,) + tuple(cfg.conv_dim)
         self.conv_layers = nn.ModuleList(
             _ConvLayer(dims[i], dims[i + 1], k, s,
-                       cfg.layer_norm_eps if i == 0 else None)
+                       cfg.layer_norm_eps if i == 0 or self.layer_norm_all else None,
+                       cfg.feat_extract_norm)
             for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)))
 
     def forward(self, x, valid_samples=None):
@@ -158,7 +201,9 @@ class FeatureExtractor(nn.Module):
             k, s = layer.conv.kernel_size[0], layer.conv.stride[0]
             if n_valid is not None:
                 n_valid = (n_valid - k) // s + 1
-            if layer.layer_norm is not None:
+            if self.layer_norm_all:
+                h = layer.layer_norm(h.transpose(1, 2).float()).transpose(1, 2).to(h.dtype)
+            elif layer.layer_norm is not None:
                 mask = (None if n_valid is None
                         else length_mask(n_valid, h.shape[-1], h.dtype).transpose(1, 2))
                 h = layer.layer_norm(h, mask)
@@ -193,17 +238,57 @@ class PositionalConvEmbedding(nn.Module):
         return F.gelu(h)
 
 
+def relative_buckets(T: int, num_buckets: int = 320, max_distance: int = 800,
+                     device=None) -> torch.Tensor:
+    """(T, T) int64 bucket of the distance j - i (Hugging Face's
+    `WavLMAttention._relative_positions_bucket`): half the buckets a side,
+    the upper half for j > i; |d| below a quarter of the buckets maps to
+    itself, beyond that to quarter + floor(ln(|d| / quarter) /
+    ln(max_distance / quarter) * quarter) in float32, capped at half - 1."""
+    pos = torch.arange(T, dtype=torch.long, device=device)
+    return bucket_of(pos[None, :] - pos[:, None], num_buckets, max_distance)
+
+
+def bucket_of(d: torch.Tensor, num_buckets: int, max_distance: int) -> torch.Tensor:
+    """The bucket of each signed distance in `d` (int64), as `relative_buckets`."""
+    half = num_buckets // 2
+    exact = half // 2
+    a = d.abs()
+    large = torch.log(a.float() / exact) / math.log(max_distance / exact) * (half - exact)
+    large = torch.clamp_max((exact + large).to(torch.long), half - 1)
+    return (d > 0).to(torch.long) * half + torch.where(a < exact, a, large)
+
+
 class Attention(nn.Module):
-    def __init__(self, hidden: int, heads: int, dtype: torch.dtype | None = None):
+    """Self-attention; with `gated` (WavLM) the layer's gate of the shared
+    relative-position bias, and with `buckets` > 0 (layer 0) its table."""
+
+    def __init__(self, hidden: int, heads: int, dtype: torch.dtype | None = None,
+                 gated: bool = False, buckets: int = 0):
         super().__init__()
         self.heads, self.dtype = heads, dtype
         self.q_proj = nn.Linear(hidden, hidden)
         self.k_proj = nn.Linear(hidden, hidden)
         self.v_proj = nn.Linear(hidden, hidden)
         self.out_proj = nn.Linear(hidden, hidden)
+        if gated:
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, heads, 1, 1))
+            self.gru_rel_pos_linear = nn.Linear(hidden // heads, 8)
+        if buckets:
+            self.rel_attn_embed = nn.Embedding(buckets, heads)
 
-    def forward(self, x, key_valid=None):
-        """key_valid (B, T) bool: keys that may be attended to."""
+    def gate(self, x: torch.Tensor) -> torch.Tensor:
+        """The gate (B, heads, T) of the position bias from the layer's
+        normalised input x (B, T, hidden), in f32."""
+        B, T, C = x.shape
+        proj = self.gru_rel_pos_linear(x.float().reshape(B, T, self.heads, C // self.heads))
+        a, b = torch.sigmoid(proj.reshape(B, T, self.heads, 2, 4).sum(-1)).unbind(-1)
+        g = a * (b * self.gru_rel_pos_const.reshape(self.heads) - 1.0) + 2.0
+        return g.transpose(1, 2)
+
+    def forward(self, x, key_valid=None, position_bias=None):
+        """key_valid (B, T) bool: keys that may be attended to;
+        position_bias (heads, T, T): the shared relative bias, gated here."""
         B, T, C = x.shape
         hd = C // self.heads
 
@@ -216,6 +301,8 @@ class Attention(nn.Module):
         q = q / (math.sqrt(hd) if dt is None else torch.tensor(math.sqrt(hd), dtype=dt))
         k, v = split(dense(self.k_proj, x, dt)), split(dense(self.v_proj, x, dt))
         s = (q @ k.transpose(-1, -2)).float()
+        if position_bias is not None:
+            s = s + self.gate(x)[..., None] * position_bias
         if key_valid is not None:
             s = s.masked_fill(~key_valid[:, None, None, :], torch.finfo(s.dtype).min)
         w = torch.softmax(s, dim=-1)
@@ -236,17 +323,24 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-norm transformer layer (do_stable_layer_norm=False)."""
+    """Post-norm transformer layer (do_stable_layer_norm=False), or pre-norm
+    (True: WavLM's stable order)."""
 
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config, index: int = 0):
         super().__init__()
         eps = cfg.layer_norm_eps
-        self.attention = Attention(cfg.hidden_size, cfg.num_heads, cfg.dtype)
+        self.stable = cfg.do_stable_layer_norm
+        self.attention = Attention(cfg.hidden_size, cfg.num_heads, cfg.dtype,
+                                   gated=cfg.num_buckets > 0,
+                                   buckets=cfg.num_buckets if index == 0 else 0)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=eps)
         self.feed_forward = FeedForward(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=eps)
 
-    def forward(self, x, key_valid=None):
+    def forward(self, x, key_valid=None, position_bias=None):
+        if self.stable:
+            x = x + self.attention(self.layer_norm(x.float()), key_valid, position_bias)
+            return x + self.feed_forward(self.final_layer_norm(x.float()))
         x = self.layer_norm(x + self.attention(x, key_valid))
         return self.final_layer_norm(x + self.feed_forward(x))
 
@@ -259,7 +353,7 @@ class Encoder(nn.Module):
         super().__init__()
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(EncoderLayer(cfg, i) for i in range(cfg.num_layers))
 
 
 class Wav2Vec2Encoder(nn.Module):
@@ -281,11 +375,31 @@ class Wav2Vec2Encoder(nn.Module):
             torch.rand(self.cfg.hidden_size, generator=torch.Generator().manual_seed(0)))
 
     def _pos_and_norm(self, x):
+        """x + posconv(x), then the encoder's LayerNorm (post-norm) or not
+        (the stable order applies it after the layers: `final_norm`)."""
+        if self.cfg.do_stable_layer_norm:
+            return (x + self.encoder.pos_conv_embed(x)).float()
         return self.encoder.layer_norm((x + self.encoder.pos_conv_embed(x)).float())
+
+    def final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """The end of the layer stack: the encoder's LayerNorm in the stable
+        order, nothing in the post-norm one."""
+        return self.encoder.layer_norm(x.float()) if self.cfg.do_stable_layer_norm else x
+
+    def position_bias(self, T: int, device) -> torch.Tensor | None:
+        """Layer 0's relative-position bias (heads, T, T), shared by every
+        layer; None without buckets."""
+        if not self.cfg.num_buckets:
+            return None
+        table = self.encoder.layers[0].attention.rel_attn_embed.weight
+        buckets = relative_buckets(T, self.cfg.num_buckets, self.cfg.max_bucket_distance,
+                                   device)
+        return table.float()[buckets].permute(2, 0, 1)
 
     def mid_stack(self, feats: torch.Tensor, frame_num: int) -> torch.Tensor:
         """Extractor features (B, T50, C) -> pre-layer hidden states
-        (interpolation, projection, positional conv, LayerNorm); unmasked."""
+        (interpolation, projection, positional conv, LayerNorm in the
+        post-norm order); unmasked."""
         feats = linear_interpolate(feats.to(self.cfg.dtype or torch.float32), frame_num)
         return self._pos_and_norm(self.feature_projection(feats))
 
@@ -333,6 +447,7 @@ class Wav2Vec2Encoder(nn.Module):
         if valid_frames is not None:
             key_valid = (torch.arange(x.shape[1], device=x.device)[None]
                          < valid_frames.to(x.device)[:, None])
+        bias = self.position_bias(x.shape[1], x.device)
         for layer in self.encoder.layers:
-            x = layer(x, key_valid)
-        return x
+            x = layer(x, key_valid) if bias is None else layer(x, key_valid, bias)
+        return self.final_norm(x)

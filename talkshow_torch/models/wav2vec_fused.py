@@ -13,6 +13,18 @@ unmasked GroupNorm statistics only) and then K2 with the frame mask; it
 adds one to ``counts["extractor_plain"]`` so that a run shows which route
 it took.
 
+WavLM (an encoder in the stable order with "layer" extractor norm): K3
+in its LayerNorm mode and K2 in its pre-norm mode, which ends with the
+encoder's LayerNorm; `mid_stack` then stops at x + posconv(x).  Its
+extractor normalises each frame alone, so the masked path runs K3 too (a
+padded clip's real frames are the unpadded clip's) and hands its features
+to `pre_layers`.
+
+Traced (`talkshow_torch.tracing`): ``face_extractor`` (K3 and what follows
+it up to the layers: interpolation, projection, positional conv) and
+``face_encoder`` (K2, the layers with their bias), each with attributes T
+(frames), layers and mode.
+
 A CUDA tensor launches the kernels (or raises); a CPU tensor runs their
 plain versions.
 """
@@ -23,6 +35,7 @@ import torch
 from talkshow_torch.kernels import counts
 from talkshow_torch.kernels import wav2vec_extractor as k3
 from talkshow_torch.kernels import wav2vec_layers as k2
+from talkshow_torch.tracing import span
 
 
 def _route(t: torch.Tensor, kernel, plain):
@@ -90,11 +103,19 @@ def face_apply_fused(face_model, waveform: torch.Tensor, id_onehot: torch.Tensor
     enc = face_model.audio_encoder
     if tables is None:
         tables = pack_face_tables(face_model, dtype)
-    if valid_samples is None:
-        feats = extractor_fused(enc, waveform, tables=tables["ext"])
-        x = enc.mid_stack(feats, time_steps)
-    else:
-        counts["extractor_plain"] += 1
-        x = enc.pre_layers(waveform, time_steps, valid_samples, valid_frames)
-    hidden = encoder_layers_fused(enc, x, valid_frames, tables=tables["enc"])
+    ln = "ln" in tables["ext"]
+    with span("face_extractor", T=time_steps, layers=len(tables["ext"]["layers"]),
+              mode="layernorm" if ln else "groupnorm"):
+        if valid_samples is None:
+            feats = extractor_fused(enc, waveform, tables=tables["ext"])
+            x = enc.mid_stack(feats, time_steps)
+        elif ln:
+            feats = extractor_fused(enc, waveform, tables=tables["ext"])
+            x = enc.pre_layers(None, time_steps, valid_samples, valid_frames, feats=feats)
+        else:
+            counts["extractor_plain"] += 1
+            x = enc.pre_layers(waveform, time_steps, valid_samples, valid_frames)
+    with span("face_encoder", T=time_steps, layers=int(tables["enc"]["wqkv"].shape[0]),
+              mode="prenorm" if tables["enc"].get("prenorm") else "postnorm"):
+        hidden = encoder_layers_fused(enc, x, valid_frames, tables=tables["enc"])
     return face_model.from_features(hidden, id_onehot, valid_frames)

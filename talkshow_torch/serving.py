@@ -5,7 +5,8 @@ Requests are padded to multiples of `bucket_frames`, grouped by bucket and
 served `max_batch` at a time, one pass over the whole group per (bucket,
 group): int16 PCM dequantized on the device, the length-masked face stage
 (on the card the plain masked extractor and K2 with its frame mask, as the
-JAX package runs it), the 16 -> 22 kHz resample and MFCC of every row at
+JAX package runs it; a WavLM face runs K3, whose per-frame LayerNorm needs
+no mask), the 16 -> 22 kHz resample and MFCC of every row at
 once, ONE AR decode of the group (K1 at B = max_batch), denormalization,
 length matching and `part2full`.  A partial group runs at max_batch with
 zero rows, so traffic only ever meets (bucket, max_batch) shapes, and

@@ -298,7 +298,7 @@ def test_convert_face_matches_jax_and_loads_into_a_pipeline(tmp_path):
                        ("body_pixel", "body_pixel.pth")):
         convert_checkpoints.main([kind, "--src", os.path.join(GOLD, name),
                                   "--out", str(tmp_path / f"{kind}.pt")])
-    jcfg = JCfg(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    jcfg = JCfg(**{f: getattr(cfg, f) for f in JCfg.__dataclass_fields__})
     want = ts.convert_face_checkpoint(torch.load(os.path.join(GOLD, "face.pth"),
                                                  weights_only=False), jcfg)
     saved = torch.load(tmp_path / "face.pt", weights_only=True)
@@ -350,7 +350,7 @@ def test_convert_wav2vec_snapshot_matches_jax_converter(tmp_path, fmt):
                               "--out", str(tmp_path / "w2v.pt")])
     saved = torch.load(tmp_path / "w2v.pt", weights_only=True)
     assert saved["config"]["hidden_size"] == cfg.hidden_size
-    jcfg = JCfg(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    jcfg = JCfg(**{f: getattr(cfg, f) for f in JCfg.__dataclass_fields__})
     params = convert_wav2vec2({k: v.numpy() for k, v in enc.items()}, jcfg)
     ref = {k[len("audio_encoder."):]: v for k, v in convert.convert_face(
         _np({"params": {"audio_encoder": params}})).items()}
