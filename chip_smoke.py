@@ -343,6 +343,14 @@ Phases (one line each; any failure raises and the script exits non-zero):
              than that; CUDA-event ms of each and of its twin beside the
              bound.  `python3
              chip_smoke.py --wavlm` runs phases 1, 2 and 39 alone
+ 40 graph    the body-pixel step at train-prior-3d's shape (B = 128, T = 88,
+             the 3-D prior and audio encoder, cuDNN deterministic), eager
+             against replayed from its CUDA graph, from one state on the same
+             batches: host-clock ms a step, in turns; the capture's seconds;
+             a replay's device ms; no sync under sync-debug "error" in an
+             eager step or a replay; the states bit-equal after the same
+             steps.  `python3 chip_smoke.py --train-graph` runs phases 1, 2
+             and 40 alone
 Then one JSON line of kernels (launches of K1-K3: generate S=1 and 8,
 continuity, the serve flush, the stream and the eval path (eval_body and
 the eval CLI for K1, eval_face for K2 and K3), summed, K3 in phase 17 and
@@ -794,7 +802,10 @@ def kernel_breakdown(fn, reps: int = 3) -> str:
 def device_rows(fn, reps: int = 3) -> list:
     """(device ms per call, launches per call, kernel name) of fn()'s
     kernels over reps calls (torch.profiler; a trace of many short launches
-    may drop a few), largest first; [] when the trace holds no device time."""
+    may drop a few), largest first; [] when the trace holds no device time.
+    Annotations (the program's spans, the optimizer's step) are left out:
+    they span kernels already counted (a replayed step's ``span:train_step``
+    spans the whole graph)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -806,7 +817,8 @@ def device_rows(fn, reps: int = 3) -> list:
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
         if dev_us > 0 and ev.count > 0 and getattr(ev, "device_type", None) is not None \
-                and "CUDA" in str(ev.device_type):
+                and "CUDA" in str(ev.device_type) and not ev.key.startswith("span:") \
+                and not getattr(ev, "is_user_annotation", False):
             rows.append((dev_us / reps / 1e3, ev.count / reps, ev.key))
     return sorted(rows, reverse=True)
 
@@ -3989,6 +4001,129 @@ def adam_fused_ms(case: dict) -> tuple[float, float]:
     return ms
 
 
+def pixel_pair(dev, seed: int):
+    """(step, state, twin) of the body-pixel step at train-prior-3d's
+    widths (benchmark/configs/talkshow-3d.json): a fresh state from `seed`
+    and a copy of it with an optimizer of its own."""
+    import copy
+
+    from talkshow_torch.models.layers import init_weights_
+    from talkshow_torch.models.pixelcnn import GatedPixelCNN
+    from talkshow_torch.models.vqvae import VQVAE, AudioEncoder
+    from talkshow_torch.ops.vq import init_vq_state
+    from talkshow_torch.train.optim import SkipNonfiniteAdam
+    from talkshow_torch.train.steps import PixelState, make_body_pixel_step
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                           "talkshow-3d.json")) as f:
+        cfg = json.load(f)
+    vq, pr, ae = cfg["vq"], cfg["prior"], cfg["audio_encoder"]
+    gen = torch.Generator().manual_seed(seed)
+    vqs = [init_weights_(VQVAE(vq[f"{p}_channels"], vq["embedding_dim"], vq["num_hiddens"],
+                               vq["num_residual_layers"]), gen) for p in ("body", "hand")]
+    frozen = {p: init_vq_state(gen, vq["code_num"], vq["embedding_dim"], "cpu")
+              for p in ("body", "hand")}
+    prior = GatedPixelCNN(input_dim=pr["input_dim"], dim=pr["dim"], n_layers=pr["n_layers"],
+                          n_classes=pr["n_classes"], audio_channels=ae["num_hiddens"],
+                          hidden=pr["hidden"])
+    audio = AudioEncoder(ae["in_dim"], num_hiddens=ae["num_hiddens"])
+    init, step = make_body_pixel_step(prior, audio, *vqs, frozen)
+    state = init(gen, dev)
+    models = {k: copy.deepcopy(m) for k, m in state.models.items()}
+    twin = PixelState(models, SkipNonfiniteAdam(
+        [p for m in models.values() for p in m.parameters()], 1e-4, state.optimizer.max_norm))
+    return step, state, twin, cfg
+
+
+def phase40(dev, card: str) -> dict:
+    """The body-pixel step at train-prior-3d's shape (B = 128, T = 88,
+    cuDNN deterministic), eager (the step with `replayable` false, as on a
+    mesh) against replayed from its CUDA graph, from one state on the same
+    batches: host-clock ms a step over 30 steps closed by a synchronize, in
+    turns; the capture's seconds; the device ms of a replay; one eager
+    step and one replay under sync-debug "error"; the two states bit-equal
+    after the same steps."""
+    from talkshow_torch.kernels import counts
+    from talkshow_torch.train import graph as graph_mod
+    from talkshow_torch.train import steps as tsteps
+    B, T, N, TURNS = 128, 88, 30, 2
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    step, replayed, eager, cfg = pixel_pair(dev, 40)
+    g = torch.Generator(device=dev).manual_seed(40)
+    pool = [{"aud_feat": torch.randn(B, T, cfg["audio_encoder"]["in_dim"], generator=g,
+                                     device=dev),
+             "speaker": torch.randint(0, cfg["prior"]["n_classes"], (B,), generator=g,
+                                      device=dev),
+             "tokens": torch.randint(0, cfg["vq"]["code_num"], (B, T // 4, 2), generator=g,
+                                     device=dev),
+             "aud_keep": torch.rand(B, T // 4, generator=g, device=dev) < 0.9}
+            for _ in range(4)]
+    done = {"eager": 0, "replayed": 0}
+
+    def one(name: str) -> None:
+        tsteps.replayable = (lambda *args: False) if name == "eager" \
+            else graph_mod.replayable
+        try:
+            step(eager if name == "eager" else replayed, pool[done[name] % len(pool)])
+        finally:
+            tsteps.replayable = graph_mod.replayable
+        done[name] += 1
+
+    def run(name: str, n: int) -> float:
+        """n steps of one state; host-clock ms a step, closed by a synchronize."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one(name)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    def strict(name: str) -> None:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one(name)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    run("eager", 1)
+    run("replayed", 1)                       # the warm-up
+    before = counts["train_graph_capture"]
+    capture_s = 1e-3 * run("replayed", 1)     # capture and the first replay
+    if counts["train_graph_capture"] != before + 1:
+        raise AssertionError("phase 40: the second step did not capture")
+    run("eager", 1)
+    strict("eager")
+    strict("replayed")
+    ms = {"eager": [], "replayed": []}
+    replays = counts["train_graph_replay"]
+    for _ in range(TURNS):
+        for name in ("eager", "replayed"):
+            ms[name].append(run(name, N))
+    if counts["train_graph_replay"] - replays != TURNS * N:
+        raise AssertionError("phase 40: a timed step of the replayed state did not replay")
+    want = {f"{k}.{n}": t for k, m in eager.models.items() for n, t in m.state_dict().items()}
+    got = {f"{k}.{n}": t for k, m in replayed.models.items() for n, t in m.state_dict().items()}
+    moments = all(torch.equal(eager.optimizer.adam.state[p][k], replayed.optimizer.adam.state[q][k])
+                  for p, q in zip(eager.optimizer.params, replayed.optimizer.params)
+                  for k in ("exp_avg", "exp_avg_sq"))
+    if done["eager"] != done["replayed"] or not moments \
+            or not all(torch.equal(want[k], got[k]) for k in want):
+        raise AssertionError(f"phase 40: after {done} steps the replayed state is not the "
+                             f"eager one (moments equal {moments})")
+    # the replays timed on the device step the replayed state further
+    device_ms = cuda_ms(replayed.graph._graph.replay, N)
+    torch.backends.cudnn.deterministic = deterministic
+    log(f"phase 40 body-pixel step B={B} T={T} ({len(eager.optimizer.params)} leaves): eager "
+        f"{' / '.join(f'{x:.2f}' for x in ms['eager'])} ms a step, replayed from its CUDA graph "
+        f"{' / '.join(f'{x:.2f}' for x in ms['replayed'])} ms (host clock, {N} steps a turn, "
+        f"in turns); a replay {device_ms:.2f} ms on the device; capture and first replay "
+        f"{capture_s:.3f} s; no sync in an eager step or a replay; states, moments bit-equal "
+        f"after {done['eager']} steps [{card}]")
+    return {"eager_ms": ms["eager"], "replayed_ms": ms["replayed"], "device_ms": device_ms,
+            "capture_s": capture_s}
+
+
 def main() -> int:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -4023,15 +4158,22 @@ def main() -> int:
         phase39(dev, card)
         log(f"total wall time {time.time() - T_START:.1f} s")
         return 0
+    if "--train-graph" in sys.argv[1:]:
+        phase40(dev, card)
+        log(f"total wall time {time.time() - T_START:.1f} s")
+        return 0
 
-    # the Adam kernels' launches over every phase that trains in this process
-    adam_launches, launched = {"grad_stats": 0, "adam_apply": 0}, adam_kernels._launched
+    # the Adam kernels' launches over every phase that trains in this process,
+    # from their counters (a replayed step's launches count too; the phases
+    # clear the counters)
+    adam_launches, set_count = {"grad_stats": 0, "adam_apply": 0}, type(counts).__setitem__
 
-    def tally(name, err, n):
-        launched(name, err, n)
-        adam_launches[name] += n.value
+    def tally(self, name, value):
+        if name in adam_launches:
+            adam_launches[name] += value - self.get(name, 0)
+        set_count(self, name, value)
 
-    adam_kernels._launched = tally
+    type(counts).__setitem__ = tally
 
     # ---- phase 3: K1 against its plain version -------------------------------
     max_err = phase3(dev)
@@ -4218,6 +4360,7 @@ def main() -> int:
     in_steps = dict(adam_launches)
     adam_rows = phase38(dev, card)
     phase39(dev, card)
+    phase40(dev, card)
     log(f"launches of the Adam kernels in the steps this process ran in phases 11-37: "
         f"grad_stats {in_steps['grad_stats']} (once an Adam or SGD step), adam_apply "
         f"{in_steps['adam_apply']} (once an Adam step; phases 11, 16, 17 and 19 check "

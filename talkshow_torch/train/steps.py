@@ -49,7 +49,10 @@ Stages 1 and 2 are traced (`talkshow_torch.tracing`): a step is the root
 span ``train_step`` (batch, frames) over ``forward``, ``backward`` and
 ``optimizer`` (in stage 2 also around the clip's norm, which the step
 reports); stage 1's conv-channel index is copied to the card by
-`tracing.to_device`, one host sync a step.
+`tracing.to_device`, one host sync a step.  On the card, stage 2 replays
+its device work from a CUDA graph (`train.graph`): a replayed step is
+its root span alone, which counts ``train_graph_replay``, and a step
+that captures counts ``train_graph_capture``.
 
 Unlike the JAX package, where the state is an immutable pytree, the state
 here holds the modules (parameters and BatchNorm statistics) and the
@@ -76,7 +79,7 @@ masked extractor, as on one device.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -94,6 +97,7 @@ from talkshow_torch.ops import vq as vq_ops
 from talkshow_torch.ops.pose import BODY_DIM, C_INDEX_3D, C_INDEX_6D, FULL_POSE_DIM, HAND_DIM
 from talkshow_torch.parallel.mesh import global_mean
 from talkshow_torch.tracing import span, to_device
+from talkshow_torch.train.graph import StepGraph, replayable
 from talkshow_torch.train.optim import SkipNonfiniteAdam, SkipNonfiniteSGD
 
 def parts(rep6d: bool = False) -> tuple:
@@ -350,17 +354,20 @@ def make_body_ae_step(ae: AE, learning_rate: float = 1e-4):
 class PixelState:
     """Stage-2 train state: {'prior': GatedPixelCNN, 'audio': AudioEncoder}
     (parameters and the audio encoder's BatchNorm statistics), the
-    optimizer and the step."""
+    optimizer and the step; `graph`, the step's captured CUDA graph,
+    dropped by every load."""
     models: dict
     optimizer: SkipNonfiniteAdam
     step: int = 0
     mesh: Any = None
+    graph: StepGraph = field(default_factory=StepGraph, repr=False, compare=False)
 
     def state_dict(self) -> dict:
         return {"models": {k: m.state_dict() for k, m in self.models.items()},
                 "optimizer": self.optimizer.state_dict(), "step": self.step}
 
     def load_state_dict(self, sd: dict) -> None:
+        self.graph.clear()
         for k, m in self.models.items():
             m.load_state_dict(sd["models"][k])
         self.optimizer.load_state_dict(sd["optimizer"])
@@ -369,6 +376,7 @@ class PixelState:
     @torch.no_grad()
     def load_converted(self, weights: dict) -> "PixelState":
         """Load `convert.from_jax_pixel_state`'s output in place."""
+        self.graph.clear()
         for k, m in self.models.items():
             m.load_state_dict(weights[k])
         _load_adam(self.optimizer, self.models, weights)
@@ -391,7 +399,17 @@ def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body:
     'aud_keep' (B, T/4) bool, the audio dropout's keep mask, else drawn from
     `generator`.  Metrics: ce_loss and grad (the gradients' global norm
     before the clip; 0-dim tensors), nonfinite_skips (the skip count after
-    the step, a 0-dim int64 tensor)."""
+    the step, a 0-dim int64 tensor); each step's are new tensors.
+
+    On a CUDA device, with no mesh and no hook on the models
+    (`train.graph.replayable`), the step's device work, from the tokens,
+    speaker, audio features and keep mask to the updated parameters,
+    moments, statistics and counts, is replayed from a CUDA graph
+    (`train.graph.StepGraph`, keyed by `signature`): the frozen encode and
+    the keep mask's draw stay eager, ahead of it; the first step of a
+    signature runs eagerly, the second captures, every later one replays.
+    A replay runs the eager step's kernels in its order, so it gives the
+    same bits."""
     models = {"prior": prior, "audio": audio_enc}
     encode = make_token_encoder(vq_body, vq_hand, frozen_vq_states, rep6d)
 
@@ -404,44 +422,78 @@ def make_body_pixel_step(prior: GatedPixelCNN, audio_enc: AudioEncoder, vq_body:
         params = [p for m in models.values() for p in m.parameters()]
         return PixelState(models, SkipNonfiniteAdam(params, learning_rate, max_grad_norm))
 
+    def inputs(state: PixelState, batch, generator) -> tuple:
+        """(tokens, speaker, aud_feat, keep) of this step: the frozen encode
+        where the batch has no tokens, the keep mask drawn where it has
+        none."""
+        tokens = batch.get("tokens")
+        if tokens is None:
+            tokens = encode(batch["poses"])
+        tokens = tokens.long()
+        keep = batch.get("aud_keep")
+        if keep is None:
+            if generator is None:
+                raise ValueError("the body-pixel step draws its audio dropout from a "
+                                 "generator: pass one, or batch['aud_keep']")
+            # drawn for the global batch; this rank keeps its rows
+            B, H = tokens.shape[:2]
+            dp, rank = (1, 0) if state.mesh is None else (state.mesh.dp, state.mesh.dp_rank)
+            keep = draw_aud_keep(B * dp, H, generator, tokens.device)[rank * B:(rank + 1) * B]
+        return tokens, batch["speaker"].long(), batch["aud_feat"], keep
+
+    def work(state: PixelState, made) -> tuple:
+        """The step's device work on the inputs `made()` gives: forward,
+        cross-entropy, backward, the optimizer, the statistics put back on a
+        skip -> (ce_loss, grad), 0-dim tensors (global on a mesh)."""
+        with span("forward"):
+            tokens, speaker, aud_feat, keep = made()
+            buffers = _norm_buffers([state.models["audio"]])
+            saved = [b.clone() for b in buffers]
+            opt = state.optimizer
+            opt.zero_grad()
+            feat = state.models["audio"].train()(aud_feat)
+            logits = state.models["prior"].train()(tokens, speaker, feat, keep)
+            flat = logits.reshape(-1, logits.shape[-1]).float()
+            ce = global_mean(F.cross_entropy(flat, tokens.reshape(-1), reduction="none"),
+                             state.mesh)
+        with span("backward"):
+            ce.backward()
+        with span("optimizer"):      # the clip's norm, also reported as a metric
+            norm = opt.grad_norm()
+        ce = _global({"ce_loss": ce.detach()}, state.mesh)["ce_loss"]
+        _restore(opt.step(norm), buffers, saved)
+        return ce, norm.detach()
+
+    def signature(state: PixelState, args: tuple) -> tuple:
+        """What a graph of `work` holds as constants: the inputs' device,
+        shapes and dtypes, the optimizer's hyper-parameters, the addresses
+        of the tensors it writes in place, the backends' math settings."""
+        opt = state.optimizer
+        moments = opt.adam.state
+        group = opt.adam.param_groups[0]
+        return (args[0].device, tuple((x.shape, x.dtype) for x in args),
+                group["lr"], group["betas"], group["eps"], opt.max_norm,
+                tuple(t.data_ptr() for t in opt.params),
+                tuple(st[k].data_ptr() if st else 0 for st in map(moments.get, opt.params)
+                      for k in ("exp_avg", "exp_avg_sq")),
+                tuple(b.data_ptr() for b in _norm_buffers([state.models["audio"]])),
+                opt.step_count.data_ptr(), opt.nonfinite.data_ptr(),
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
     def step(state: PixelState, batch, generator: torch.Generator | None = None):
         B, T = batch["aud_feat"].shape[:2]
         with span("train_step", batch=B, frames=T):
-            with span("forward"):
-                tokens = batch.get("tokens")
-                if tokens is None:
-                    tokens = encode(batch["poses"])
-                tokens = tokens.long()
-                B, H = tokens.shape[:2]
-                keep = batch.get("aud_keep")
-                if keep is None:
-                    if generator is None:
-                        raise ValueError("the body-pixel step draws its audio dropout from a "
-                                         "generator: pass one, or batch['aud_keep']")
-                    # drawn for the global batch; this rank keeps its rows
-                    dp, rank = ((1, 0) if state.mesh is None
-                                else (state.mesh.dp, state.mesh.dp_rank))
-                    keep = draw_aud_keep(B * dp, H, generator, tokens.device)[
-                        rank * B:(rank + 1) * B]
-                buffers = _norm_buffers([state.models["audio"]])
-                saved = [b.clone() for b in buffers]
-                opt = state.optimizer
-                opt.zero_grad()
-                feat = state.models["audio"].train()(batch["aud_feat"])
-                logits = state.models["prior"].train()(tokens, batch["speaker"].long(), feat,
-                                                        keep)
-                flat = logits.reshape(-1, logits.shape[-1]).float()
-                ce = global_mean(F.cross_entropy(flat, tokens.reshape(-1), reduction="none"),
-                                 state.mesh)
-            with span("backward"):
-                ce.backward()
-            with span("optimizer"):      # the clip's norm, also reported as a metric
-                norm = opt.grad_norm()
-            metrics = _global({"ce_loss": ce.detach()}, state.mesh)
-            _restore(opt.step(norm), buffers, saved)
+            if replayable(batch["aud_feat"].device, state.mesh, state.models.values()):
+                args = inputs(state, batch, generator)
+                ce, norm = state.graph.run(lambda: signature(state, args), args,
+                                            lambda *a: work(state, lambda: a),
+                                            state.optimizer.params)
+            else:
+                ce, norm = work(state, lambda: inputs(state, batch, generator))
             state.step += 1
-            return state, {**metrics, "grad": norm.detach(),
-                           "nonfinite_skips": opt.nonfinite.clone()}
+            return state, {"ce_loss": ce, "grad": norm,
+                           "nonfinite_skips": state.optimizer.nonfinite.clone()}
 
     return init_state, step
 

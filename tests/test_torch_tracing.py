@@ -9,9 +9,10 @@ On the card (marker `cuda`; this file imports no JAX):
 
 holds `host_sync` to the synchronising calls that
 `torch.cuda.set_sync_debug_mode("warn")` reports in one `generate`, one
-`get_mfcc` + `generate_body`, one body-VQ step and one body-pixel step at
-the benchmark's widths: every read from the card and copy to it on those
-paths goes through `tracing.to_host` / `to_device`."""
+`get_mfcc` + `generate_body`, one body-VQ step and one replayed body-pixel
+step at the benchmark's widths: every read from the card and copy to it on
+those paths goes through `tracing.to_host` / `to_device`, and the replay
+makes none."""
 from __future__ import annotations
 
 import json
@@ -178,6 +179,8 @@ def test_toy_traced_cell_reads_the_new_metrics(toy_root, cell):
     assert got[SYNCS[cell]] == syncs
     entry = {"toy-gen": "generate", "toy-body": "body_stage"}.get(cell, "train_step")
     assert tracing.snapshot()["roots"][entry]["count"] > 0
+    if entry == "train_step":        # the CPU captures no step: the share reads nothing
+        assert harness.metric_reader("graph_steps_pct.train", spec["here"])(run) is None
     # untraced, the program records nothing and the readers read nothing
     tracing.reset()
     out = harness.execute(spec, 2 ** 40 + 18, 0.5, False, "cpu")
@@ -255,6 +258,9 @@ def test_host_sync_counts_every_sync_on_the_card(tmp_path):
              "tokens": torch.randint(0, vq["code_num"], (B, T // 4, 2), device="cuda"),
              "aud_keep": torch.rand(B, T // 4, device="cuda") < 0.9}
     px_step(pstate, batch)
+    px_step(pstate, batch)                      # captures the step's CUDA graph
     got["body_pixel_step"] = _sync_calls(lambda: px_step(pstate, batch))
     print("sync calls (sync-debug, host_sync):", got)
-    assert all(n == counted > 0 for n, counted in got.values()), got
+    assert all(n == counted for n, counted in got.values()), got
+    # every path reads from the card but the body-pixel step's replay
+    assert all((n > 0) == (name != "body_pixel_step") for name, (n, _) in got.items()), got

@@ -45,6 +45,7 @@ from talkshow_torch.ops import vq as tvq
 from talkshow_torch.train import __main__ as cli
 from talkshow_torch.train import optim as topt
 from talkshow_torch.train import steps as tsteps
+from talkshow_torch.train.graph import replayable
 from talkshow_torch.train.trainer import Trainer, step_seed
 
 torch.set_num_threads(2)
@@ -457,6 +458,9 @@ def _steps_match_jax(run, n_steps):
     # the Adam chain's plain twin once a step, and no read back from the device
     assert counts["grad_stats_plain"] == counts["adam_apply_plain"] == n_steps
     assert counts["host_sync"] == 0
+    # on the CPU every step runs eagerly: nothing captured, nothing replayed
+    assert counts["train_graph_capture"] == counts["train_graph_replay"] == 0
+    assert not state.graph.captured
     _assert_state_close(state, states[n_steps], f"after {n_steps}", bh)
 
 
@@ -471,6 +475,21 @@ def test_vertical_only_pixel_step_matches_jax(jax_run_vertical, n_steps):
     (no fusion_h, no horizontal stack), the tolerances of the test above."""
     assert "fusion_h" not in jax_run_vertical["states"][0].params["prior"]
     _steps_match_jax(jax_run_vertical, n_steps)
+
+
+@pytest.mark.parametrize("device, mesh, hook, replays", [
+    ("cuda", None, None, True), ("cuda", "mesh", None, False), ("cpu", None, None, False),
+    ("cuda", None, "parameter", False), ("cuda", None, "module", False)])
+def test_step_replays_only_on_a_card_without_a_mesh(device, mesh, hook, replays):
+    """The body-pixel step replays a CUDA graph on a CUDA device with no
+    mesh and no hook; on the CPU, on a mesh (collectives) and with a hook on
+    a parameter or a module (Python a replay would skip) it runs eagerly."""
+    model = torch.nn.Sequential(torch.nn.Linear(2, 2))
+    if hook == "parameter":
+        model[0].weight.register_hook(lambda g: g)
+    elif hook == "module":
+        model[0].register_forward_hook(lambda mod, args, out: out)
+    assert replayable(torch.device(device), mesh, [model]) is replays
 
 
 def test_tokens_given_equal_frozen_encode(jax_run):
